@@ -1,0 +1,258 @@
+"""Multi-hop FL simulator — the paper's §VI experiment (port of
+:mod:`repro.fed.simulator`, host backend with flat plans).
+
+K clients train a d = 7850 logistic-regression model on synthetic MNIST.
+Per round:
+
+  1. every client takes one SGD step on its local minibatch → effective
+     gradient g_k = −lr·∇_k;
+  2. the round's aggregation topology — the chain, a permuted chain via
+     ``order_fn``, or any compiled :class:`~repro_torch.agg.AggPlan` —
+     aggregates {D_k·g_k} with the configured Algorithm 1–5 (error
+     feedback persists across rounds);
+  3. the PS applies w ← w + γ_1 / D.
+
+Rounds run on ``cuda`` unless the simulator is built with another
+``device``; with no card and no ``device="cpu"`` construction raises.
+Minibatch draws come from a CPU ``torch.Generator`` seeded by
+:meth:`Simulator.run`, or are passed in by the caller
+(:meth:`Simulator.round_fn`'s ``batch_idx``), so a test can replay
+another implementation's draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.agg.plan import AggPlan, Topology, compile_plan, execute
+from repro_torch.configs.paper_mnist import PaperConfig
+from repro_torch.core import tcs as tcs_mod
+from repro_torch.core.algorithms import AggConfig, AggKind, HopStats
+from repro_torch.data.federated import FederatedData, client_minibatch
+from repro_torch.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Logistic-regression model (w: [784, 10], b: [10] — d = 7850)
+# ---------------------------------------------------------------------------
+
+class LogisticRegression(nn.Module):
+    """``logits = x @ w + b`` with the reference's parameter layout."""
+
+    def __init__(self, pc: PaperConfig):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(pc.input_dim, pc.num_classes))
+        self.b = nn.Parameter(torch.zeros(pc.num_classes))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x @ self.w + self.b
+
+
+def lr_init(pc: PaperConfig, device: DeviceLike = None) -> dict:
+    dev = resolve_device(device)
+    return {"w": torch.zeros((pc.input_dim, pc.num_classes), device=dev),
+            "b": torch.zeros((pc.num_classes,), device=dev)}
+
+
+def _logits(params: dict, x: Tensor) -> Tensor:
+    return x @ params["w"] + params["b"]
+
+
+def lr_loss(params: dict, x: Tensor, y: Tensor) -> Tensor:
+    logp = torch.log_softmax(_logits(params, x), dim=-1)
+    return -torch.take_along_dim(logp, y[:, None], dim=1).mean()
+
+
+def lr_accuracy(params: dict, x: Tensor, y: Tensor) -> Tensor:
+    return (_logits(params, x).argmax(-1) == y).to(torch.float32).mean()
+
+
+def flatten_lr(params: dict) -> Tensor:
+    return torch.cat([params["w"].reshape(-1), params["b"]])
+
+
+def unflatten_lr(flat: Tensor, pc: PaperConfig) -> dict:
+    wd = pc.input_dim * pc.num_classes
+    return {"w": flat[:wd].reshape(pc.input_dim, pc.num_classes),
+            "b": flat[wd:wd + pc.num_classes]}
+
+
+def banked_mass(ef: Tensor) -> Tensor:
+    """Per-client ‖e_k‖₁ — the loss bound if client k dies now."""
+    return ef.abs().sum(dim=-1)
+
+
+def dead_banked_mass(ef: Tensor, participation: Tensor) -> Tensor:
+    """Σ over non-participants of ‖e_k‖₁ (the round's ‖e_dead‖)."""
+    dead = 1.0 - torch.clamp(participation, 0.0, 1.0)
+    return (dead * banked_mass(ef)).sum()
+
+
+# ---------------------------------------------------------------------------
+# Simulator
+# ---------------------------------------------------------------------------
+
+class SimState(NamedTuple):
+    round: int              # rounds completed
+    flat_w: Tensor          # [d] global model
+    ef: Tensor              # [K, d] error feedback
+    tcs_prev: Tensor        # [d] w^{t-1} (used by TC algorithms)
+
+
+class RoundLog(NamedTuple):
+    """Per-round telemetry; leaves stay on the device until :meth:`run`
+    reads them after the last round."""
+
+    loss: Tensor            # full-train-set loss after the update
+    stats: HopStats         # per-client §V HopStats, leaves [K]
+    participation: Tensor   # [K] effective mask (participate ∧ alive)
+    ef_mass: Tensor         # [K] ‖e_k‖₁ banked after this round
+    ef_dead_mass: Tensor    # Σ over non-participants of ‖e_k‖₁
+
+
+@dataclasses.dataclass
+class Simulator:
+    """Multi-hop FL simulator over flat aggregation plans (the paper's
+    chain by default)."""
+
+    pc: PaperConfig
+    agg: AggConfig
+    fed: FederatedData
+    local_lr: float = 0.1
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.fed = FederatedData(x=self.fed.x.to(self.device),
+                                 y=self.fed.y.to(self.device))
+        self.k = self.fed.num_clients
+        self.d = self.pc.d
+        # D_k: uniform per-round contribution weights, normalized at the PS
+        self.weights = torch.ones((self.k,), device=self.device)
+        self.model = LogisticRegression(self.pc).to(self.device)
+
+    def init(self) -> SimState:
+        flat = flatten_lr(lr_init(self.pc, self.device))
+        return SimState(round=0, flat_w=flat,
+                        ef=torch.zeros((self.k, self.d), device=self.device),
+                        tcs_prev=flat)
+
+    def client_grads(self, flat_w: Tensor, bx: Tensor, by: Tensor) -> Tensor:
+        """Effective gradients ``g_k = −lr·∇ loss_k`` of every client's
+        minibatch, [K, d] — one batched autograd pass over the model."""
+        params = {n: p.detach()
+                  for n, p in unflatten_lr(flat_w, self.pc).items()}
+
+        def loss(p, x, y):
+            logits = torch.func.functional_call(self.model, p, (x,))
+            logp = torch.log_softmax(logits, dim=-1)
+            return -torch.take_along_dim(logp, y[:, None], dim=1).mean()
+
+        grads = torch.func.vmap(torch.func.grad(loss),
+                                in_dims=(None, 0, 0))(params, bx, by)
+        return -self.local_lr * torch.cat(
+            [grads["w"].reshape(self.k, -1), grads["b"]], dim=1)
+
+    def round_fn(self, state: SimState, plan: AggPlan,
+                 participate: Optional[Tensor] = None, *,
+                 batch_idx: Optional[Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        """One round → ``(state, RoundLog)``.
+
+        ``batch_idx`` ([K, batch]) replays given minibatch draws; otherwise
+        they come from ``generator``.
+        """
+        bx, by = client_minibatch(self.fed, self.pc.batch_size, generator,
+                                  idx=batch_idx)
+        return self.aggregate_step(state, plan,
+                                   self.client_grads(state.flat_w, bx, by),
+                                   participate)
+
+    def aggregate_step(self, state: SimState, plan: AggPlan, grads: Tensor,
+                       participate: Optional[Tensor] = None):
+        """Aggregate the clients' effective gradients ``grads`` [K, d] over
+        ``plan`` and update the global model → ``(state, RoundLog)``."""
+        pc, cfg = self.pc, self.agg
+        global_mask = None
+        tcs_prev = state.tcs_prev
+        if cfg.kind in (AggKind.TC_SIA, AggKind.CL_TC_SIA):
+            global_mask = tcs_mod.global_mask(
+                tcs_mod.TCSState(tcs_prev), state.flat_w, cfg.q_global)
+            tcs_prev = state.flat_w
+        res = execute(cfg, plan, grads, state.ef, self.weights,
+                      global_mask=global_mask, participate=participate)
+        alive = torch.as_tensor(plan.alive, dtype=torch.float32,
+                                device=self.device)
+        part = alive if participate is None else participate * alive
+        d_total = torch.clamp((self.weights * part).sum(), min=1e-9)
+        flat_new = state.flat_w + res.aggregate / d_total
+        new_state = SimState(round=state.round + 1, flat_w=flat_new,
+                             ef=res.e_new, tcs_prev=tcs_prev)
+        log = RoundLog(
+            loss=lr_loss(unflatten_lr(flat_new, pc),
+                         self.fed.x.reshape(-1, pc.input_dim),
+                         self.fed.y.reshape(-1)),
+            stats=res.stats, participation=part,
+            ef_mass=banked_mass(res.e_new),
+            ef_dead_mass=dead_banked_mass(res.e_new, part))
+        return new_state, log
+
+    def run(self, rounds: int, *, seed: int = 0, eval_every: int = 10,
+            test_x: Optional[Tensor] = None, test_y: Optional[Tensor] = None,
+            participate_fn: Optional[Callable] = None,
+            order_fn: Optional[Callable] = None,
+            topology: Optional[Topology] = None) -> dict:
+        """Train for ``rounds`` → dict of curves: ``loss``, ``bits`` and
+        ``nnz`` per round, ``accuracy`` as (round, acc) pairs every
+        ``eval_every`` rounds and at the last, plus the final ``state``.
+
+        ``participate_fn(r, state) -> [K]`` gives each round's straggler
+        mask. The aggregation topology is the paper's chain, or the fixed
+        ``topology`` (anything :func:`repro_torch.agg.compile_plan` takes,
+        e.g. a ``star_tree``), or per round ``order_fn(r, state) -> [K]``, a
+        permuted chain visiting order (compiled once per distinct order).
+        Nothing is read back from the device until the last round has been
+        issued.
+        """
+        if topology is not None and order_fn is not None:
+            raise ValueError("pass either topology or order_fn, not both")
+        gen = torch.Generator().manual_seed(seed)
+        state = self.init()
+        fixed = compile_plan(self.k if topology is None else topology,
+                             num_clients=self.k)
+        plans: dict = {}
+
+        def plan_for(r: int, state: SimState) -> AggPlan:
+            if order_fn is None:
+                return fixed
+            key = tuple(int(i) for i in order_fn(r, state))
+            if key not in plans:
+                plans[key] = compile_plan(list(key), num_clients=self.k)
+            return plans[key]
+
+        logs, accs = [], []
+        for r in range(rounds):
+            part = None
+            if participate_fn is not None:
+                part = torch.as_tensor(participate_fn(r, state),
+                                       dtype=torch.float32,
+                                       device=self.device)
+            state, log = self.round_fn(state, plan_for(r, state), part,
+                                       generator=gen)
+            logs.append(log)
+            if test_x is not None and (r % eval_every == 0
+                                       or r == rounds - 1):
+                params = unflatten_lr(state.flat_w, self.pc)
+                accs.append((r, lr_accuracy(params, test_x.to(self.device),
+                                            test_y.to(self.device))))
+        return {"state": state,
+                "loss": [float(log.loss) for log in logs],
+                "bits": [float(log.stats.bits.sum()) for log in logs],
+                "nnz": [float(log.stats.nnz_out.sum()) for log in logs],
+                "accuracy": [(r, float(a)) for r, a in accs]}

@@ -1,0 +1,97 @@
+"""Boundaries of the port: it never imports JAX or the JAX package, and its
+entry points never quietly fall back to the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import PAPER
+from repro_torch.core.algorithms import AggConfig
+from repro_torch.data import FederatedData
+from repro_torch.fed import Simulator
+from repro_torch.kernels import level, ops
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts), path
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_and_chip_smoke_never_import_jax_or_the_reference():
+    files = [p for _, p in _modules()] + [REPO / "chip_smoke.py"]
+    for path in files:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    names = [name for name, _ in _modules()]
+    code = ("import importlib, sys\n"
+            f"for m in {names!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('PASS', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "PASS" in proc.stdout, proc.stderr
+
+
+def _fed(k=3):
+    return FederatedData(x=torch.zeros(k, 4, PAPER.input_dim),
+                         y=torch.zeros(k, 4, dtype=torch.int64))
+
+
+def test_simulator_without_a_device_raises_where_there_is_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulator(PAPER, AggConfig(), _fed())
+    sim = Simulator(PAPER, AggConfig(), _fed(), device="cpu")
+    assert sim.init().flat_w.device.type == "cpu"
+
+
+def test_kernel_entries_follow_the_tensors_device():
+    before = [k.launches for k in level.KERNELS]
+    g = torch.ones(2, 10)
+    v = torch.ones(2)
+    out = ops.sparsify_ef_level(g, g, None, v, v, v)
+    assert out[0].device.type == "cpu"
+    assert [k.launches for k in level.KERNELS] == before
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="CUDA"):
+            level.chain_accum_level_cuda(g, g, v)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=tmp_path, env=dict(os.environ))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

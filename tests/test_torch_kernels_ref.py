@@ -1,0 +1,160 @@
+"""Plain PyTorch versions of the level kernels against the JAX package.
+
+Each plain version (``repro_torch.kernels.ref``) is held bit for bit
+(tolerance: none) against the Pallas kernel it stands for, run in interpret
+mode on the CPU, and against ``repro.kernels.ref`` under ``jax.jit``, over
+every variant the chip smoke sweeps: global mask none / lane-shared [d] /
+per-lane [W, d], mask_in on and off, the pinned ‖e′‖² on and off, a
+``valid == 0`` lane, a ``p == 0`` lane and a τ = +inf lane, at a ragged
+d = 2·8192 + 77 (two full 8×1024 tiles and a partial one).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import level as jlevel
+from repro.kernels import ref as jref
+from repro_torch.kernels import level as tlevel
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(1)
+
+W, D = 4, 2 * 8192 + 77
+
+
+@pytest.fixture(scope="module")
+def x():
+    rng = np.random.default_rng(0)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return dict(
+        g=f(W, D), e=f(W, D) * 0.3,
+        gin=(f(W, D) * (rng.random((W, D)) < 0.3)).astype(np.float32),
+        weight=np.array([0.37, 1.3, 0.71, 2.2], np.float32),
+        tau=np.array([1.0, 0.5, np.inf, 1.5], np.float32),
+        part=np.array([1, 0, 1, 1], np.float32),
+        valid=np.array([1, 1, 1, 0], np.float32),
+        gm=(rng.random(D) < 0.1).astype(np.float32),
+        gmw=(rng.random((W, D)) < 0.1).astype(np.float32),
+        mask=(rng.random((W, D)) < 0.05).astype(np.float32))
+
+
+def _same(a, b):
+    a, b = np.asarray(a), b.numpy()
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.dtype, b.dtype)
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    np.testing.assert_array_equal(a, b)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+GMASKS = [None, "gm", "gmw"]
+
+
+@pytest.mark.parametrize("gm", GMASKS)
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("with_err", [False, True])
+def test_cl_fuse_level_plain_matches_pallas_and_ref(x, gm, with_mask,
+                                                    with_err):
+    gmask = x[gm] if gm else None
+    mask = x["mask"] if with_mask else None
+    args = (x["g"], x["e"], x["gin"], x["weight"], x["tau"], x["part"],
+            x["valid"])
+    pallas = jlevel.cl_fuse_level_pallas(
+        *args, None if gmask is None else jnp.asarray(gmask),
+        None if mask is None else jnp.asarray(mask), with_err=with_err,
+        interpret=True)
+    jitted = jax.jit(lambda *a: jref.ref_cl_fuse_level(
+        *a, with_err=with_err))(*args, gmask, mask)
+    got = tref.ref_cl_fuse_level(*map(_t, args), _t(gmask), _t(mask),
+                                 with_err=with_err)
+    assert len(got) == len(pallas) == 4 + with_err
+    for p, j, t in zip(pallas, jitted, got):
+        _same(p, t)
+        _same(j, t)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("with_err", [False, True])
+def test_sparsify_ef_level_plain_matches_pallas_and_ref(x, with_mask,
+                                                        with_err):
+    mask = x["mask"] if with_mask else None
+    pallas = jlevel.sparsify_ef_level_pallas(
+        x["g"], x["e"], None if mask is None else jnp.asarray(mask),
+        x["weight"], x["tau"], x["valid"], with_err=with_err,
+        interpret=True)
+    jitted = jax.jit(lambda *a: jref.ref_sparsify_ef_level(
+        *a, with_err=with_err))(x["g"], x["e"], mask, x["weight"], x["tau"],
+                                x["valid"])
+    got = tref.ref_sparsify_ef_level(
+        _t(x["g"]), _t(x["e"]), _t(mask), _t(x["weight"]), _t(x["tau"]),
+        _t(x["valid"]), with_err=with_err)
+    assert len(got) == len(pallas) == 3 + with_err
+    for p, j, t in zip(pallas, jitted, got):
+        _same(p, t)
+        _same(j, t)
+
+
+@pytest.mark.parametrize("gm", GMASKS)
+def test_chain_accum_level_plain_matches_pallas_and_ref(x, gm):
+    gmask = x[gm] if gm else None
+    pallas = jlevel.chain_accum_level_pallas(
+        x["gin"], x["g"], x["valid"],
+        None if gmask is None else jnp.asarray(gmask), interpret=True)
+    jitted = jax.jit(jref.ref_chain_accum_level)(x["gin"], x["g"],
+                                                 x["valid"], gmask)
+    got = tref.ref_chain_accum_level(_t(x["gin"]), _t(x["g"]),
+                                     _t(x["valid"]), _t(gmask))
+    for p, j, t in zip(pallas, jitted, got):
+        _same(p, t)
+        _same(j, t)
+
+
+@pytest.mark.parametrize("gm", GMASKS)
+@pytest.mark.parametrize("include_gamma", [False, True])
+def test_fused_operand_matches_ref(x, gm, include_gamma):
+    gmask = x[gm] if gm else None
+    want = jax.jit(lambda *a: jref.fused_operand(
+        *a, include_gamma=include_gamma))(x["g"], x["e"], x["gin"],
+                                          x["weight"], x["part"], gmask)
+    got = tref.fused_operand(_t(x["g"]), _t(x["e"]), _t(x["gin"]),
+                             _t(x["weight"]), _t(x["part"]), _t(gmask),
+                             include_gamma=include_gamma)
+    _same(want, got)
+
+
+def test_pinned_err_fold_matches_ref_tile_by_tile():
+    # many single-tile lanes over a wide dynamic range: each lane's value
+    # is one tile's fold, so any change of rounding in the fold shows
+    rng = np.random.default_rng(4)
+    e = (rng.standard_normal((64, 8192))
+         * np.exp(rng.uniform(-4, 4, (64, 8192)))).astype(np.float32)
+    _same(jax.jit(jref.ref_err_sq_level)(e), tref.ref_err_sq_level(_t(e)))
+
+
+def test_ops_run_plain_versions_on_cpu_tensors(x):
+    before = [k.launches for k in tlevel.KERNELS]
+    args = [_t(x[k]) for k in ("gin", "g", "valid")]
+    for mode in ("auto", "always", "ref"):
+        got = tops.chain_accum_level(*args, mode=mode)
+        for a, b in zip(tref.ref_chain_accum_level(*args), got):
+            assert torch.equal(a, b)
+    assert [k.launches for k in tlevel.KERNELS] == before
+    assert tops.resolve("auto", torch.device("cpu")) == (True, False)
+    assert tops.resolve("auto", torch.device("cuda")) == (True, True)
+    assert tops.resolve("never", torch.device("cuda")) == (False, False)
+    assert tops.resolve("ref", torch.device("cuda")) == (True, False)
+    with pytest.raises(ValueError):
+        tops.resolve("sometimes", torch.device("cpu"))
+
+
+def test_cohort_gmask_is_not_ported(x):
+    args = [_t(x[k]) for k in ("gin", "g", "valid")]
+    with pytest.raises(NotImplementedError, match="A10"):
+        tops.chain_accum_level(*args, _t(x["gm"][None]), gmask_cohorts=1)
