@@ -6,23 +6,40 @@ a CUDA card and the CUDA toolkit (nvcc). It needs no network and one card.
 Phases (any failure exits non-zero and prints no result):
 
 1. device — the card's name and power limit, the torch/CUDA versions, and
-   the build of the level kernels from ``src/repro_torch/kernels/csrc``
-   (nvcc's register and shared-memory report);
+   the build of the kernels from ``src/repro_torch/kernels/csrc`` (one
+   nvcc per source, all started together; nvcc's register and
+   shared-memory report);
 2. kernels — every level kernel over its variants (global mask none /
    [d] / [W, d], mask_in on/off, pinned ‖e′‖² on/off, a ``valid == 0``
-   lane, a ``p == 0`` lane, a τ = +inf lane) at the paper's shapes
-   (W = 1 and 28, d = 7850) and a large ragged one (W = 8,
-   d = 2**23 + 125), each output held bit for bit against the kernel's
-   plain PyTorch version run on the CPU on the same inputs; then each
-   kernel timed with CUDA events beside its plain version on the card and
-   its device-memory bound;
-3. main path — the paper simulator (K = 28, d = 7850, ``kernel_mode=
-   "auto"``) on the card, after one warm-up round of each algorithm, for
-   20 rounds of each algorithm on the chain and of each fused algorithm on
-   a star tree, with launch counts read around those runs; the loss must
-   fall, CL-SIA's bits must equal the §V closed form every round on both
-   topologies, and a short run must agree with the same run on the CPU;
-   then torch.profiler reads the device-busy share of a few rounds.
+   lane, a ``p == 0`` lane, a τ = +inf lane) and every τ-search kernel
+   over its variants (γ_in on/off × the three global-mask forms, a
+   ``p == 0`` lane, the histogram at branch 64 and at a branch past
+   shared memory, magnitudes on the histogram's bin edges, taus in any
+   order for ``count_ge_level``) at the paper's shapes (W = 1 and 28,
+   d = 7850) and a large ragged one (W = 8, d = 2**23 + 125; one variant
+   per τ-search kernel there), each output held bit for bit against the
+   kernel's plain PyTorch version run on the CPU on the same inputs; then
+   each kernel timed with CUDA events beside its plain version on the card
+   and its bound;
+3. main path, exact Top-Q — the paper simulator (K = 28, d = 7850,
+   ``kernel_mode="auto"``) on the card, after one warm-up round of each
+   algorithm, for 20 rounds of each algorithm on the chain and of each
+   fused algorithm on a star tree, with launch counts read around those
+   runs; the loss must fall, CL-SIA's bits must equal the §V closed form
+   every round on both topologies, and a short run must agree with the
+   same run on the CPU; then torch.profiler reads the device-busy share of
+   a few rounds;
+4. main path, threshold Top-Q — the same simulator with
+   ``topq_impl="threshold"`` for each fused algorithm on the chain and the
+   star, under ``tau_impl="scan"`` (3 rounds of 64 candidates) and
+   ``"hist"`` (2 rounds), 20 rounds each after a warm-up, with launch
+   counts read around the runs and held to the prediction; hist must equal
+   the scan at 2 rounds bit for bit (bits and loss per round), 3 rounds on
+   the card fed the CPU run's gradients must give the CPU run's τ, count
+   integers, model and bits bit for bit (loss to rtol 1e-4), the loss must
+   fall, and ``threshold_for_topq(count_fn=count_ge_level)`` on the card
+   must give the default search's τ; torch.profiler reads the device-busy
+   share of a threshold round.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -41,10 +58,15 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 LARGE = (8, 2 ** 23 + 125)
 PAPER_SHAPES = [(1, 7850), (28, 7850)]
 ROUNDS = 20
 SEED = 0
+BRANCH = 64                        # candidates per τ-search round
+WIDE_BRANCH = 256                  # a histogram past shared memory
+THRESHOLD = {"scan": dict(tau_impl="scan", hist_rounds=3),
+             "hist": dict(tau_impl="hist", hist_rounds=2)}
 
 
 def log(*args):
@@ -210,22 +232,197 @@ def check_kernels(level, ref) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (continued): the τ-search kernels
+# ---------------------------------------------------------------------------
+
+def tau_variants(large: bool):
+    """(kernel name, options) for the τ-search kernels; one variant each
+    at the large shape, where the plain versions on the CPU take longest."""
+    if large:
+        yield "count_ge_fused_level", dict(gamma=True, gm="gm")
+        yield "hist_topq_level", dict(gamma=True, gm="gm", branch=BRANCH)
+        yield "count_ge_level", dict()
+        return
+    for gm in (None, "gm", "gmw"):
+        for gamma in (False, True):
+            yield "count_ge_fused_level", dict(gamma=gamma, gm=gm)
+            for branch in (BRANCH, WIDE_BRANCH):
+                yield "hist_topq_level", dict(gamma=gamma, gm=gm,
+                                              branch=branch)
+    yield "hist_topq_level", dict(gamma=False, gm=None, branch=BRANCH,
+                                  edges=True)
+    yield "count_ge_level", dict()
+
+
+def tau_tables(sp, ref, t: dict, opt: dict, branch: int):
+    """The bracket tables of a first search round over the variant's
+    operand (computed on the CPU; both sides get the same tables)."""
+    op = ref.fused_operand(t["g"], t["e"], t["gin"], t["weight"],
+                           t["part"], t[opt["gm"]] if opt["gm"] else None,
+                           include_gamma=opt["gamma"])
+    hi = torch.clamp(op.abs().amax(-1), min=1e-30) * sp._HI_SCALE
+    return sp._hist_tables(torch.zeros_like(hi), hi, branch)
+
+
+def edge_inputs(sp, ref, cpu: dict) -> tuple:
+    """→ (inputs, tables): operand = g exactly (w = 1, e = 0), with g on
+    the bin edges of ``tables`` — the FMA-rounded round-2 candidates, tau1
+    and the bracket tops."""
+    w, d = cpu["g"].shape
+    plain = dict(cpu, e=torch.zeros_like(cpu["g"]),
+                 weight=torch.ones(w), part=torch.ones(w))
+    tables = tau_tables(sp, ref, plain, dict(gm=None, gamma=False), BRANCH)
+    g = ref.hist_edge_magnitudes(tables, d, seed=SEED)
+    return dict(plain, g=g), tables
+
+
+def call_tau(fns, name: str, t: dict, opt: dict, aux: dict):
+    """Call τ-search kernel ``name`` (CUDA wrapper or plain version) on
+    tensors ``t``; ``aux`` holds its taus or tables on the same device."""
+    if name == "count_ge_level":
+        return (fns[name](t["g"], aux["taus_any"]),)
+    gm = t[opt["gm"]] if opt["gm"] else None
+    operand = (t["g"], t["e"], t["gin"], t["weight"], t["part"])
+    if name == "count_ge_fused_level":
+        return (fns[name](*operand, aux["tables"][0], gm,
+                          include_gamma=opt["gamma"]),)
+    return fns[name](*operand, aux["tables"], gm, include_gamma=opt["gamma"])
+
+
+def tau_cost(name: str, w: int, d: int, n: int) -> tuple:
+    """(bytes, f32 operations) the timed variant must spend: each input
+    read once, each output written once; per element the operand's flops
+    and the binary searches' compares (and candidate fmas)."""
+    search = math.ceil(math.log2(n + 1))
+    if name == "count_ge_level":
+        return (w * d + 2 * w * n) * 4, w * d * (1 + search)
+    operand = (3 * w * d + d + 2 * w) * 4          # g, e, γ_in, gm[d], w, p
+    flops = 6 + search                              # 2 fma, 1−m, ·, |·|
+    if name == "count_ge_fused_level":
+        return operand + 2 * w * n * 4, w * d * flops
+    nb = n + 1
+    tables = w * (n + 3 * nb) * 4
+    outputs = w * (nb * nb + nb) * 4
+    return operand + tables + outputs, w * d * (flops + 3 * search + 1)
+
+
+TAU_TIMED = {"count_ge_fused_level": dict(gamma=True, gm="gm"),
+             "hist_topq_level": dict(gamma=True, gm="gm", branch=BRANCH),
+             "count_ge_level": dict()}
+
+
+def check_tau_kernels(level, ref, sp) -> dict:
+    cuda_fns = {"count_ge_fused_level": level.count_ge_fused_level_cuda,
+                "hist_topq_level": level.hist_topq_level_cuda,
+                "count_ge_level": level.count_ge_level_cuda}
+    plain_fns = {"count_ge_fused_level": ref.ref_count_ge_fused_level,
+                 "hist_topq_level": ref.ref_hist_topq_level,
+                 "count_ge_level": ref.ref_count_ge_level}
+    report = {n: dict(max_abs_err=0.0, max_abs_err_plain_on_card=0.0,
+                      checked=0, shapes=[]) for n in cuda_fns}
+    shared_max = level.hist_shared_max_branch()
+    if not BRANCH <= shared_max < WIDE_BRANCH:
+        raise SystemExit(f"FAIL the histogram at branch {WIDE_BRANCH} "
+                         f"would not take the global-atomics variant "
+                         f"(shared memory holds up to {shared_max})")
+    log(f"[tau] histogram in shared memory up to branch {shared_max}; "
+        f"branch {WIDE_BRANCH} takes the global-atomics variant")
+    dev = torch.device("cuda")
+    for si, (w, d) in enumerate(PAPER_SHAPES + [LARGE]):
+        t0 = time.perf_counter()
+        large = (w, d) == LARGE
+        x = make_inputs(w, d, SEED + 10 + si)
+        cpu = {k: torch.from_numpy(v) for k, v in x.items()}
+        rng = np.random.default_rng(SEED + si)
+        taus = np.abs(rng.standard_normal((w, BRANCH))).astype(np.float32)
+        taus[:, 5] = taus[:, 9]
+        taus[:, 7], taus[:, 8], taus[:, 11] = np.inf, -np.inf, 0.0
+        for name, opt in tau_variants(large):
+            aux = {"taus_any": torch.from_numpy(taus)}
+            if opt.get("edges"):
+                inp, aux["tables"] = edge_inputs(sp, ref, cpu)
+            else:
+                inp = cpu
+                if name != "count_ge_level":
+                    aux["tables"] = tau_tables(sp, ref, inp, opt,
+                                               opt.get("branch", BRANCH))
+            gpu = {k: v.to(dev) for k, v in inp.items()}
+            aux_gpu = {k: (tuple(u.to(dev) for u in v)
+                           if isinstance(v, tuple) else v.to(dev))
+                       for k, v in aux.items()}
+            got = call_tau(cuda_fns, name, gpu, opt, aux_gpu)
+            torch.cuda.synchronize()
+            want = call_tau(plain_fns, name, inp, opt, aux)
+            on_card = call_tau(plain_fns, name, gpu, opt, aux_gpu)
+            r = report[name]
+            for a, b, c in zip(want, got, on_card):
+                r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(a, b))
+                r["max_abs_err_plain_on_card"] = max(
+                    r["max_abs_err_plain_on_card"], max_abs_diff(c, b))
+                if not bitwise_equal(a, b):
+                    raise SystemExit(
+                        f"FAIL {name} {opt} at W={w} d={d}: kernel differs "
+                        f"from its plain version on the CPU "
+                        f"(max |diff| {max_abs_diff(a, b)})")
+            r["checked"] += 1
+            del gpu, aux_gpu
+        log(f"[kernels] W={w} d={d}: the τ-search kernels equal their plain "
+            f"CPU versions integer for integer "
+            f"({time.perf_counter() - t0:.1f} s)")
+        gpu = {k: v.to(dev) for k, v in cpu.items()}
+        gpu["part"].fill_(1.0)
+        for name, opt in TAU_TIMED.items():
+            n = BRANCH
+            aux = {"taus_any": torch.from_numpy(taus).to(dev)}
+            if name != "count_ge_level":
+                aux["tables"] = tuple(u.to(dev) for u in tau_tables(
+                    sp, ref, cpu, opt, n))
+            ms = cuda_time_ms(lambda: call_tau(cuda_fns, name, gpu, opt,
+                                               aux), 20 if large else 200)
+            plain_ms = cuda_time_ms(lambda: call_tau(plain_fns, name, gpu,
+                                                     opt, aux),
+                                    5 if large else 50)
+            nbytes, ops = tau_cost(name, w, d, n)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_OPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            report[name]["shapes"].append(dict(
+                W=w, d=d, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_share=bound_ms / ms))
+            log(f"[time] {name} W={w} d={d} B={n}: kernel {ms:.4f} ms, "
+                f"plain on card {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({100 * bound_ms / ms:.1f}% of bound)")
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(level) -> tuple:
+def paper_data():
+    """The paper's configuration and synthetic MNIST on the card."""
     from repro_torch.configs import PAPER
-    from repro_torch.core import comm_cost as cc
-    from repro_torch.core.algorithms import AggConfig, AggKind
     from repro_torch.data import make_synthetic_mnist, partition_iid
-    from repro_torch.fed import Simulator
-    from repro_torch.topo import star_tree
 
     pc = PAPER
     k = pc.num_clients
     train = make_synthetic_mnist(SEED, k * 500, device="cuda")
     test = make_synthetic_mnist(SEED + 1, 2000, device="cuda")
     fed = partition_iid(train, k, torch.Generator().manual_seed(SEED + 2))
+    return pc, fed, test
+
+
+def main_path(level, data) -> dict:
+    from repro_torch.core import comm_cost as cc
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.fed import Simulator
+    from repro_torch.topo import star_tree
+
+    pc, fed, test = data
+    k = pc.num_clients
     kw = dict(q=pc.q, q_global=pc.q_global, q_local=pc.q_local)
     kinds = [AggKind.SIA, AggKind.RE_SIA, AggKind.CL_SIA, AggKind.TC_SIA,
              AggKind.CL_TC_SIA, AggKind.DENSE_IA]
@@ -261,7 +458,7 @@ def main_path(level) -> tuple:
             f"{out['bits'][-1]:.0f}, {1e3 * wall / ROUNDS:.2f} ms/round "
             f"(host clock, synchronized)")
     launches = {fn.__name__.replace("_cuda", ""): fn.launches
-                for fn in level.KERNELS}
+                for fn in level.KERNELS[:3]}
     log(f"[main] kernel launches over the main-path runs: {launches}")
 
     for name, n in launches.items():
@@ -315,6 +512,201 @@ def main_path(level) -> tuple:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the main path under threshold Top-Q
+# ---------------------------------------------------------------------------
+
+class TauRecorder:
+    """Records (τ, per-round counts) of every fused-operand τ search while
+    active, by asking the search for its counts too (τ is unchanged)."""
+
+    def __init__(self, sp):
+        self.sp, self.orig, self.log = sp, sp.threshold_for_topq, []
+
+    def __enter__(self):
+        self.log = []
+
+        def search(x, q, **kw):
+            if kw.get("operand_fn") is None or kw.get("with_counts"):
+                return self.orig(x, q, **kw)
+            tau, counts = self.orig(x, q, with_counts=True, **kw)
+            self.log.append((tau.cpu(), counts.cpu()))
+            return tau
+
+        self.sp.threshold_for_topq = search
+        return self.log
+
+    def __exit__(self, *exc):
+        self.sp.threshold_for_topq = self.orig
+
+
+def card_matches_cpu(sim_card, sim_cpu, label: str, rounds: int = 3):
+    """``rounds`` rounds on the chain, both simulators fed the gradients
+    of the CPU run: τ, counts, model, EF rows and bits bit for bit; the
+    loss (a reduction on each device) to rtol 1e-4."""
+    from repro_torch.agg import compile_plan
+    from repro_torch.core import sparsify as sp
+    from repro_torch.data.federated import client_minibatch
+
+    plan = compile_plan(sim_cpu.k, num_clients=sim_cpu.k)
+    gen = torch.Generator().manual_seed(SEED)
+    s_cpu, s_card = sim_cpu.init(), sim_card.init()
+    worst = 0.0
+    for r in range(rounds):
+        bx, by = client_minibatch(sim_cpu.fed, sim_cpu.pc.batch_size, gen)
+        grads = sim_cpu.client_grads(s_cpu.flat_w, bx, by)
+        with TauRecorder(sp) as taus_cpu:
+            s_cpu, l_cpu = sim_cpu.aggregate_step(s_cpu, plan, grads)
+        with TauRecorder(sp) as taus_card:
+            s_card, l_card = sim_card.aggregate_step(s_card, plan,
+                                                     grads.cuda())
+        same = (len(taus_cpu) == len(taus_card) > 0 and all(
+            bitwise_equal(a, b) and bitwise_equal(c, e)
+            for (a, c), (b, e) in zip(taus_cpu, taus_card)))
+        same = same and all(bitwise_equal(u, v) for u, v in (
+            (s_cpu.flat_w, s_card.flat_w), (s_cpu.ef, s_card.ef),
+            (l_cpu.stats.bits, l_card.stats.bits),
+            (l_cpu.stats.nnz_out, l_card.stats.nnz_out)))
+        rel = abs(float(l_card.loss) - float(l_cpu.loss)) / abs(
+            float(l_cpu.loss))
+        worst = max(worst, rel)
+        if not same or rel > 1e-4:
+            raise SystemExit(f"FAIL {label} round {r}: card and CPU differ "
+                             f"(τ/counts/state/bits equal: {same}, loss rel "
+                             f"{rel:.2e})")
+    log(f"[threshold] {label}: {rounds} rounds on the card vs the CPU with "
+        f"the same gradients: τ ({len(taus_card)} searches per round), "
+        f"counts, model and bits equal bit for bit; loss max rel diff "
+        f"{worst:.2e}")
+
+
+def threshold_path(level, data) -> dict:
+    from repro_torch.core import sparsify as sp
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.fed import Simulator
+    from repro_torch.kernels import ops
+    from repro_torch.topo import star_tree
+
+    pc, fed, test = data
+    k = pc.num_clients
+    kw = dict(q=pc.q, q_global=pc.q_global, q_local=pc.q_local,
+              topq_impl="threshold", hist_branch=BRANCH)
+    kinds = [AggKind.SIA, AggKind.RE_SIA, AggKind.CL_SIA, AggKind.TC_SIA,
+             AggKind.CL_TC_SIA]
+    topos = [("chain", None, k), ("star", star_tree(k), 1)]
+    cfg = lambda kind, impl, **o: AggConfig(kind=kind, **kw,  # noqa: E731
+                                            **{**THRESHOLD[impl], **o})
+    sims = {(kind, impl): Simulator(pc, cfg(kind, impl), fed, device="cuda")
+            for kind in kinds for impl in THRESHOLD}
+    t0 = time.perf_counter()
+    for sim in sims.values():
+        sim.run(1, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"[threshold] warm-up, one round of each: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    names = {"scan": "count_ge_fused_level", "hist": "hist_topq_level"}
+    level.reset_launch_counts()
+    torch.cuda.synchronize()
+    results = {}
+    for impl in THRESHOLD:
+        for kind in kinds:
+            for topo_name, topo, levels in topos:
+                before = {f.__name__: f.launches for f in level.KERNELS}
+                t0 = time.perf_counter()
+                out = sims[(kind, impl)].run(ROUNDS, seed=SEED,
+                                             topology=topo, test_x=test.x,
+                                             test_y=test.y,
+                                             eval_every=ROUNDS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                results[(kind, impl, topo_name)] = out
+                grown = {n.replace("_cuda", ""): f.launches - before[n]
+                         for n, f in ((f.__name__, f) for f in level.KERNELS)}
+                per_round = THRESHOLD[impl]["hist_rounds"] if impl == "scan" \
+                    else 1
+                want = ROUNDS * per_round * levels
+                other = names["hist" if impl == "scan" else "scan"]
+                if grown[names[impl]] != want or grown[other] != 0:
+                    raise SystemExit(
+                        f"FAIL {kind.value} {impl} {topo_name}: launches "
+                        f"{grown}, predicted {names[impl]} = {want}")
+                log(f"[threshold] {kind.value:9s} {impl} {topo_name:5s}: "
+                    f"loss {out['loss'][0]:.4f} -> {out['loss'][-1]:.4f}, "
+                    f"acc {out['accuracy'][-1][1]:.3f}, bits/round "
+                    f"{np.mean(out['bits']):.0f}, "
+                    f"{1e3 * wall / ROUNDS:.2f} ms/round; "
+                    f"{names[impl]} launches {grown[names[impl]]} "
+                    f"(predicted {want})")
+    launches = {name: getattr(level, name + "_cuda").launches
+                for name in names.values()}
+    log(f"[threshold] τ-search launches over the threshold runs: "
+        f"{launches}; level kernels: "
+        + str({f.__name__.replace("_cuda", ""): f.launches
+               for f in level.KERNELS[:3]}))
+    for name in names.values():
+        if launches[name] <= 0:
+            raise SystemExit(f"FAIL {name} was never launched on the "
+                             f"threshold path")
+    for key, out in results.items():
+        if not all(math.isfinite(v) for v in out["loss"]):
+            raise SystemExit(f"FAIL {key}: loss not finite")
+        if not out["loss"][-1] < out["loss"][0]:
+            raise SystemExit(f"FAIL {key}: loss did not fall "
+                             f"({out['loss'][0]} -> {out['loss'][-1]})")
+        if not all(b >= 0 for b in out["bits"]):
+            raise SystemExit(f"FAIL {key}: bad bits")
+
+    # hist ≡ scan at the same two rounds, round by round
+    n_cmp = 5
+    for kind in kinds:
+        scan2 = Simulator(pc, cfg(kind, "scan", hist_rounds=2), fed,
+                          device="cuda")
+        for topo_name, topo, _ in topos:
+            a = scan2.run(n_cmp, seed=SEED, topology=topo)
+            b = sims[(kind, "hist")].run(n_cmp, seed=SEED, topology=topo)
+            if a["bits"] != b["bits"] or a["loss"] != b["loss"]:
+                raise SystemExit(
+                    f"FAIL {kind.value} {topo_name}: hist differs from the "
+                    f"scan at 2 rounds (bits {a['bits']} vs {b['bits']}, "
+                    f"loss {a['loss']} vs {b['loss']})")
+    log(f"[threshold] hist = scan at hist_rounds=2, bits and loss bit for "
+        f"bit over {n_cmp} rounds, every kind on chain and star")
+
+    for kind in kinds:
+        for impl in THRESHOLD:
+            card_matches_cpu(sims[(kind, impl)],
+                             Simulator(pc, cfg(kind, impl), fed,
+                                       device="cpu"),
+                             f"{kind.value} {impl}")
+
+    # the count_fn path: counts over a materialized [28, 7850] operand
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (k, pc.d)).astype(np.float32))
+    want = sp.threshold_for_topq(x, pc.q)
+    level.reset_launch_counts()
+    torch.cuda.synchronize()
+    got = sp.threshold_for_topq(x.cuda(), pc.q, count_fn=ops.count_ge_level)
+    torch.cuda.synchronize()
+    launches["count_ge_level"] = level.count_ge_level_cuda.launches
+    default = sp.threshold_for_topq(x.cuda(), pc.q)
+    if not (bitwise_equal(want, got) and bitwise_equal(want, default)):
+        raise SystemExit("FAIL threshold_for_topq(count_fn=count_ge_level) "
+                         "on the card differs from the default search")
+    if launches["count_ge_level"] != 3:
+        raise SystemExit(f"FAIL count_ge_level launched "
+                         f"{launches['count_ge_level']} times, predicted 3")
+    log(f"[threshold] count_fn=count_ge_level on the card: τ equal to the "
+        f"default search on the card and the CPU; "
+        f"{launches['count_ge_level']} launches (one per round)")
+
+    for impl in THRESHOLD:
+        for topo_name, topo, _ in topos:
+            profile_rounds(sims[(AggKind.CL_SIA, impl)],
+                           f"cl_sia threshold {impl} {topo_name}", topo)
+    return launches
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds, from
     torch.profiler (its own overhead inflates the wall time)."""
@@ -349,6 +741,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import sparsify as sp
     from repro_torch.kernels import level, ref
 
     # full-f32 products on the card, as in the reference
@@ -368,21 +761,32 @@ def main() -> int:
             log("[ptxas]", line.strip())
 
     report = check_kernels(level, ref)
-    launches = main_path(level)
+    report.update(check_tau_kernels(level, ref, sp))
+    data = paper_data()
+    launches = main_path(level, data)
+    launches.update(threshold_path(level, data))
 
-    source = "src/repro_torch/kernels/csrc/level.cu"
+    csrc = "src/repro_torch/kernels/csrc/"
+    source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",
+              "chain_accum_level": "level.cu",
+              "count_ge_fused_level": "tau_search.cu",
+              "hist_topq_level": "tau_search.cu",
+              "count_ge_level": "tau_search.cu"}
     replaces = {"cl_fuse_level": "src/repro/kernels/level.py:395",
                 "sparsify_ef_level": "src/repro/kernels/level.py:197",
-                "chain_accum_level": "src/repro/kernels/level.py:282"}
+                "chain_accum_level": "src/repro/kernels/level.py:282",
+                "count_ge_fused_level": "src/repro/kernels/level.py:561",
+                "hist_topq_level": "src/repro/kernels/level.py:684",
+                "count_ge_level": "src/repro/kernels/level.py:481"}
     kernels = []
     for name, r in report.items():
         large = r["shapes"][-1]
         kernels.append(dict(
-            name=name, route="cuda", source=source,
+            name=name, route="cuda", source=csrc + source[name],
             replaces=replaces[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=large["ms"],
             plain_ms=large["plain_ms"], bound_ms=large["bound_ms"],
-            bound_by="bytes", library_ms=None,
+            bound_by=large.get("bound_by", "bytes"), library_ms=None,
             max_abs_err_plain_on_card=r["max_abs_err_plain_on_card"],
             variants_checked=r["checked"], shapes=r["shapes"]))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

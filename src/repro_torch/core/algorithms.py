@@ -30,7 +30,7 @@ import enum
 import functools
 import math
 import warnings
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -65,8 +65,12 @@ class AggConfig:
     CUDA tensors; ``"never"`` unfused; ``"ref"`` fused with plain bodies.
     ``err_sq_mode`` is ``"jnp"`` (a row sum of e′², comparable with the
     unfused bodies) or ``"kernel"`` (the pinned in-kernel fold order).
-    Only exact Top-Q is ported: ``topq_impl="threshold"`` and
-    ``tau_impl="hist"`` raise ``NotImplementedError``.
+
+    ``topq_impl`` is ``"exact"`` (the full-sort Top-Q) or ``"threshold"``
+    (branch-and-bisect: ``hist_rounds`` rounds of ``hist_branch``
+    candidates, ≥ q survivors). Its τ search ``tau_impl`` is ``"scan"`` (a
+    count pass per round) or ``"hist"`` (one joint digit histogram for
+    ``hist_rounds`` ∈ {1, 2}, with the scan's integers and τ).
     """
 
     kind: AggKind = AggKind.CL_SIA
@@ -75,6 +79,8 @@ class AggConfig:
     q_local: int = 0
     omega: int = 32
     topq_impl: str = "exact"
+    hist_branch: int = 64
+    hist_rounds: int = 3
     tau_impl: str = "scan"
     err_sq_mode: str = "jnp"
     kernel_mode: str = "auto"
@@ -88,17 +94,16 @@ class AggConfig:
         if self.kernel_mode not in kops.MODES:
             raise ValueError(f"unknown kernel_mode {self.kernel_mode!r} "
                              f"(expected one of {kops.MODES})")
-        if self.topq_impl != "exact":
-            if self.topq_impl == "threshold":
-                raise NotImplementedError(
-                    "threshold Top-Q is not ported yet (ROADMAP A7)")
+        if self.topq_impl not in ("exact", "threshold"):
             raise ValueError(f"unknown topq_impl {self.topq_impl!r}")
-        if self.tau_impl != "scan":
-            if self.tau_impl == "hist":
-                raise NotImplementedError(
-                    "tau_impl='hist' belongs to threshold Top-Q, not ported "
-                    "yet (ROADMAP A7)")
-            raise ValueError(f"unknown tau_impl {self.tau_impl!r}")
+        if self.tau_impl not in ("scan", "hist"):
+            raise ValueError(f"unknown tau_impl {self.tau_impl!r} "
+                             f"(expected 'scan' or 'hist')")
+        if self.tau_impl == "hist" and self.hist_rounds not in (1, 2):
+            raise ValueError(
+                "tau_impl='hist' folds the whole τ search into one "
+                f"histogram pass; hist_rounds must be 1 or 2, got "
+                f"{self.hist_rounds}")
         if self.err_sq_mode not in ("jnp", "kernel"):
             raise ValueError(f"unknown err_sq_mode {self.err_sq_mode!r} "
                              f"(expected 'jnp' or 'kernel')")
@@ -110,6 +115,27 @@ class AggConfig:
                 warnings.warn(
                     "AggConfig q=0: nothing will be transmitted and the "
                     "model will not update", stacklevel=2)
+
+    def topq_fn(self) -> Callable[[Tensor, int], Tensor]:
+        """``S(x, q)`` on the last axis under ``topq_impl``."""
+        if self.topq_impl == "exact":
+            return sp.topq
+        return lambda x, q: sp.topq_by_threshold(
+            x, q, branch=self.hist_branch, rounds=self.hist_rounds,
+            tau_impl=self.tau_impl)
+
+    def topq_mask_fn(self) -> Callable[[Tensor, int], Tensor]:
+        """``s(x, q)`` on the last axis under ``topq_impl``."""
+        if self.topq_impl == "exact":
+            return sp.topq_mask
+
+        def mask(x, q):
+            tau = sp.threshold_for_topq(
+                x, q, branch=self.hist_branch, rounds=self.hist_rounds,
+                tau_impl=self.tau_impl)
+            return (x.abs() >= (tau if x.dim() == 1 else _col(tau))
+                    ).to(x.dtype)
+        return mask
 
 
 class HopStats(NamedTuple):
@@ -157,17 +183,18 @@ def _col(v: Tensor) -> Tensor:
     return v[:, None]
 
 
-def _topq_local(ctx: NodeCtx, x: Tensor, q: int) -> Tensor:
+def _topq_local(cfg: AggConfig, ctx: NodeCtx, x: Tensor, q: int) -> Tensor:
     """Local Top-Q values under the node's budget (static q or q_budget)."""
     if ctx.q_budget is None:
-        return sp.topq(x, q)
+        return cfg.topq_fn()(x, q)
     return sp.topq_dynamic(x, ctx.q_budget)
 
 
-def _topq_mask_local(ctx: NodeCtx, x: Tensor, q: int) -> Tensor:
+def _topq_mask_local(cfg: AggConfig, ctx: NodeCtx, x: Tensor,
+                     q: int) -> Tensor:
     """Local Top-Q mask under the node's budget (static q or q_budget)."""
     if ctx.q_budget is None:
-        return sp.topq_mask(x, q)
+        return cfg.topq_mask_fn()(x, q)
     return sp.topq_mask_dynamic(x, ctx.q_budget)
 
 
@@ -203,26 +230,61 @@ def _lane_inf(w: int, device) -> Tensor:
     return torch.full((w,), math.inf, dtype=torch.float32, device=device)
 
 
-def _tau_operand(g, e, gam, w, p, gm=None, *,
-                 include_gamma: bool = False) -> Tensor:
-    """The level's sparsifier operand, materialized from the raw node
-    inputs with the kernels' own float expression (exact Top-Q needs the
-    full sort, so it is built once per level)."""
-    return kref.fused_operand(g, e, gam, w, p, gm,
-                              include_gamma=include_gamma)
+def _tau_operand(cfg: AggConfig, g, e, gam, w, p, gm=None, *,
+                 include_gamma: bool = False) -> sp.TauOperand:
+    """The level's sparsifier operand as a :class:`~repro_torch.core.
+    sparsify.TauOperand` over the raw node inputs.
+
+    The threshold τ search counts through ``count_ge_fused_level`` (or one
+    ``hist_topq_level`` pass under ``tau_impl="hist"``), which rebuild the
+    operand per element and never store it. ``materialize()`` (the exact
+    and dynamic-budget sparsifiers, which sort it) and ``max_abs()`` use
+    the same float expression (:func:`repro_torch.kernels.ref.
+    fused_operand`), so every path selects what the kernels' τ test would.
+    """
+    mode = cfg.kernel_mode
+
+    def materialize():
+        return kref.fused_operand(g, e, gam, w, p, gm,
+                                  include_gamma=include_gamma)
+
+    def count(taus):
+        return kops.count_ge_fused_level(g, e, gam, w, p, taus, gm,
+                                         include_gamma=include_gamma,
+                                         mode=mode)
+
+    def hist(tables):
+        return kops.hist_topq_level(g, e, gam, w, p, tables, gm,
+                                    include_gamma=include_gamma, mode=mode)
+
+    return sp.TauOperand(count=count,
+                         max_abs=lambda: sp._max_abs(materialize().abs()),
+                         batched=True, hist=hist, materialize=materialize)
 
 
-def _lane_sparsifier_state(x: Tensor, q: int, p: Tensor,
-                           qb: Optional[Tensor]):
+def _lane_sparsifier_state(cfg: AggConfig, operand: sp.TauOperand, q: int,
+                           p: Tensor, qb: Optional[Tensor]):
     """Per-lane ``(mask_in, tau)`` such that ``keep = |x| ≥ τ ∨ mask_in``
-    reproduces the unfused ``_topq_local`` keep set lane by lane: the exact
-    Top-Q support (or the dynamic-budget sort mask) with τ = +inf. Lanes
-    with p = 0 are zeroed out of the mask."""
+    reproduces the unfused ``_topq_local`` keep set lane by lane:
+
+    * dynamic budgets → the sort-threshold keep mask, τ = +inf;
+    * exact Top-Q → the Top-Q support mask, τ = +inf;
+    * threshold Top-Q → no mask, τ from the branch-and-bisect over the
+      operand's callbacks (the count or histogram kernels).
+
+    Lanes with p = 0 keep nothing (mask zeroed, τ = +inf).
+    """
+    w = p.shape[0]
     if qb is not None:
-        mask = sp.topq_mask_dynamic(x, qb)
-    else:
-        mask = sp.topq_mask(x, q)
-    return mask * _col(p), _lane_inf(p.shape[0], p.device)
+        mask = sp.topq_mask_dynamic(operand.materialize(), qb)
+        return mask * _col(p), _lane_inf(w, p.device)
+    if cfg.topq_impl == "threshold":
+        tau = sp.threshold_for_topq(
+            None, q, branch=cfg.hist_branch, rounds=cfg.hist_rounds,
+            operand_fn=operand, tau_impl=cfg.tau_impl)
+        return None, torch.where(p > 0, tau, _lane_inf(w, p.device))
+    mask = sp.topq_mask(operand.materialize(), q)
+    return mask * _col(p), _lane_inf(w, p.device)
 
 
 def _stats_no_gmask(cfg, d, nnz, e_new, err=None) -> HopStats:
@@ -241,8 +303,8 @@ def _stats_gmask(cfg, d, gm, nnz, nnz_off, e_new, err=None) -> HopStats:
 
 
 def _fused_level_sia(cfg, g, gam, e, w, p, gm, qb, valid):
-    x = _tau_operand(g, e, None, w, p)
-    mask, tau = _lane_sparsifier_state(x, cfg.q, p, qb)
+    op = _tau_operand(cfg, g, e, None, w, p)
+    mask, tau = _lane_sparsifier_state(cfg, op, cfg.q, p, qb)
     we = cfg.err_sq_mode == "kernel"
     out = kops.sparsify_ef_level(g, e, mask, w, tau, valid, with_err=we,
                                  mode=cfg.kernel_mode)
@@ -254,9 +316,15 @@ def _fused_level_sia(cfg, g, gam, e, w, p, gm, qb, valid):
 
 
 def _fused_level_re_sia(cfg, g, gam, e, w, p, gm, qb, valid):
-    x = _tau_operand(g, e, None, w, p)
-    m_l, tau = _lane_sparsifier_state(x, cfg.q, torch.ones_like(p), qb)
-    mask = sp.mask_union(m_l, sp.support(gam)) * _col(p)
+    op = _tau_operand(cfg, g, e, None, w, p)
+    m_in = sp.support(gam)
+    if qb is None and cfg.topq_impl == "threshold":
+        _, tau = _lane_sparsifier_state(cfg, op, cfg.q, p, qb)
+        mask = m_in * _col(p)
+    else:
+        m_l, tau = _lane_sparsifier_state(cfg, op, cfg.q,
+                                          torch.ones_like(p), qb)
+        mask = sp.mask_union(m_l, m_in) * _col(p)
     we = cfg.err_sq_mode == "kernel"
     out = kops.sparsify_ef_level(g, e, mask, w, tau, valid, with_err=we,
                                  mode=cfg.kernel_mode)
@@ -268,10 +336,16 @@ def _fused_level_re_sia(cfg, g, gam, e, w, p, gm, qb, valid):
 
 
 def _fused_level_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid):
-    x = _tau_operand(g, e, None, w, p, gm)
-    m_k, tau = _lane_sparsifier_state(x, cfg.q_local,
+    op = _tau_operand(cfg, g, e, None, w, p, gm)
+    m_k, tau = _lane_sparsifier_state(cfg, op, cfg.q_local,
                                       torch.ones_like(p), qb)
     m_in = torch.clamp(sp.support(gam) - gm, 0, 1)
+    if m_k is None:
+        # threshold Top-Q: materialize the local mask to union it with the
+        # global and incoming masks, as the unfused topq_mask_fn does
+        x = op.materialize()
+        m_k = (x.abs() >= _col(tau)).to(x.dtype)
+        tau = _lane_inf(g.shape[0], g.device)
     mask = sp.mask_union(torch.broadcast_to(gm, m_k.shape), m_k,
                          m_in) * _col(p)
     we = cfg.err_sq_mode == "kernel"
@@ -285,8 +359,9 @@ def _fused_level_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid):
 
 
 def _fused_level_cl_sia(cfg, g, gam, e, w, p, gm, qb, valid):
-    x = _tau_operand(g, e, gam, w, p, include_gamma=True)
-    mask, tau = _lane_sparsifier_state(x, cfg.q, torch.ones_like(p), qb)
+    op = _tau_operand(cfg, g, e, gam, w, p, include_gamma=True)
+    mask, tau = _lane_sparsifier_state(cfg, op, cfg.q, torch.ones_like(p),
+                                       qb)
     we = cfg.err_sq_mode == "kernel"
     out = kops.cl_fuse_level(g, e, gam, w, tau, p, valid, mask_in=mask,
                              with_err=we, mode=cfg.kernel_mode)
@@ -296,8 +371,8 @@ def _fused_level_cl_sia(cfg, g, gam, e, w, p, gm, qb, valid):
 
 
 def _fused_level_cl_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid):
-    x = _tau_operand(g, e, gam, w, p, gm, include_gamma=True)
-    mask, tau = _lane_sparsifier_state(x, cfg.q_local,
+    op = _tau_operand(cfg, g, e, gam, w, p, gm, include_gamma=True)
+    mask, tau = _lane_sparsifier_state(cfg, op, cfg.q_local,
                                        torch.ones_like(p), qb)
     we = cfg.err_sq_mode == "kernel"
     out = kops.cl_fuse_level(g, e, gam, w, tau, p, valid, gmask=gm,
@@ -393,7 +468,7 @@ def _feedback(g, e, weight):
 def step_sia(cfg, g, gamma_in, e, weight, ctx: NodeCtx):
     """Alg 1 — SoA sparse IA: local Top-Q then add."""
     gt = _feedback(g, e, weight)                         # line 2
-    gbar = _topq_local(ctx, gt, cfg.q)              # line 3
+    gbar = _topq_local(cfg, ctx, gt, cfg.q)              # line 3
     gbar = gbar * _col(ctx.participate)
     e_new = gt - gbar                                    # line 4
     gamma_out = gbar + gamma_in                          # line 5
@@ -403,7 +478,7 @@ def step_sia(cfg, g, gamma_in, e, weight, ctx: NodeCtx):
 def step_re_sia(cfg, g, gamma_in, e, weight, ctx: NodeCtx):
     """Alg 2 — reduced-error: transmit inside union(local Top-Q, incoming)."""
     gt = _feedback(g, e, weight)                         # line 2
-    m_local = _topq_mask_local(ctx, gt, cfg.q)      # line 3
+    m_local = _topq_mask_local(cfg, ctx, gt, cfg.q)      # line 3
     m_in = sp.support(gamma_in)                          # line 4
     m = sp.mask_union(m_local, m_in)                     # line 5
     gbar = _masked(m, gt) * _col(ctx.participate)
@@ -417,7 +492,7 @@ def step_cl_sia(cfg, g, gamma_in, e, weight, ctx: NodeCtx):
     p = _col(ctx.participate)
     gt = _feedback(g, e, weight)                         # line 2
     gamma_tilde = torch.addcmul(gamma_in, p, gt)         # line 3
-    gamma_out = _topq_local(ctx, gamma_tilde, cfg.q)    # line 4
+    gamma_out = _topq_local(cfg, ctx, gamma_tilde, cfg.q)    # line 4
     e_new = gamma_tilde - gamma_out                      # line 5
     # a straggler forwards γ unchanged and banks its whole g̃
     gamma_out = torch.where(p > 0, gamma_out, gamma_in)
@@ -430,7 +505,7 @@ def step_tc_sia(cfg, g, gamma_in, e, weight, ctx: NodeCtx):
     incoming)."""
     m = ctx.global_mask                                   # line 3
     gt = _feedback(g, e, weight)                          # line 2
-    m_k = _topq_mask_local(ctx, (1 - m) * gt, cfg.q_local)   # line 4
+    m_k = _topq_mask_local(cfg, ctx, (1 - m) * gt, cfg.q_local)   # line 4
     m_in = torch.clamp(sp.support(gamma_in) - m, 0, 1)    # line 5
     mm = sp.mask_union(torch.broadcast_to(m, m_k.shape), m_k, m_in)  # line 6
     gbar = _masked(mm, gt) * _col(ctx.participate)
@@ -448,7 +523,7 @@ def step_cl_tc_sia(cfg, g, gamma_in, e, weight, ctx: NodeCtx):
     s = torch.addcmul(gamma_in, p, gt)
     gamma_g = m * s                                       # line 4: Γ_k
     lam_tilde = (1 - m) * s                               # line 5: Λ̃_k
-    lam = _topq_local(ctx, lam_tilde, cfg.q_local)   # line 5: Λ_k
+    lam = _topq_local(cfg, ctx, lam_tilde, cfg.q_local)   # line 5: Λ_k
     e_new = lam_tilde - lam                               # line 6
     gamma_out = gamma_g + lam
     gamma_out = torch.where(p > 0, gamma_out, gamma_in)

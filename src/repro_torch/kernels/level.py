@@ -1,7 +1,7 @@
 """CUDA kernels for one level of W concurrent node steps, bound with ctypes.
 
-The kernels live in ``csrc/level.cu`` and replace the Pallas TPU kernels of
-:mod:`repro.kernels.level`:
+The kernels live in ``csrc/`` and replace the Pallas TPU kernels of
+:mod:`repro.kernels.level`. ``csrc/level.cu``:
 
 * :func:`cl_fuse_level_cuda` ← ``cl_fuse_level_pallas`` — the whole CL
   node step (Algorithms 3/5, stragglers included);
@@ -10,15 +10,26 @@ The kernels live in ``csrc/level.cu`` and replace the Pallas TPU kernels of
 * :func:`chain_accum_level_cuda` ← ``chain_accum_level_pallas`` — the IA
   combine with its support counts.
 
-Each is bounded by device-memory bytes (see the source's header). Their
-plain PyTorch versions are in :mod:`repro_torch.kernels.ref`; the
-dispatching entries in :mod:`repro_torch.kernels.ops` pick one or the other
-by the device of the tensors they are given.
+``csrc/tau_search.cu`` (the threshold Top-Q τ search):
 
-The source is compiled with ``nvcc`` into ``build/`` at the repository root
-at first use (a content-addressed shared library with a plain C interface),
-then loaded with :mod:`ctypes`. Nothing is compiled or loaded at import.
-Each wrapper counts its launches in its ``launches`` attribute.
+* :func:`count_ge_fused_level_cuda` ← ``count_ge_fused_level_pallas`` —
+  candidate counts of the operand rebuilt from the raw node inputs;
+* :func:`count_ge_level_cuda` ← ``count_ge_level_pallas`` — candidate
+  counts over a materialized ``[W, d]`` operand;
+* :func:`hist_topq_level_cuda` ← ``hist_topq_level_pallas`` — the joint
+  digit histogram of ``tau_impl="hist"``.
+
+Each is bounded by device-memory bytes at large d (see the sources'
+headers). Their plain PyTorch versions are in
+:mod:`repro_torch.kernels.ref`; the dispatching entries in
+:mod:`repro_torch.kernels.ops` pick one or the other by the device of the
+tensors they are given.
+
+The sources are compiled with ``nvcc`` into ``build/`` at the repository
+root at first use (one object per source, compiled in parallel, linked
+into a content-addressed shared library with a plain C interface), then
+loaded with :mod:`ctypes`. Nothing is compiled or loaded at import. Each
+wrapper counts its launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -36,7 +47,9 @@ import torch
 
 Tensor = torch.Tensor
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "level.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "level.cu", CSRC / "tau_search.cu")
+HEADERS = (CSRC / "tile.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -58,14 +71,17 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """The shared library's path, named by the source's content hash."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(ARCH_FLAGS).encode())
+    """The shared library's path, named by the sources' content hash."""
+    digest = hashlib.sha1(" ".join(ARCH_FLAGS).encode())
+    for path in SOURCES + HEADERS:
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"liblevel-{digest.hexdigest()[:12]}.so"
 
 
 def build() -> str:
-    """Compile ``csrc/level.cu`` if its library is missing; → nvcc's log.
+    """Compile ``csrc/*.cu`` if the library is missing; → nvcc's log.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     ``-Xptxas -v`` is always on, so the log lists each kernel's registers
     and shared memory. The library is written under a temporary name and
     renamed, so concurrent processes never load a half-written file.
@@ -74,17 +90,31 @@ def build() -> str:
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, log) for src, p, log
+                  in zip(SOURCES, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        lib = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return "".join(logs)
 
 
 def _load() -> ctypes.CDLL:
@@ -98,8 +128,17 @@ def _load() -> ctypes.CDLL:
         lib.sparsify_ef_level_launch.argtypes = [p] * 11 + tail
         lib.chain_accum_level_launch.argtypes = [p] * 4 + [i] + [p] * 3 + tail
         lib.level_tiles.argtypes = [ll]
+        lib.count_ge_level_launch.argtypes = [p] * 4 + [i, i, ll, p]
+        lib.count_ge_fused_level_launch.argtypes = (
+            [p] * 6 + [i] + [p] * 3 + [i, i, ll, p])
+        lib.hist_topq_level_launch.argtypes = (
+            [p] * 6 + [i] + [p] * 6 + [i, i, ll, p])
+        lib.hist_shared_max_branch.argtypes = []
         for fn in (lib.cl_fuse_level_launch, lib.sparsify_ef_level_launch,
-                   lib.chain_accum_level_launch, lib.level_tiles):
+                   lib.chain_accum_level_launch, lib.level_tiles,
+                   lib.count_ge_level_launch,
+                   lib.count_ge_fused_level_launch,
+                   lib.hist_topq_level_launch, lib.hist_shared_max_branch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -264,7 +303,124 @@ def chain_accum_level_cuda(gamma_in, gbar, valid, gmask=None):
     return gout, nnz, nnz_off
 
 
-KERNELS = (cl_fuse_level_cuda, sparsify_ef_level_cuda, chain_accum_level_cuda)
+# ---------------------------------------------------------------------------
+# τ search: candidate counts and the joint digit histogram
+# ---------------------------------------------------------------------------
+
+#: Largest number of taus per lane the count kernels take: the sorted taus
+#: and the rank histogram share 48 KB of shared memory per block.
+MAX_TAUS = 4095
+#: Largest branch of the joint histogram (the reference's limit too).
+MAX_BRANCH = 1024
+
+
+def _taus(name: str, taus: Tensor, w_lanes: int, dev, limit: int) -> Tensor:
+    if not isinstance(taus, Tensor) or taus.dim() != 2:
+        raise ValueError(f"{name} must be a [W, B] tensor")
+    n = taus.shape[1]
+    if not 1 <= n <= limit:
+        raise ValueError(f"{name} holds {n} values per lane; the kernel "
+                         f"takes 1..{limit}")
+    return _check(name, taus, (w_lanes, n), dev)
+
+
+def _fused_operand_args(g, e, gamma_in, weight, participate, gmask,
+                        include_gamma: bool):
+    w_lanes, d, dev = _lanes(g)
+    rows, lane = (w_lanes, d), (w_lanes,)
+    ins = [_rows("g", g, rows, dev), _rows("e", e, rows, dev),
+           _rows("gamma_in", gamma_in, rows, dev) if include_gamma
+           else None,
+           _check("weight", weight, lane, dev),
+           _check("participate", participate, lane, dev)]
+    gm, gm_kind = _gmask(gmask, w_lanes, d, dev)
+    return w_lanes, d, dev, ins + [gm], gm_kind
+
+
+def count_ge_level_cuda(x, taus):
+    """CUDA :func:`repro_torch.kernels.ref.ref_count_ge_level`.
+
+    x: [W, d] float32; taus: [W, B] float32 in any order, B ≤ MAX_TAUS.
+    → counts [W, B] int32, ``#{i : |x_{w,i}| >= taus_{w,b}}``.
+    """
+    w_lanes, d, dev = _lanes(x)
+    lib = _load()
+    x = _rows("x", x, (w_lanes, d), dev)
+    taus = _taus("taus", taus, w_lanes, dev, MAX_TAUS)
+    n = taus.shape[1]
+    ranks = torch.empty((w_lanes, n + 1), dtype=torch.int32, device=dev)
+    counts = torch.empty((w_lanes, n), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.count_ge_level_launch(_ptr(x), _ptr(taus), _ptr(ranks),
+                                       _ptr(counts), w_lanes, n, d,
+                                       _stream(dev))
+    _raise_on(rc, "count_ge_level")
+    count_ge_level_cuda.launches += 1
+    return counts
+
+
+def count_ge_fused_level_cuda(g, e, gamma_in, weight, participate, taus,
+                              gmask=None, *, include_gamma: bool = False):
+    """CUDA :func:`repro_torch.kernels.ref.ref_count_ge_fused_level`.
+
+    g, e, gamma_in (read only with ``include_gamma``): [W, d]; weight,
+    participate: [W]; taus: [W, B]; gmask: None, lane-shared [d] or
+    per-lane [W, d]; all float32. → counts [W, B] int32 of the operand
+    ``(1−m)·(p·(w·g + e) + γ_in)`` (factors dropped per the flags).
+    """
+    w_lanes, d, dev, ins, gm_kind = _fused_operand_args(
+        g, e, gamma_in, weight, participate, gmask, include_gamma)
+    lib = _load()
+    taus = _taus("taus", taus, w_lanes, dev, MAX_TAUS)
+    n = taus.shape[1]
+    ranks = torch.empty((w_lanes, n + 1), dtype=torch.int32, device=dev)
+    counts = torch.empty((w_lanes, n), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.count_ge_fused_level_launch(
+            *map(_ptr, ins), gm_kind, _ptr(taus), _ptr(ranks),
+            _ptr(counts), w_lanes, n, d, _stream(dev))
+    _raise_on(rc, "count_ge_fused_level")
+    count_ge_fused_level_cuda.launches += 1
+    return counts
+
+
+def hist_topq_level_cuda(g, e, gamma_in, weight, participate, tables,
+                         gmask=None, *, include_gamma: bool = False):
+    """CUDA :func:`repro_torch.kernels.ref.ref_hist_topq_level`.
+
+    Operand arguments as :func:`count_ge_fused_level_cuda`; ``tables =
+    (tau1 [W, b], new_lo, w2, top_shift [W, b+1])`` float32, b ≤
+    MAX_BRANCH. → ``(D2 [W, b+1, b+1], F [W, b+1])`` int32.
+    """
+    w_lanes, d, dev, ins, gm_kind = _fused_operand_args(
+        g, e, gamma_in, weight, participate, gmask, include_gamma)
+    lib = _load()
+    tau1, new_lo, w2, top_shift = tables
+    tau1 = _taus("tau1", tau1, w_lanes, dev, MAX_BRANCH)
+    branch = tau1.shape[1]
+    nb = branch + 1
+    rest = [_check(name, t, (w_lanes, nb), dev) for name, t in
+            (("new_lo", new_lo), ("w2", w2), ("top_shift", top_shift))]
+    d2 = torch.empty((w_lanes, nb, nb), dtype=torch.int32, device=dev)
+    f = torch.empty((w_lanes, nb), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.hist_topq_level_launch(
+            *map(_ptr, ins), gm_kind, _ptr(tau1), *map(_ptr, rest),
+            _ptr(d2), _ptr(f), w_lanes, branch, d, _stream(dev))
+    _raise_on(rc, "hist_topq_level")
+    hist_topq_level_cuda.launches += 1
+    return d2, f
+
+
+def hist_shared_max_branch() -> int:
+    """Largest branch whose histogram the kernel keeps in shared memory;
+    a larger one takes the global-atomics variant."""
+    return _load().hist_shared_max_branch()
+
+
+KERNELS = (cl_fuse_level_cuda, sparsify_ef_level_cuda, chain_accum_level_cuda,
+           count_ge_fused_level_cuda, hist_topq_level_cuda,
+           count_ge_level_cuda)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -2,11 +2,14 @@
 
 Four modes, as in :mod:`repro.kernels.ops`:
 
-* ``"auto"`` / ``"always"`` — the fused node-step path; CUDA tensors launch
-  the hand-written kernels of :mod:`repro_torch.kernels.level`, CPU tensors
-  run their plain versions (:mod:`repro_torch.kernels.ref`);
-* ``"never"`` — the unfused PyTorch node steps (the entries below are not
-  reached);
+* ``"auto"`` — the fused node-step path; CUDA tensors launch the
+  hand-written kernels of :mod:`repro_torch.kernels.level`, CPU tensors run
+  their plain versions (:mod:`repro_torch.kernels.ref`);
+* ``"always"`` — the kernels and nothing else: a CPU tensor raises (there
+  is no interpret mode for a CUDA kernel, and a caller who asked for the
+  kernel must not get its plain version unawares);
+* ``"never"`` — the unfused PyTorch node steps (the level entries below
+  are not reached; a direct call runs the plain version);
 * ``"ref"`` — the fused structure with the plain bodies on any device.
 
 The choice follows the device of the tensors a call is given; a CUDA
@@ -28,7 +31,8 @@ MODES = ("auto", "always", "never", "ref")
 def resolve(mode: Mode, device: torch.device) -> tuple[bool, bool]:
     """→ ``(fused, kernel)``: whether node steps take the fused level path,
     and whether its bodies are the CUDA kernels (CUDA tensors under
-    ``"auto"``/``"always"``) rather than their plain versions."""
+    ``"auto"``/``"always"``) rather than their plain versions. Raises for
+    ``"always"`` on any device but CUDA."""
     if mode not in MODES:
         raise ValueError(f"unknown kernel_mode {mode!r} (expected one of "
                          f"{MODES})")
@@ -36,7 +40,12 @@ def resolve(mode: Mode, device: torch.device) -> tuple[bool, bool]:
         return False, False
     if mode == "ref":
         return True, False
-    return True, torch.device(device).type == "cuda"
+    on_cuda = torch.device(device).type == "cuda"
+    if mode == "always" and not on_cuda:
+        raise RuntimeError(
+            f"kernel_mode='always' runs the CUDA kernels only; got a tensor "
+            f"on {device} (use 'auto' or 'ref' for the plain versions)")
+    return True, on_cuda
 
 
 def _kernel(mode: Mode, t: torch.Tensor) -> bool:
@@ -73,3 +82,41 @@ def cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
                                         with_err=with_err)
     return ref.ref_cl_fuse_level(g, e, gamma_in, weight, tau, participate,
                                  valid, gmask, mask_in, with_err=with_err)
+
+
+def count_ge_level(x, taus, *, mode: Mode = "auto"):
+    """Per-lane candidate counts ([W, d] × [W, B] → [W, B] int32)."""
+    if _kernel(mode, x):
+        return level.count_ge_level_cuda(x, taus)
+    return ref.ref_count_ge_level(x, taus)
+
+
+def count_ge_fused_level(g, e, gamma_in, weight, participate, taus,
+                         gmask=None, *, include_gamma: bool = False,
+                         gmask_cohorts: int = 0, mode: Mode = "auto"):
+    """Per-lane candidate counts of the fused bisection operand
+    ``(1−m)·(p·(w·g + e) + γ_in)``; [W, d] inputs, taus [W, B] → [W, B]."""
+    ref._no_cohorts(gmask_cohorts)
+    if _kernel(mode, g):
+        return level.count_ge_fused_level_cuda(
+            g, e, gamma_in, weight, participate, taus, gmask,
+            include_gamma=include_gamma)
+    return ref.ref_count_ge_fused_level(g, e, gamma_in, weight, participate,
+                                        taus, gmask,
+                                        include_gamma=include_gamma)
+
+
+def hist_topq_level(g, e, gamma_in, weight, participate, tables, gmask=None,
+                    *, include_gamma: bool = False, gmask_cohorts: int = 0,
+                    mode: Mode = "auto"):
+    """Joint digit histogram of the fused operand (``tau_impl="hist"``);
+    ``tables`` per :func:`repro_torch.core.sparsify._hist_tables` →
+    ``(D2 [W, b+1, b+1], F [W, b+1])`` int32."""
+    ref._no_cohorts(gmask_cohorts)
+    if _kernel(mode, g):
+        return level.hist_topq_level_cuda(
+            g, e, gamma_in, weight, participate, tables, gmask,
+            include_gamma=include_gamma)
+    return ref.ref_hist_topq_level(g, e, gamma_in, weight, participate,
+                                   tables, gmask,
+                                   include_gamma=include_gamma)

@@ -15,9 +15,13 @@ and ``m·s + Λ``; the pinned ‖e′‖² fold contracts its first level too.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
+
+from repro_torch.core import sparsify as sp
 
 Tensor = torch.Tensor
 
@@ -172,3 +176,84 @@ def fused_operand(g, e, gamma_in, weight, participate, gmask=None, *,
     if gmask is not None:
         s = (1.0 - gmask) * s
     return s
+
+
+# ---------------------------------------------------------------------------
+# τ search: candidate counts and the joint digit histogram
+# ---------------------------------------------------------------------------
+
+def _count_ge_rows(mag: Tensor, taus: Tensor) -> Tensor:
+    """``counts[w, b] = #{i : mag[w, i] >= taus[w, b]}`` for taus in any
+    order, by one sort and binary searches (exact float comparisons).
+    NaN magnitudes count for no τ and a NaN τ counts nothing, as in the
+    broadcast comparison of the reference."""
+    d = mag.shape[-1]
+    nan = torch.isnan(mag)
+    smag = torch.sort(torch.where(nan, torch.full_like(mag, math.inf), mag),
+                      dim=-1).values
+    below = torch.searchsorted(smag, taus.contiguous(), side="left")
+    counts = d - nan.sum(dim=-1, keepdim=True) - below
+    return torch.where(torch.isnan(taus), torch.zeros_like(counts),
+                       counts).to(torch.int32)
+
+
+def ref_count_ge_level(x: Tensor, taus: Tensor) -> Tensor:
+    """counts[w, b] = #{i : |x_{w,i}| >= taus_{w,b}}; x [W, d], taus [W, B]
+    in any order → int32 [W, B]."""
+    return _count_ge_rows(x.to(torch.float32).abs(),
+                          taus.to(torch.float32))
+
+
+def ref_count_ge_fused_level(g, e, gamma_in, weight, participate, taus,
+                             gmask=None, *, include_gamma: bool = False,
+                             gmask_cohorts: int = 0) -> Tensor:
+    """Candidate counts of the fused operand (see :func:`fused_operand`):
+    [W, d] inputs, taus [W, B] → int32 [W, B]. Counts run over the d real
+    elements only."""
+    op = fused_operand(g, e, gamma_in, weight, participate, gmask,
+                       include_gamma=include_gamma,
+                       gmask_cohorts=gmask_cohorts)
+    return _count_ge_rows(op.abs(), taus.to(torch.float32))
+
+
+def ref_hist_topq_level(g, e, gamma_in, weight, participate, tables,
+                        gmask=None, *, include_gamma: bool = False,
+                        gmask_cohorts: int = 0):
+    """Joint digit histogram of the fused operand (``tau_impl="hist"``).
+
+    ``tables = (tau1 [W, b], new_lo, w2, top_shift [W, b+1])`` from
+    :func:`repro_torch.core.sparsify._hist_tables`; → ``(D2 [W, b+1, b+1],
+    F [W, b+1])`` int32 over the d real elements (no padding in
+    ``D2[w, 0, 0]``). See :func:`repro_torch.core.sparsify._hist_digits`.
+    """
+    op = fused_operand(g, e, gamma_in, weight, participate, gmask,
+                       include_gamma=include_gamma,
+                       gmask_cohorts=gmask_cohorts)
+    return sp._hist_digits(op.abs(),
+                           *(t.to(torch.float32) for t in tables))
+
+
+def hist_edge_magnitudes(tables, per_lane: int, seed: int = 0) -> Tensor:
+    """[W, per_lane] magnitudes placed on the bin edges of ``tables``.
+
+    Each lane draws from: its round-2 candidates ``fma(w2, j, new_lo)``
+    where a separate multiply and add would round otherwise, its round-1
+    candidates ``tau1`` and its bracket tops ``top_shift[1:]``, each value
+    and the float just below it. A histogram whose candidates or edge
+    comparisons round differently from the reference's bins some of these
+    elements elsewhere; random data almost never shows that.
+    """
+    tau1, new_lo, w2, top_shift = (t.detach().to("cpu", torch.float32)
+                                   for t in tables)
+    j = torch.arange(1, tau1.shape[-1] + 1, dtype=torch.float32)
+    fused = torch.addcmul(new_lo[..., None], w2[..., None], j)
+    split = new_lo[..., None] + w2[..., None] * j
+    rng = np.random.default_rng(seed)
+    rows = []
+    for w in range(tau1.shape[0]):
+        pool = torch.cat([fused[w][fused[w] != split[w]], tau1[w],
+                          top_shift[w, 1:]])
+        pool = torch.cat([pool, torch.nextafter(pool, torch.zeros(()))])
+        rows.append(pool[torch.from_numpy(
+            rng.integers(0, pool.numel(), per_lane))])
+    return torch.stack(rows)

@@ -144,10 +144,16 @@ def test_config_validation_and_unported_options():
     ref = jalg.AggConfig(kind=jalg.AggKind.TC_SIA, q=78)
     assert (cfg.q_global, cfg.q_local) == (ref.q_global, ref.q_local)
     assert talg.index_bits(7850) == jalg.index_bits(7850)
-    with pytest.raises(NotImplementedError, match="A7"):
-        talg.AggConfig(topq_impl="threshold")
-    with pytest.raises(NotImplementedError, match="A7"):
+    thr = talg.AggConfig(topq_impl="threshold", tau_impl="hist",
+                         hist_rounds=2)
+    ref_thr = jalg.AggConfig(topq_impl="threshold", tau_impl="hist",
+                             hist_rounds=2)
+    assert (thr.hist_branch, thr.hist_rounds) == (ref_thr.hist_branch,
+                                                  ref_thr.hist_rounds)
+    with pytest.raises(ValueError, match="hist_rounds"):
         talg.AggConfig(tau_impl="hist")
+    with pytest.raises(ValueError):
+        talg.AggConfig(topq_impl="approximate")
     with pytest.raises(ValueError):
         talg.AggConfig(kernel_mode="sometimes")
     with pytest.raises(ValueError):

@@ -206,3 +206,46 @@ def test_converted_params_give_the_reference_loss(jfed):
     assert got == pytest.approx(want, rel=1e-6)
     np.testing.assert_array_equal(
         np.asarray(jsim.flatten_lr(params)), tsim.flatten_lr(tp).numpy())
+
+
+# --- threshold Top-Q through the simulator ---------------------------------
+
+THRESHOLD = [("scan", 3), ("hist", 2)]
+
+
+@pytest.mark.parametrize("impl", THRESHOLD, ids=[i for i, _ in THRESHOLD])
+@pytest.mark.parametrize("kind", ["sia", "re_sia", "cl_sia", "tc_sia",
+                                  "cl_tc_sia"])
+def test_threshold_rounds_with_reference_grads_are_bitwise(jfed, kind,
+                                                           impl):
+    """Three rounds under threshold Top-Q, each fed the reference round's
+    gradients: the models, EF rows, TCS state and §V counts and bits stay
+    equal bit for bit, round after round."""
+    tau_impl, rounds = impl
+    kw = dict(kind=kind, topq_impl="threshold", tau_impl=tau_impl,
+              hist_rounds=rounds)
+    jcfg = JCfg(**kw, **_kw(JPC))
+    jsimu = jsim.Simulator(JPC, jcfg, jfed)
+    jplan_ = jplan.compile_plan(K)
+    sim = Simulator(PC, AggConfig(**kw, **_kw(PC)), _port_fed(jfed),
+                    device="cpu")
+    plan = convert.agg_plan(jplan_)
+    draws = _jgrads(jsimu)
+    jstate = jsimu.init(0)
+    state = convert.sim_state(jstate, "cpu")
+    for r in range(3):
+        g, _, rng = draws(jstate)
+        flat, e_new, prev, stats = _jaggregate(jsimu, jcfg, jstate, jplan_,
+                                               g)
+        state, log = sim.aggregate_step(state, plan,
+                                        torch.from_numpy(np.array(g)))
+        for a, b in ((flat, state.flat_w), (e_new, state.ef),
+                     (prev, state.tcs_prev), (stats.bits, log.stats.bits),
+                     (stats.nnz_out, log.stats.nnz_out),
+                     (stats.nnz_local, log.stats.nnz_local)):
+            a, b = np.asarray(a), b.numpy()
+            np.testing.assert_array_equal(a.view(np.int32),
+                                          b.view(np.int32),
+                                          err_msg=f"round {r}")
+        jstate = jstate._replace(round=jstate.round + 1, flat_w=flat,
+                                 ef=e_new, tcs_prev=prev, rng=rng)

@@ -6,7 +6,12 @@ mode on the CPU, and against ``repro.kernels.ref`` under ``jax.jit``, over
 every variant the chip smoke sweeps: global mask none / lane-shared [d] /
 per-lane [W, d], mask_in on and off, the pinned ‖e′‖² on and off, a
 ``valid == 0`` lane, a ``p == 0`` lane and a τ = +inf lane, at a ragged
-d = 2·8192 + 77 (two full 8×1024 tiles and a partial one).
+d = 2·8192 + 77 (two full 8×1024 tiles and a partial one). The τ-search
+counts and the digit histogram are held the same way, over γ_in on and
+off and the three global-mask forms; the Pallas kernels pad each row with
+zeros to whole tiles, and their histogram counts that padding in the bin
+``D2[w, 0, 0]`` (which the bisection never reads), so that one bin is left
+out of the comparison with them and only there.
 """
 
 import jax
@@ -17,6 +22,7 @@ import torch
 
 from repro.kernels import level as jlevel
 from repro.kernels import ref as jref
+from repro_torch.core import sparsify as tsp
 from repro_torch.kernels import level as tlevel
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -141,10 +147,14 @@ def test_pinned_err_fold_matches_ref_tile_by_tile():
 def test_ops_run_plain_versions_on_cpu_tensors(x):
     before = [k.launches for k in tlevel.KERNELS]
     args = [_t(x[k]) for k in ("gin", "g", "valid")]
-    for mode in ("auto", "always", "ref"):
+    for mode in ("auto", "ref"):
         got = tops.chain_accum_level(*args, mode=mode)
         for a, b in zip(tref.ref_chain_accum_level(*args), got):
             assert torch.equal(a, b)
+    # "always" asks for the kernel: on a CPU tensor it raises rather than
+    # run the plain version
+    with pytest.raises(RuntimeError, match="always"):
+        tops.chain_accum_level(*args, mode="always")
     assert [k.launches for k in tlevel.KERNELS] == before
     assert tops.resolve("auto", torch.device("cpu")) == (True, False)
     assert tops.resolve("auto", torch.device("cuda")) == (True, True)
@@ -158,3 +168,141 @@ def test_cohort_gmask_is_not_ported(x):
     args = [_t(x[k]) for k in ("gin", "g", "valid")]
     with pytest.raises(NotImplementedError, match="A10"):
         tops.chain_accum_level(*args, _t(x["gm"][None]), gmask_cohorts=1)
+
+
+# ---------------------------------------------------------------------------
+# τ search: counts and the joint digit histogram
+# ---------------------------------------------------------------------------
+
+def _tables(op: torch.Tensor, branch: int):
+    """The bracket tables of a first τ-search round over ``op``."""
+    hi = torch.clamp(op.abs().amax(-1), min=1e-30) * tsp._HI_SCALE
+    return tsp._hist_tables(torch.zeros_like(hi), hi, branch)
+
+
+def _operand_args(x):
+    return (x["g"], x["e"], x["gin"], x["weight"], x["part"])
+
+
+def _without_pad_bin(d2):
+    d2 = np.array(d2)
+    d2[:, 0, 0] = 0
+    return d2
+
+
+@pytest.mark.parametrize("gm", GMASKS)
+@pytest.mark.parametrize("include_gamma", [False, True])
+def test_count_ge_fused_level_plain_matches_pallas_and_ref(x, gm,
+                                                           include_gamma):
+    gmask = x[gm] if gm else None
+    args = _operand_args(x)
+    op = tref.fused_operand(*map(_t, args), _t(gmask),
+                            include_gamma=include_gamma)
+    taus = _tables(op, 64)[0].numpy()            # nondecreasing per lane
+    taus[:, :3] = 0.0                            # counts every real element
+    got = tref.ref_count_ge_fused_level(*map(_t, args), _t(taus),
+                                        _t(gmask),
+                                        include_gamma=include_gamma)
+    jitted = jax.jit(lambda *a: jref.ref_count_ge_fused_level(
+        *a, include_gamma=include_gamma))(*args, taus, gmask)
+    pallas = jlevel.count_ge_fused_level_pallas(
+        *args, taus, None if gmask is None else jnp.asarray(gmask),
+        include_gamma=include_gamma, interpret=True)
+    _same(jitted, got)
+    _same(pallas, got)
+    assert (got[:, 0].numpy() == D).all()
+
+
+def test_count_ge_level_plain_matches_pallas_and_ref(x):
+    """Taus in any order (ties, 0, ±inf) over a materialized operand."""
+    rng = np.random.default_rng(6)
+    taus = np.abs(rng.standard_normal((W, 48))).astype(np.float32)
+    taus[:, 5] = taus[:, 9]
+    taus[:, 7], taus[:, 8], taus[:, 11] = np.inf, -np.inf, 0.0
+    xs = np.array(x["g"])
+    xs[1, 4] = np.inf
+    got = tref.ref_count_ge_level(_t(xs), _t(taus))
+    _same(jax.jit(jref.ref_count_ge_level)(xs, taus), got)
+    _same(jlevel.count_ge_level_pallas(xs, taus, interpret=True), got)
+
+
+@pytest.mark.parametrize("gm", GMASKS)
+@pytest.mark.parametrize("include_gamma", [False, True])
+def test_hist_topq_level_plain_matches_pallas_and_ref(x, gm, include_gamma):
+    gmask = x[gm] if gm else None
+    args = _operand_args(x)
+    op = tref.fused_operand(*map(_t, args), _t(gmask),
+                            include_gamma=include_gamma)
+    tables = _tables(op, 64)
+    got = tref.ref_hist_topq_level(*map(_t, args), tables, _t(gmask),
+                                   include_gamma=include_gamma)
+    jt = tuple(t.numpy() for t in tables)
+    jitted = jax.jit(lambda *a: jref.ref_hist_topq_level(
+        *a, include_gamma=include_gamma))(*args, jt, gmask)
+    pallas = jlevel.hist_topq_level_pallas(
+        *args, jt, None if gmask is None else jnp.asarray(gmask),
+        include_gamma=include_gamma, interpret=True)
+    for j, t in zip(jitted, got):
+        _same(j, t)
+    _same(_without_pad_bin(pallas[0]),
+          torch.from_numpy(_without_pad_bin(got[0])))
+    _same(pallas[1], got[1])
+    assert int(got[0].sum()) == W * D
+
+
+def test_hist_boundary_magnitudes_need_the_fma_candidate():
+    """Magnitudes on the FMA-rounded round-2 candidates, the round-1 edges
+    and the bracket tops: the plain histogram equals the jitted reference
+    and the Pallas kernel, and a candidate rounded as a separate multiply
+    and add would bin some of them elsewhere."""
+    w_l, d = 2, 3000
+    rng = np.random.default_rng(8)
+    g = rng.standard_normal((w_l, d)).astype(np.float32)
+    tables = _tables(_t(g), 64)
+    edge = tref.hist_edge_magnitudes(tables, 1500, seed=1).numpy()
+    g[:, :1500] = edge * np.where(rng.random(edge.shape) < 0.5, -1, 1)
+    # operand = fma(1, g, 0) = g exactly
+    args = (g, np.zeros_like(g), None, np.ones(w_l, np.float32),
+            np.ones(w_l, np.float32))
+    got = tref.ref_hist_topq_level(*map(_t, args), tables)
+    jt = tuple(t.numpy() for t in tables)
+    jitted = jax.jit(jref.ref_hist_topq_level)(*args, jt)
+    pallas = jlevel.hist_topq_level_pallas(*args, jt, interpret=True)
+    for j, t in zip(jitted, got):
+        _same(j, t)
+    _same(_without_pad_bin(pallas[0]),
+          torch.from_numpy(_without_pad_bin(got[0])))
+    _same(pallas[1], got[1])
+    split = tsp._fma
+    try:
+        tsp._fma = lambda a, b, c: a * b + c
+        other = tref.ref_hist_topq_level(*map(_t, args), tables)
+    finally:
+        tsp._fma = split
+    assert not torch.equal(other[0], got[0])
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref", "never"])
+def test_tau_search_ops_run_plain_versions_on_cpu_tensors(x, mode):
+    before = [k.launches for k in tlevel.KERNELS]
+    args = tuple(map(_t, _operand_args(x)))
+    gm = _t(x["gm"])
+    tables = _tables(tref.fused_operand(*args, gm), 16)
+    got = tops.hist_topq_level(*args, tables, gm, mode=mode)
+    for a, b in zip(tref.ref_hist_topq_level(*args, tables, gm), got):
+        assert torch.equal(a, b)
+    assert torch.equal(
+        tops.count_ge_fused_level(*args, tables[0], gm, mode=mode),
+        tref.ref_count_ge_fused_level(*args, tables[0], gm))
+    assert torch.equal(tops.count_ge_level(args[0], tables[0], mode=mode),
+                       tref.ref_count_ge_level(args[0], tables[0]))
+    with pytest.raises(RuntimeError, match="always"):
+        tops.hist_topq_level(*args, tables, gm, mode="always")
+    with pytest.raises(RuntimeError, match="always"):
+        tops.count_ge_fused_level(*args, tables[0], gm, mode="always")
+    with pytest.raises(RuntimeError, match="always"):
+        tops.count_ge_level(args[0], tables[0], mode="always")
+    with pytest.raises(NotImplementedError, match="A10"):
+        tops.count_ge_fused_level(*args, tables[0], gm[None],
+                                  gmask_cohorts=1, mode=mode)
+    assert [k.launches for k in tlevel.KERNELS] == before
