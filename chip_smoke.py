@@ -39,7 +39,19 @@ Phases (any failure exits non-zero and prints no result):
    integers, model and bits bit for bit (loss to rtol 1e-4), the loss must
    fall, and ``threshold_for_topq(count_fn=count_ge_level)`` on the card
    must give the default search's τ; torch.profiler reads the device-busy
-   share of a threshold round.
+   share of a threshold round;
+5. the scalar kernel API — the five scalar ``[d]`` kernels, checked in
+   phase 2 over their variants (float32 and bfloat16, mask_in on/off,
+   include_gamma on/off, shuffled taus with −1, 0 and +inf, the scalars as
+   numbers and as tensors on the card) at d = 7850, 10**6 and 2**26 + 125
+   bit for bit against their plain versions on the CPU and on the card,
+   and timed; then driven through the ``ops`` entries with launch counts
+   read around the run: the 1-D τ search ``threshold_for_topq(x, q,
+   count_fn=ops.count_ge)`` at d = 10**6 for three q, and a 28-node chain
+   of scalar node steps at d = 7850 for SIA (``count_ge_fused``,
+   ``sparsify_ef``, ``chain_accum``) and CL-SIA (``count_ge_fused``,
+   ``cl_fuse``), τ left on the card; τ, γ, the EF rows and nnz must equal
+   the same run on the CPU bit for bit.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -67,6 +79,12 @@ BRANCH = 64                        # candidates per τ-search round
 WIDE_BRANCH = 256                  # a histogram past shared memory
 THRESHOLD = {"scan": dict(tau_impl="scan", hist_rounds=3),
              "hist": dict(tau_impl="hist", hist_rounds=2)}
+# the scalar [d] kernels: the paper's d, bench_kernels.py's default, and
+# the level phases' element count W·d = 8 × 2**23 with a ragged tail
+SCALAR_SHAPES = [7850, 1_000_000, 2 ** 26 + 125]
+SCALAR_DTYPES = (torch.float32, torch.bfloat16)
+SEARCH_D = 1_000_000               # the 1-D τ search counting with count_ge
+SEARCH_QS = (10, 500, 5000)
 
 
 def log(*args):
@@ -137,15 +155,21 @@ def call(fns, name: str, t: dict, opt: dict):
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.cpu(), b.cpu()
-    wide = torch.float64 if a.dtype == torch.float32 else torch.int64
+    wide = torch.float64 if a.is_floating_point() else torch.int64
     return float((a.to(wide) - b.to(wide)).abs().max())
 
 
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (zeros' signs included)."""
     a, b = a.cpu().contiguous(), b.cpu().contiguous()
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return a.shape == b.shape and torch.equal(a, b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in BITS:
+        a, b = a.view(BITS[a.dtype]), b.view(BITS[b.dtype])
+    return torch.equal(a, b)
 
 
 def kernel_bytes(name: str, w: int, d: int) -> int:
@@ -707,17 +731,290 @@ def threshold_path(level, data) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (continued): the scalar [d] kernels
+# ---------------------------------------------------------------------------
+
+def scalar_variants():
+    """(kernel, options) for every variant: both dtypes, mask_in on/off,
+    include_gamma on/off, the scalars as numbers and as tensors on the card
+    (a CPU-side plain result serves both scalar forms)."""
+    for dt in SCALAR_DTYPES:
+        yield "count_ge", dict(dtype=dt)
+        for gamma in (False, True):
+            yield "count_ge_fused", dict(dtype=dt, gamma=gamma)
+        for mask in (False, True):
+            yield "sparsify_ef", dict(dtype=dt, mask=mask)
+        yield "cl_fuse", dict(dtype=dt)
+        yield "chain_accum", dict(dtype=dt)
+
+
+SCALAR_TIMED = {"count_ge": dict(gamma=False, mask=False),
+                "count_ge_fused": dict(gamma=True, mask=False),
+                "sparsify_ef": dict(gamma=False, mask=True),
+                "cl_fuse": dict(gamma=False, mask=False),
+                "chain_accum": dict(gamma=False, mask=False)}
+
+
+def scalar_inputs(d: int, seed: int) -> dict:
+    """float32 numpy rows and 64 shuffled taus with τ = −1, 0, +inf and a
+    tie; the scalars w = 1.3, τ = 1.1, p = 0.6."""
+    rng = np.random.default_rng(seed)
+    f = lambda s: (rng.standard_normal(d, dtype=np.float32)  # noqa: E731
+                   * np.float32(s))
+    x = dict(g=f(1.0), e=f(0.3), gin=f(1.0),
+             mask=(rng.random(d, dtype=np.float32) < 0.01).astype(
+                 np.float32))
+    x["gin"] *= rng.random(d, dtype=np.float32) < 0.3
+    taus = np.abs(rng.standard_normal(BRANCH)).astype(np.float32) * 1.5
+    taus[:4] = [-1.0, 0.0, np.inf, taus[9]]
+    x["taus"] = rng.permutation(taus)
+    return x
+
+
+def call_scalar(fns, name: str, t: dict, opt: dict, sc: dict):
+    """Call scalar kernel ``name`` (from ``fns``: the CUDA wrappers or the
+    plain versions) on rows ``t`` with scalars ``sc`` (w, tau, p)."""
+    if name == "count_ge":
+        return (fns[name](t["g"], t["taus"]),)
+    if name == "count_ge_fused":
+        return (fns[name](t["g"], t["e"], t["gin"], sc["w"], sc["p"],
+                          t["taus"], include_gamma=opt["gamma"]),)
+    if name == "sparsify_ef":
+        return fns[name](t["g"], t["e"], t["mask"] if opt["mask"] else None,
+                         sc["w"], sc["tau"])
+    if name == "cl_fuse":
+        return fns[name](t["g"], t["e"], t["gin"], sc["w"], sc["tau"])
+    return fns[name](t["gin"], t["g"])
+
+
+def scalar_cost(name: str, d: int, es: int, opt: dict) -> tuple:
+    """(bytes, f32 operations) a call must spend: each input read once and
+    each output written once (es bytes per row element, the float32 mask,
+    taus, counts and scalars included); per element the operand's flops and
+    the rank search's compares."""
+    search = math.ceil(math.log2(BRANCH + 1))
+    taus = 2 * BRANCH * 4                          # taus in, counts out
+    if name == "count_ge":
+        return d * es + taus, d * (1 + search)
+    if name == "count_ge_fused":
+        rows = 3 if opt["gamma"] else 2
+        return rows * d * es + 8 + taus, d * (2 * (rows - 1) + 1 + search)
+    if name == "sparsify_ef":                      # g, e (mask) → ḡ, e′
+        return 4 * d * es + opt["mask"] * d * 4 + 12, d * 5
+    if name == "cl_fuse":                          # g, e, γ_in → γ, e′
+        return 5 * d * es + 12, d * 6
+    return 3 * d * es + 4, d * 2                   # γ_in, ḡ → γ
+
+
+def check_scalar_kernels(scalar, ref) -> dict:
+    """Every scalar kernel over its variants at SCALAR_SHAPES, bit for bit
+    against its plain version on the CPU and on the card; then timed."""
+    cuda_fns, plain_fns = scalar, {n: getattr(ref, "ref_" + n)
+                                   for n in scalar}
+    report = {n: dict(max_abs_err=0.0, max_abs_err_plain_on_card=0.0,
+                      checked=0, shapes=[]) for n in cuda_fns}
+    dev = torch.device("cuda")
+    sc_cpu = dict(w=1.3, tau=1.1, p=0.6)
+    sc_card = {k: torch.tensor([v], dtype=torch.float32, device=dev)
+               for k, v in sc_cpu.items()}
+    for si, d in enumerate(SCALAR_SHAPES):
+        t0 = time.perf_counter()
+        x = scalar_inputs(d, SEED + 20 + si)
+        for dt in SCALAR_DTYPES:
+            cpu = {k: torch.from_numpy(v).to(dt if k in ("g", "e", "gin")
+                                             else torch.float32)
+                   for k, v in x.items()}
+            gpu = {k: v.to(dev) for k, v in cpu.items()}
+            for name, opt in scalar_variants():
+                if opt["dtype"] != dt:
+                    continue
+                want = call_scalar(plain_fns, name, cpu, opt, sc_cpu)
+                on_card = call_scalar(plain_fns, name, gpu, opt, sc_card)
+                r = report[name]
+                takes_scalars = name not in ("count_ge", "chain_accum")
+                for sc in (sc_cpu, sc_card)[:1 + takes_scalars]:
+                    got = call_scalar(cuda_fns, name, gpu, opt, sc)
+                    torch.cuda.synchronize()
+                    for a, b, c in zip(want, got, on_card):
+                        r["max_abs_err"] = max(r["max_abs_err"],
+                                               max_abs_diff(a, b))
+                        r["max_abs_err_plain_on_card"] = max(
+                            r["max_abs_err_plain_on_card"],
+                            max_abs_diff(c, b))
+                        if not (bitwise_equal(a, b) and bitwise_equal(c, b)):
+                            raise SystemExit(
+                                f"FAIL {name} {opt} scalars "
+                                f"{'on the card' if sc is sc_card else 'as numbers'}"
+                                f" at d={d}: kernel differs from its plain "
+                                f"version (CPU max |diff| "
+                                f"{max_abs_diff(a, b)}, card "
+                                f"{max_abs_diff(c, b)})")
+                    r["checked"] += 1
+                del want, on_card
+            big = d > 10 ** 7
+            for name, opt in SCALAR_TIMED.items():
+                opt = dict(opt, dtype=dt)
+                ms = cuda_time_ms(lambda: call_scalar(
+                    cuda_fns, name, gpu, opt, sc_card), 20 if big else 200)
+                plain_ms = cuda_time_ms(lambda: call_scalar(
+                    plain_fns, name, gpu, opt, sc_card), 5 if big else 50)
+                nbytes, ops_n = scalar_cost(name, d, dt.itemsize, opt)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops_n / F32_OPS_PER_S * 1e3
+                bound_ms = max(bytes_ms, ops_ms)
+                report[name]["shapes"].append(dict(
+                    d=d, dtype=str(dt).replace("torch.", ""), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    bound_share=bound_ms / ms))
+                log(f"[time] {name} d={d} {dt}: kernel {ms:.4f} ms, plain "
+                    f"on card {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({100 * bound_ms / ms:.1f}% of bound)")
+            del cpu, gpu
+            torch.cuda.empty_cache()
+        log(f"[kernels] d={d}: every scalar kernel variant bitwise equal to "
+            f"its plain version on the CPU and on the card "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the scalar kernel API and the 1-D τ search
+# ---------------------------------------------------------------------------
+
+def scalar_chain(sp, ops, ref, grads, ef, weights, q: int, kind: str):
+    """One chain pass of K scalar node steps through the ``ops`` entries:
+    each node's τ from ``threshold_for_topq`` over the fused operand counted
+    by ``count_ge_fused``, then ``sparsify_ef`` + ``chain_accum`` (SIA) or
+    ``cl_fuse`` (CL-SIA). τ and the weights stay on the rows' device.
+    → (γ at the PS, new EF rows, [τ], [nnz])."""
+    gamma_in = torch.zeros_like(grads[0])
+    one = torch.ones((1,), dtype=torch.float32, device=grads.device)
+    gamma_on = kind == "cl_sia"
+    e_new, taus, nnzs = [], [], []
+    for k in range(grads.shape[0]):
+        g, e, w = grads[k], ef[k], weights[k:k + 1]
+        gin = gamma_in
+
+        def count(t, g=g, e=e, w=w, gin=gin):
+            return ops.count_ge_fused(g, e, gin, w, one, t,
+                                      include_gamma=gamma_on)
+
+        def max_abs(g=g, e=e, w=w, gin=gin):
+            return ref.fused_operand(g[None], e[None], gin[None], w, one,
+                                     include_gamma=gamma_on).abs().amax()
+
+        tau = sp.threshold_for_topq(None, q, operand_fn=sp.TauOperand(
+            count=count, max_abs=max_abs, batched=False), branch=BRANCH)
+        if gamma_on:
+            gamma_in, e_k, nnz = ops.cl_fuse(g, e, gin, w, tau)
+        else:
+            gbar, e_k, _ = ops.sparsify_ef(g, e, None, w, tau)
+            gamma_in, nnz = ops.chain_accum(gin, gbar)
+        e_new.append(e_k)
+        taus.append(tau)
+        nnzs.append(nnz)
+    return gamma_in, torch.stack(e_new), torch.stack(taus), torch.stack(nnzs)
+
+
+def scalar_path(level, scalar) -> dict:
+    from repro_torch.configs import PAPER
+    from repro_torch.core import sparsify as sp
+    from repro_torch.kernels import ops, ref
+
+    k, d, q = PAPER.num_clients, PAPER.d, PAPER.q
+    rng = np.random.default_rng(SEED + 30)
+    grads = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32))
+    ef = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32)
+                          * np.float32(0.1))
+    weights = torch.from_numpy(rng.uniform(0.5, 1.5, k).astype(
+        np.float32) / np.float32(k))
+    xs = torch.from_numpy(rng.standard_normal(SEARCH_D, dtype=np.float32))
+    card = [t.cuda() for t in (grads, ef, weights, xs)]
+    kinds = ("sia", "cl_sia")
+    for kind in kinds:                     # warm-up: first use of each op
+        scalar_chain(sp, ops, ref, *card[:3], q, kind)
+    sp.threshold_for_topq(card[3], q, count_fn=ops.count_ge)
+    torch.cuda.synchronize()
+
+    level.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    taus_card = [sp.threshold_for_topq(card[3], qq, count_fn=ops.count_ge)
+                 for qq in SEARCH_QS]
+    torch.cuda.synchronize()
+    search_ms = (time.perf_counter() - t0) * 1e3 / len(SEARCH_QS)
+    chains, chain_ms = {}, {}
+    for kind in kinds:
+        t0 = time.perf_counter()
+        chains[kind] = scalar_chain(sp, ops, ref, *card[:3], q, kind)
+        torch.cuda.synchronize()
+        chain_ms[kind] = (time.perf_counter() - t0) * 1e3
+    launches = {fn.__name__.replace("_cuda", ""): fn.launches
+                for fn in scalar.values()}
+    rounds = 3                                     # scan rounds per search
+    want = dict(count_ge=rounds * len(SEARCH_QS),
+                count_ge_fused=rounds * k * len(kinds), sparsify_ef=k,
+                chain_accum=k, cl_fuse=k)
+    log(f"[scalar] launches over the scalar path: {launches} (predicted "
+        f"{want}); 1-D search at d={SEARCH_D}: {search_ms:.2f} ms per "
+        f"search; chain of {k} scalar node steps at d={d}: "
+        + ", ".join(f"{kk} {v:.2f} ms" for kk, v in chain_ms.items())
+        + " (host clock, synchronized)")
+    if launches != want:
+        raise SystemExit(f"FAIL scalar path launches {launches}, predicted "
+                         f"{want}")
+
+    for qq, got in zip(SEARCH_QS, taus_card):
+        cpu = sp.threshold_for_topq(xs, qq, count_fn=ops.count_ge)
+        default = sp.threshold_for_topq(xs, qq)
+        kept = int((card[3].abs() >= got).sum())
+        if not (bitwise_equal(cpu, got) and bitwise_equal(default, got)
+                and qq <= kept):
+            raise SystemExit(f"FAIL 1-D search q={qq}: card τ {float(got)!r}"
+                             f", CPU {float(cpu)!r}, default "
+                             f"{float(default)!r}, {kept} kept")
+    log(f"[scalar] 1-D search, count_fn=ops.count_ge on the card: τ equal "
+        f"to the CPU's bit for bit for q in {SEARCH_QS}")
+    for kind in kinds:
+        cpu = scalar_chain(sp, ops, ref, grads, ef, weights, q, kind)
+        got = chains[kind]
+        if not all(bitwise_equal(a, b) for a, b in zip(cpu, got)):
+            raise SystemExit(f"FAIL scalar {kind} chain: card and CPU differ "
+                             f"(γ, EF, τ, nnz equal: "
+                             f"{[bitwise_equal(a, b) for a, b in zip(cpu, got)]})")
+        gamma, _, _, nnz = got
+        if not (bool(torch.isfinite(gamma).all()) and int(nnz[-1]) >= q):
+            raise SystemExit(f"FAIL scalar {kind} chain: bad result")
+        log(f"[scalar] {kind} chain: γ, EF rows, τ and nnz on the card equal "
+            f"the CPU's bit for bit; nnz at the PS {int(nnz[-1])}")
+    for kind in kinds:
+        profile_calls(f"scalar {kind} chain", lambda: scalar_chain(
+            sp, ops, ref, *card[:3], q, kind), 1)
+    profile_calls("1-D search", lambda: sp.threshold_for_topq(
+        card[3], SEARCH_QS[0], count_fn=ops.count_ge), 1)
+    return launches
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
-    """Device busy time and device-op count over a few rounds, from
-    torch.profiler (its own overhead inflates the wall time)."""
+    """Device busy time and device-op count over a few rounds."""
+    sim.run(1, topology=topology)
+    profile_calls(label, lambda: sim.run(rounds, seed=SEED,
+                                         topology=topology), rounds)
+
+
+def profile_calls(label: str, fn, rounds: int):
+    """Device busy time and device-op count per round of ``fn`` (which
+    runs ``rounds`` rounds), from torch.profiler (its own overhead inflates
+    the wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    sim.run(1, topology=topology)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sim.run(rounds, seed=SEED, topology=topology)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
     events = [e for e in prof.key_averages()
@@ -742,7 +1039,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import sparsify as sp
-    from repro_torch.kernels import level, ref
+    from repro_torch.kernels import (chain_accum, level, ref, sparsify_ef,
+                                     topq_threshold)
 
     # full-f32 products on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -760,27 +1058,45 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("[ptxas]", line.strip())
 
+    scalar = {fn.__name__.replace("_cuda", ""): fn
+              for fn in (chain_accum.chain_accum_cuda,
+                         chain_accum.cl_fuse_cuda,
+                         sparsify_ef.sparsify_ef_cuda,
+                         topq_threshold.count_ge_cuda,
+                         topq_threshold.count_ge_fused_cuda)}
     report = check_kernels(level, ref)
     report.update(check_tau_kernels(level, ref, sp))
+    report.update(check_scalar_kernels(scalar, ref))
     data = paper_data()
     launches = main_path(level, data)
     launches.update(threshold_path(level, data))
+    launches.update(scalar_path(level, scalar))
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",
               "chain_accum_level": "level.cu",
               "count_ge_fused_level": "tau_search.cu",
               "hist_topq_level": "tau_search.cu",
-              "count_ge_level": "tau_search.cu"}
+              "count_ge_level": "tau_search.cu",
+              "chain_accum": "chain_accum.cu", "cl_fuse": "chain_accum.cu",
+              "sparsify_ef": "sparsify_ef.cu",
+              "count_ge": "topq_threshold.cu",
+              "count_ge_fused": "topq_threshold.cu"}
     replaces = {"cl_fuse_level": "src/repro/kernels/level.py:395",
                 "sparsify_ef_level": "src/repro/kernels/level.py:197",
                 "chain_accum_level": "src/repro/kernels/level.py:282",
                 "count_ge_fused_level": "src/repro/kernels/level.py:561",
                 "hist_topq_level": "src/repro/kernels/level.py:684",
-                "count_ge_level": "src/repro/kernels/level.py:481"}
+                "count_ge_level": "src/repro/kernels/level.py:481",
+                "chain_accum": "src/repro/kernels/chain_accum.py:74",
+                "cl_fuse": "src/repro/kernels/chain_accum.py:102",
+                "sparsify_ef": "src/repro/kernels/sparsify_ef.py:70",
+                "count_ge": "src/repro/kernels/topq_threshold.py:79",
+                "count_ge_fused": "src/repro/kernels/topq_threshold.py:157"}
     kernels = []
     for name, r in report.items():
-        large = r["shapes"][-1]
+        # the large float32 shape (a scalar kernel's last shape is bf16)
+        large = [x for x in r["shapes"] if x.get("dtype") != "bfloat16"][-1]
         kernels.append(dict(
             name=name, route="cuda", source=csrc + source[name],
             replaces=replaces[name], launches=launches[name],

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 Tensor = torch.Tensor
 
 
@@ -27,14 +29,18 @@ class EFState(NamedTuple):
 
 
 def init_ef(num_clients: int, dim: int, *, dtype=torch.float32,
-            device=None) -> EFState:
+            device: DeviceLike = None) -> EFState:
+    """Zero EF rows for ``num_clients`` nodes, on ``cuda`` unless the
+    caller names another device."""
     return EFState(e=torch.zeros((num_clients, dim), dtype=dtype,
-                                 device=device))
+                                 device=resolve_device(device)))
 
 
-def init_ef_rank(dim: int, *, dtype=torch.float32, device=None) -> EFState:
-    """A single node's EF state."""
-    return EFState(e=torch.zeros((dim,), dtype=dtype, device=device))
+def init_ef_rank(dim: int, *, dtype=torch.float32,
+                 device: DeviceLike = None) -> EFState:
+    """A single node's EF state, on ``cuda`` unless asked otherwise."""
+    return EFState(e=torch.zeros((dim,), dtype=dtype,
+                                 device=resolve_device(device)))
 
 
 def apply_feedback(g: Tensor, e: Tensor, weight) -> Tensor:

@@ -53,6 +53,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rank.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -92,31 +93,6 @@ __device__ __forceinline__ void load_mag(const Operand& op, float wt,
     if (GM != kGmNone) s = __fmul_rn(__fsub_rn(1.0f, vm[k]), s);
     mag[k] = fabsf(s);
   }
-}
-
-// #{k < n : v >= a[k]} for a nondecreasing a (0 for a NaN v).
-__device__ __forceinline__ int rank_of(float v, const float* a, int n) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (v >= a[mid]) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ float tau_key(float t) {
-  return isnan(t) ? INFINITY : t;
-}
-
-// Place of key[b] in the ascending order of key[0..n), ties by index.
-__device__ __forceinline__ int sorted_pos(const float* key, int n, int b) {
-  const float kb = key[b];
-  int pos = 0;
-  for (int c = 0; c < n; ++c) {
-    const float kc = key[c];
-    pos += (kc < kb) || (kc == kb && c < b);
-  }
-  return pos;
 }
 
 // --------------------------------------------------------------------------

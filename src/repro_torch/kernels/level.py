@@ -25,17 +25,24 @@ headers). Their plain PyTorch versions are in
 :mod:`repro_torch.kernels.ops` pick one or the other by the device of the
 tensors they are given.
 
+The scalar ``[d]`` kernels (``csrc/chain_accum.cu``, ``csrc/sparsify_ef.cu``,
+``csrc/topq_threshold.cu``) have their wrappers in :mod:`.chain_accum`,
+:mod:`.sparsify_ef` and :mod:`.topq_threshold`; this module builds and
+binds them with the rest and holds the argument checks they share.
+
 The sources are compiled with ``nvcc`` into ``build/`` at the repository
 root at first use (one object per source, compiled in parallel, linked
 into a content-addressed shared library with a plain C interface), then
 loaded with :mod:`ctypes`. Nothing is compiled or loaded at import. Each
-wrapper counts its launches in its ``launches`` attribute.
+wrapper counts its launches in its ``launches`` attribute;
+:func:`reset_launch_counts` sets every count to 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import numbers
 import os
 import shutil
 import subprocess
@@ -43,13 +50,15 @@ import tempfile
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "level.cu", CSRC / "tau_search.cu")
-HEADERS = (CSRC / "tile.cuh",)
+SOURCES = (CSRC / "level.cu", CSRC / "tau_search.cu", CSRC / "chain_accum.cu",
+           CSRC / "sparsify_ef.cu", CSRC / "topq_threshold.cu")
+HEADERS = (CSRC / "tile.cuh", CSRC / "rank.cuh", CSRC / "row.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -134,11 +143,23 @@ def _load() -> ctypes.CDLL:
         lib.hist_topq_level_launch.argtypes = (
             [p] * 6 + [i] + [p] * 6 + [i, i, ll, p])
         lib.hist_shared_max_branch.argtypes = []
+        f = ctypes.c_float
+        scalars = [p, f, p, f]                 # (pointer or null, value) × 2
+        lib.chain_accum_launch.argtypes = [p, p, i, p, p, ll, p]
+        lib.cl_fuse_launch.argtypes = [p] * 3 + scalars + [i, p, p, p, ll, p]
+        lib.sparsify_ef_launch.argtypes = ([p] * 3 + scalars
+                                           + [i, p, p, p, ll, p])
+        lib.count_ge_launch.argtypes = [p, i, p, i, p, p, ll, p]
+        lib.count_ge_fused_launch.argtypes = ([p] * 3 + scalars
+                                              + [i, p, i, p, p, ll, p])
         for fn in (lib.cl_fuse_level_launch, lib.sparsify_ef_level_launch,
                    lib.chain_accum_level_launch, lib.level_tiles,
                    lib.count_ge_level_launch,
                    lib.count_ge_fused_level_launch,
-                   lib.hist_topq_level_launch, lib.hist_shared_max_branch):
+                   lib.hist_topq_level_launch, lib.hist_shared_max_branch,
+                   lib.chain_accum_launch, lib.cl_fuse_launch,
+                   lib.sparsify_ef_launch, lib.count_ge_launch,
+                   lib.count_ge_fused_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -164,10 +185,12 @@ def _check(name: str, t: Tensor, shape: tuple, device: torch.device,
     return t
 
 
-def _rows(name: str, t: Tensor, shape: tuple, device: torch.device):
-    """A [W, d] operand, read with 16-byte loads: one that does not start
-    on a 16-byte boundary (a row view inside a larger batch) is copied."""
-    t = _check(name, t, shape, device)
+def _rows(name: str, t: Tensor, shape: tuple, device: torch.device,
+          dtype: torch.dtype = torch.float32):
+    """A [W, d] (or [d]) operand, read with 16-byte loads: one that does
+    not start on a 16-byte boundary (a row view inside a larger batch) is
+    copied."""
+    t = _check(name, t, shape, device, dtype)
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -418,14 +441,61 @@ def hist_shared_max_branch() -> int:
     return _load().hist_shared_max_branch()
 
 
-KERNELS = (cl_fuse_level_cuda, sparsify_ef_level_cuda, chain_accum_level_cuda,
-           count_ge_fused_level_cuda, hist_topq_level_cuda,
-           count_ge_level_cuda)
-for _fn in KERNELS:
-    _fn.launches = 0
+# ---------------------------------------------------------------------------
+# argument checks shared by the scalar [d] kernels
+# ---------------------------------------------------------------------------
+
+#: Row dtypes of the scalar kernels and their codes in the C interface.
+ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _row_of(x) -> tuple:
+    """→ (d, device, dtype code) of the row a scalar kernel walks."""
+    if not isinstance(x, Tensor):
+        raise TypeError(f"expected a [d] CUDA tensor, got {type(x).__name__}")
+    if x.dim() != 1 or x.device.type != "cuda":
+        raise ValueError("expected a [d] CUDA tensor, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    if x.dtype not in ROW_DTYPES:
+        raise TypeError(f"rows must be float32 or bfloat16, got {x.dtype}")
+    return x.shape[0], x.device, ROW_DTYPES[x.dtype]
+
+
+def _scalar(name: str, v, dev: torch.device) -> tuple:
+    """A Python number or a one-element float32 tensor on ``dev`` → the
+    C interface's (pointer or None, float32 value). A tensor is read by
+    the kernel on the device, so it costs no host sync."""
+    if isinstance(v, Tensor):
+        if v.device != dev or v.dtype != torch.float32 or v.numel() != 1:
+            raise ValueError(f"{name} must be a number or a one-element "
+                             f"float32 tensor on {dev}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+        return v.data_ptr(), 0.0
+    if isinstance(v, numbers.Real):
+        return None, float(np.float32(v))
+    raise TypeError(f"{name} must be a number or a tensor, got "
+                    f"{type(v).__name__}")
+
+
+#: Every wrapper with a launch count: the level kernels below and the
+#: scalar ones, which :func:`counted` adds when their modules are imported
+#: (importing :mod:`repro_torch.kernels` imports them all).
+COUNTED = []
+
+
+def counted(fn):
+    """Give a wrapper a launch count covered by :func:`reset_launch_counts`."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+KERNELS = tuple(map(counted, (
+    cl_fuse_level_cuda, sparsify_ef_level_cuda, chain_accum_level_cuda,
+    count_ge_fused_level_cuda, hist_topq_level_cuda, count_ge_level_cuda)))
 
 
 def reset_launch_counts():
     """Set every wrapper's launch count to 0."""
-    for fn in KERNELS:
+    for fn in COUNTED:
         fn.launches = 0

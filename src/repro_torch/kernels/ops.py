@@ -1,4 +1,5 @@
-"""Dispatching entries for the level kernels.
+"""Dispatching entries for the level kernels and the scalar ``[d]``
+kernels.
 
 Four modes, as in :mod:`repro.kernels.ops`:
 
@@ -23,6 +24,10 @@ from typing import Literal
 import torch
 
 from repro_torch.kernels import level, ref
+from repro_torch.kernels.chain_accum import chain_accum_cuda, cl_fuse_cuda
+from repro_torch.kernels.sparsify_ef import sparsify_ef_cuda
+from repro_torch.kernels.topq_threshold import (count_ge_cuda,
+                                                count_ge_fused_cuda)
 
 Mode = Literal["auto", "always", "never", "ref"]
 MODES = ("auto", "always", "never", "ref")
@@ -51,6 +56,56 @@ def resolve(mode: Mode, device: torch.device) -> tuple[bool, bool]:
 def _kernel(mode: Mode, t: torch.Tensor) -> bool:
     return resolve(mode, t.device)[1]
 
+
+# ---------------------------------------------------------------------------
+# scalar [d] kernels: one row; weight, tau and participate a number or a
+# one-element float32 tensor on the row's device
+# ---------------------------------------------------------------------------
+
+def count_ge(x, taus, *, mode: Mode = "auto"):
+    """Candidate counts of one row: ``#{i : |x_i| >= taus_j}``, taus [B]
+    f32 in any order → int32 [B]."""
+    if _kernel(mode, x):
+        return count_ge_cuda(x, taus)
+    return ref.ref_count_ge(x, taus)
+
+
+def sparsify_ef(g, e, mask_in, weight, tau, *, mode: Mode = "auto"):
+    """Fused error feedback + sparsify of one row → (ḡ, e′, nnz)."""
+    if _kernel(mode, g):
+        return sparsify_ef_cuda(g, e, mask_in, weight, tau)
+    return ref.ref_sparsify_ef(g, e, mask_in, weight, tau)
+
+
+def chain_accum(gamma_in, gbar, *, mode: Mode = "auto"):
+    """γ_out = γ_in + ḡ of one row → (γ_out, nnz)."""
+    if _kernel(mode, gamma_in):
+        return chain_accum_cuda(gamma_in, gbar)
+    return ref.ref_chain_accum(gamma_in, gbar)
+
+
+def cl_fuse(g, e, gamma_in, weight, tau, *, mode: Mode = "auto"):
+    """The CL-SIA node step of one row given τ → (γ_out, e′, nnz)."""
+    if _kernel(mode, g):
+        return cl_fuse_cuda(g, e, gamma_in, weight, tau)
+    return ref.ref_cl_fuse(g, e, gamma_in, weight, tau)
+
+
+def count_ge_fused(g, e, gamma_in, weight, participate, taus, *,
+                   include_gamma: bool = False, mode: Mode = "auto"):
+    """Candidate counts of the 1-D operand ``w·g + e`` (``p·(w·g + e) +
+    γ_in`` with ``include_gamma``) rebuilt from the raw node inputs;
+    taus [B] → int32 [B]."""
+    if _kernel(mode, g):
+        return count_ge_fused_cuda(g, e, gamma_in, weight, participate, taus,
+                                   include_gamma=include_gamma)
+    return ref.ref_count_ge_fused(g, e, gamma_in, weight, participate, taus,
+                                  include_gamma=include_gamma)
+
+
+# ---------------------------------------------------------------------------
+# level kernels: [W, d] lanes
+# ---------------------------------------------------------------------------
 
 def sparsify_ef_level(g, e, mask_in, weight, tau, valid, *,
                       with_err: bool = False, mode: Mode = "auto"):

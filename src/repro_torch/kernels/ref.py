@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the level kernels (the port of
-:mod:`repro.kernels.ref`'s level part).
+"""Plain PyTorch versions of the kernels (the port of
+:mod:`repro.kernels.ref`).
 
-Each ``ref_*`` function is the contract its CUDA kernel in
-:mod:`repro_torch.kernels.level` meets bit for bit. They are what the
+Each ``ref_*`` function is the contract its CUDA kernel meets bit for bit:
+the level kernels of :mod:`repro_torch.kernels.level` and the scalar
+``[d]`` kernels of :mod:`.chain_accum`, :mod:`.sparsify_ef` and
+:mod:`.topq_threshold`. They are what the
 kernel wrappers run for CPU tensors, and what the tests hold against the
 JAX package.
 
@@ -11,6 +13,10 @@ Rounding follows the jitted JAX reference exactly. XLA contracts every
 is written as :func:`torch.addcmul` (one rounding), never as eager
 ``a*b + c`` (two roundings). The sites are ``w·g + e``, ``p·g̃ + γ_in``
 and ``m·s + Λ``; the pinned ‖e′‖² fold contracts its first level too.
+CL-SIA's scalar ``w·g + e + γ_in`` rounds as ``fl(fma(w, g, e) + γ_in)``.
+The scalar versions compute in f32 and cast their outputs to the input
+dtype (round to nearest even); ``nnz`` counts the f32 values before that
+cast.
 """
 
 from __future__ import annotations
@@ -257,3 +263,82 @@ def hist_edge_magnitudes(tables, per_lane: int, seed: int = 0) -> Tensor:
         rows.append(pool[torch.from_numpy(
             rng.integers(0, pool.numel(), per_lane))])
     return torch.stack(rows)
+
+
+# ---------------------------------------------------------------------------
+# scalar [d] kernels (repro.kernels.chain_accum / sparsify_ef /
+# topq_threshold): one row, scalars as Python numbers or one-element tensors
+# ---------------------------------------------------------------------------
+
+def _f32(v, like: Tensor) -> Tensor:
+    """A Python number or a one-element tensor as a 0-d f32 tensor on
+    ``like``'s device."""
+    return torch.as_tensor(v, dtype=torch.float32,
+                           device=like.device).reshape(())
+
+
+def _nnz(x: Tensor) -> Tensor:
+    return (x != 0).sum(dtype=torch.int32)
+
+
+def ref_count_ge(x: Tensor, taus: Tensor) -> Tensor:
+    """counts[j] = #{i : |x_i| >= taus_j}; x [d] float, taus [B] f32 in any
+    order → int32 [B]."""
+    return _count_ge_rows(x.to(torch.float32).abs()[None],
+                          taus.to(torch.float32)[None])[0]
+
+
+def ref_sparsify_ef(g, e, mask_in, weight, tau):
+    """Fused error feedback + threshold/mask sparsification of one row.
+
+    g̃ = w·g + e; keep = |g̃| ≥ τ ∨ mask_in > 0 (``mask_in=None``: the
+    threshold alone); ḡ = keep ? g̃ : 0; e′ = g̃ − ḡ. → (ḡ in g's dtype, e′
+    in e's, nnz 0-d int32).
+    """
+    gt = torch.addcmul(e.to(torch.float32), _f32(weight, g),
+                       g.to(torch.float32))
+    keep = gt.abs() >= _f32(tau, g)
+    if mask_in is not None:
+        keep = keep | (mask_in > 0)
+    gbar = torch.where(keep, gt, torch.zeros_like(gt))
+    e_new = gt - gbar
+    return gbar.to(g.dtype), e_new.to(e.dtype), _nnz(gbar)
+
+
+def ref_chain_accum(gamma_in, gbar):
+    """γ_out = γ_in + ḡ → (γ_out in γ_in's dtype, nnz 0-d int32)."""
+    gamma = gamma_in.to(torch.float32) + gbar.to(torch.float32)
+    return gamma.to(gamma_in.dtype), _nnz(gamma)
+
+
+def ref_cl_fuse(g, e, gamma_in, weight, tau):
+    """The CL-SIA node step of one row given τ (Algorithm 3, lines 2–5).
+
+    γ̃ = fl(fma(w, g, e) + γ_in); γ_out = |γ̃| ≥ τ ? γ̃ : 0; e′ = γ̃ − γ_out.
+    → (γ_out in γ_in's dtype, e′ in e's, nnz 0-d int32).
+    """
+    gt = torch.addcmul(e.to(torch.float32), _f32(weight, g),
+                       g.to(torch.float32)) + gamma_in.to(torch.float32)
+    keep = gt.abs() >= _f32(tau, g)
+    gamma = torch.where(keep, gt, torch.zeros_like(gt))
+    e_new = gt - gamma
+    return gamma.to(gamma_in.dtype), e_new.to(e.dtype), _nnz(gamma)
+
+
+def ref_count_ge_fused(g, e, gamma_in, weight, participate, taus, *,
+                       include_gamma: bool = False) -> Tensor:
+    """Candidate counts of the 1-D operand ``w·g + e`` (``p·(w·g + e) +
+    γ_in`` with ``include_gamma``) rebuilt from the raw node inputs; taus
+    [B] f32 → int32 [B].
+
+    As in the reference, counted through
+    :func:`repro_torch.core.sparsify.count_ge_sorted`, whose integers
+    equal the broadcast comparison's for the nondecreasing taus of a
+    bisection round.
+    """
+    op = fused_operand(g[None], e[None],
+                       None if gamma_in is None else gamma_in[None],
+                       _f32(weight, g).reshape(1),
+                       _f32(participate, g).reshape(1),
+                       include_gamma=include_gamma)
+    return sp.count_ge_sorted(op[0].abs(), taus.to(torch.float32))

@@ -182,7 +182,8 @@ def test_error_feedback_helpers_match_reference():
     _same(jst.e, tst.e)
     np.testing.assert_allclose(float(jef.total_banked(jst)),
                                float(tef.total_banked(tst)), rtol=1e-6)
-    assert tef.init_ef(3, 7).e.shape == (3, 7) and tst.dim == D
-    assert tef.init_ef_rank(7).e.shape == (7,)
+    assert tef.init_ef(3, 7, device="cpu").e.shape == (3, 7)
+    assert tst.dim == D
+    assert tef.init_ef_rank(7, device="cpu").e.shape == (7,)
     _same(jef.residual(g, e), tef.residual(torch.from_numpy(g),
                                            torch.from_numpy(e)))

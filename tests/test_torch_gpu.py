@@ -7,7 +7,12 @@ its plain version run on the CPU on the same inputs, bit for bit, for every
 float and integer output (the CPU version is the one the parity tests hold
 against the JAX package). The τ-search kernels are held the same way, at
 the histogram's shared-memory and global-atomics branches and on
-magnitudes placed on the histogram's bin edges.
+magnitudes placed on the histogram's bin edges. The scalar ``[d]`` kernels
+are held the same way in float32 and bfloat16, with their scalars as
+numbers and as tensors on the card, on views that do not start on a
+16-byte boundary, with taus in any order, through the ``ops`` entries under
+``"always"``, and against the W = 1 level kernels where the two compute
+the same function.
 """
 
 import numpy as np
@@ -15,7 +20,8 @@ import pytest
 import torch
 
 from repro_torch.core import sparsify as sp
-from repro_torch.kernels import level, ops, ref
+from repro_torch.kernels import (chain_accum, level, ops, ref, sparsify_ef,
+                                 topq_threshold)
 
 pytestmark = pytest.mark.gpu
 
@@ -256,3 +262,227 @@ def test_tau_search_ops_launch_on_cuda(cuda):
     ops.hist_topq_level(*args, tables, mode="ref")
     grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
     assert grown == [0, 0, 0, 2, 2, 2]
+
+
+# ---------------------------------------------------------------------------
+# scalar [d] kernels
+# ---------------------------------------------------------------------------
+
+ROW_SHAPES = [7850, 3, 8192, 2 * 8192 + 77, 65539]
+ROW_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _rows(d, dtype, dev, seed=0, offset=0):
+    """→ (CPU rows, card rows): g, e, gamma_in in ``dtype``, a float32
+    mask; with ``offset``, views that start that many elements into a
+    larger tensor (not on a 16-byte boundary for an odd offset)."""
+    rng = np.random.default_rng(seed)
+    n = d + offset
+    f = lambda s: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(n) * s).astype(np.float32))
+    full = dict(g=f(1.0).to(dtype), e=f(0.3).to(dtype),
+                gin=(f(1.0) * (torch.from_numpy(rng.random(n)) < 0.3)).to(
+                    dtype),
+                mask=torch.from_numpy((rng.random(n) < 0.05).astype(
+                    np.float32)))
+    cpu = {k: v[offset:] for k, v in full.items()}
+    gpu = {k: v.to(dev)[offset:] for k, v in full.items()}
+    return cpu, gpu
+
+
+def _same_t(a, b):
+    a, b = a.cpu(), b.cpu()
+    assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, b.dtype)
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype in view:
+        a, b = a.contiguous().view(view[a.dtype]), b.contiguous().view(
+            view[a.dtype])
+    assert torch.equal(a, b)
+
+
+def _scalars(form, dev, *values):
+    """The scalar arguments as Python numbers or one-element tensors on
+    the card (read by pointer in the kernel)."""
+    if form == "number":
+        return values
+    return tuple(torch.tensor([v], dtype=torch.float32, device=dev)
+                 for v in values)
+
+
+def _row_taus(seed, n=48):
+    """Shuffled candidates with τ = −1, 0, +inf and a tie."""
+    rng = np.random.default_rng(seed)
+    taus = np.abs(rng.standard_normal(n)).astype(np.float32) * 1.5
+    taus[:4] = [-1.0, 0.0, np.inf, taus[7]]
+    return torch.from_numpy(rng.permutation(taus))
+
+
+@pytest.mark.parametrize("d", ROW_SHAPES)
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("form", ["number", "tensor"])
+def test_sparsify_ef_kernel(cuda, d, dtype, with_mask, form):
+    cpu, gpu = _rows(d, dtype, cuda, seed=11)
+    mask = lambda c: c["mask"] if with_mask else None  # noqa: E731
+    want = ref.ref_sparsify_ef(cpu["g"], cpu["e"], mask(cpu), 1.7, 1.2)
+    n0 = sparsify_ef.sparsify_ef_cuda.launches
+    got = sparsify_ef.sparsify_ef_cuda(gpu["g"], gpu["e"], mask(gpu),
+                                       *_scalars(form, cuda, 1.7, 1.2))
+    torch.cuda.synchronize()
+    assert sparsify_ef.sparsify_ef_cuda.launches == n0 + 1
+    for a, b in zip(want, got):
+        _same_t(a, b)
+
+
+@pytest.mark.parametrize("d", ROW_SHAPES)
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("form", ["number", "tensor"])
+def test_cl_fuse_kernel(cuda, d, dtype, form):
+    cpu, gpu = _rows(d, dtype, cuda, seed=12)
+    want = ref.ref_cl_fuse(cpu["g"], cpu["e"], cpu["gin"], 0.8, 1.4)
+    got = chain_accum.cl_fuse_cuda(gpu["g"], gpu["e"], gpu["gin"],
+                                   *_scalars(form, cuda, 0.8, 1.4))
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        _same_t(a, b)
+
+
+@pytest.mark.parametrize("d", ROW_SHAPES)
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_chain_accum_kernel(cuda, d, dtype):
+    cpu, gpu = _rows(d, dtype, cuda, seed=13)
+    want = ref.ref_chain_accum(cpu["gin"], cpu["g"])
+    got = chain_accum.chain_accum_cuda(gpu["gin"], gpu["g"])
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        _same_t(a, b)
+
+
+@pytest.mark.parametrize("d", ROW_SHAPES)
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_count_ge_kernel_taus_in_any_order(cuda, d, dtype):
+    cpu, gpu = _rows(d, dtype, cuda, seed=14)
+    taus = _row_taus(d)
+    got = topq_threshold.count_ge_cuda(gpu["g"], taus.to(cuda))
+    _same_t(ref.ref_count_ge(cpu["g"], taus), got)
+    assert int(got[taus == 0.0][0]) == d and int(got[taus == np.inf][0]) == 0
+
+
+@pytest.mark.parametrize("d", ROW_SHAPES)
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("include_gamma", [False, True])
+@pytest.mark.parametrize("form", ["number", "tensor"])
+def test_count_ge_fused_kernel(cuda, d, dtype, include_gamma, form):
+    cpu, gpu = _rows(d, dtype, cuda, seed=15)
+    taus = _row_taus(d + 1)
+    want = ref.ref_count_ge_fused(cpu["g"], cpu["e"], cpu["gin"], 0.7, 0.6,
+                                  taus, include_gamma=include_gamma)
+    got = topq_threshold.count_ge_fused_cuda(
+        gpu["g"], gpu["e"], gpu["gin"], *_scalars(form, cuda, 0.7, 0.6),
+        taus.to(cuda), include_gamma=include_gamma)
+    _same_t(want, got)
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("offset", [1, 3])
+def test_scalar_kernels_on_unaligned_views(cuda, dtype, offset):
+    d = 7850
+    cpu, gpu = _rows(d, dtype, cuda, seed=16, offset=offset)
+    assert gpu["g"].data_ptr() % 16 != 0
+    taus = _row_taus(17)
+    tau_card = torch.tensor([1.1], device=cuda)
+    cases = [
+        (ref.ref_sparsify_ef(cpu["g"], cpu["e"], cpu["mask"], 1.3, 1.1),
+         sparsify_ef.sparsify_ef_cuda(gpu["g"], gpu["e"], gpu["mask"], 1.3,
+                                      tau_card)),
+        (ref.ref_cl_fuse(cpu["g"], cpu["e"], cpu["gin"], 1.3, 1.1),
+         chain_accum.cl_fuse_cuda(gpu["g"], gpu["e"], gpu["gin"], 1.3,
+                                  tau_card)),
+        (ref.ref_chain_accum(cpu["gin"], cpu["g"]),
+         chain_accum.chain_accum_cuda(gpu["gin"], gpu["g"])),
+        ((ref.ref_count_ge(cpu["g"], taus),),
+         (topq_threshold.count_ge_cuda(gpu["g"], taus.to(cuda)),)),
+        ((ref.ref_count_ge_fused(cpu["g"], cpu["e"], cpu["gin"], 1.3, 0.5,
+                                 taus, include_gamma=True),),
+         (topq_threshold.count_ge_fused_cuda(
+             gpu["g"], gpu["e"], gpu["gin"], 1.3, 0.5, taus.to(cuda),
+             include_gamma=True),))]
+    torch.cuda.synchronize()
+    for want, got in cases:
+        for a, b in zip(want, got):
+            _same_t(a, b)
+
+
+def test_count_ge_takes_up_to_max_taus(cuda):
+    cpu, gpu = _rows(20011, torch.float32, cuda, seed=18)
+    n = topq_threshold.MAX_TAUS
+    taus = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        n).astype(np.float32)).abs()
+    _same_t(ref.ref_count_ge(cpu["g"], taus),
+            topq_threshold.count_ge_cuda(gpu["g"], taus.to(cuda)))
+    with pytest.raises(ValueError, match=str(n)):
+        topq_threshold.count_ge_cuda(gpu["g"], torch.ones(n + 1,
+                                                          device=cuda))
+    with pytest.raises(ValueError, match=str(n)):
+        topq_threshold.count_ge_fused_cuda(gpu["g"], gpu["e"], None, 1.0,
+                                           1.0, torch.ones(n + 1,
+                                                           device=cuda))
+
+
+def test_scalar_ops_launch_on_cuda(cuda):
+    cpu, gpu = _rows(1000, torch.float32, cuda, seed=19)
+    taus = _row_taus(3).to(cuda)
+    calls = {
+        "count_ge": lambda m: ops.count_ge(gpu["g"], taus, mode=m),
+        "sparsify_ef": lambda m: ops.sparsify_ef(gpu["g"], gpu["e"], None,
+                                                 1.0, 1.0, mode=m),
+        "chain_accum": lambda m: ops.chain_accum(gpu["gin"], gpu["g"],
+                                                 mode=m),
+        "cl_fuse": lambda m: ops.cl_fuse(gpu["g"], gpu["e"], gpu["gin"],
+                                         1.0, 1.0, mode=m),
+        "count_ge_fused": lambda m: ops.count_ge_fused(
+            gpu["g"], gpu["e"], gpu["gin"], 1.0, 1.0, taus,
+            include_gamma=True, mode=m)}
+    for name, call in calls.items():
+        fn = getattr(ops, name + "_cuda")
+        n0 = fn.launches
+        got = call("always")
+        call("auto")
+        want = call("ref")
+        call("never")
+        assert fn.launches == n0 + 2, name
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(want, got):
+            _same_t(a, b)
+
+
+def test_scalar_kernels_equal_the_w1_level_kernels(cuda):
+    """sparsify_ef and chain_accum compute the W = 1 level kernels'
+    functions (with valid = 1)."""
+    _, gpu = _rows(2 * 8192 + 77, torch.float32, cuda, seed=20)
+    one = lambda v: torch.tensor([v], device=cuda)  # noqa: E731
+    for mask in (None, gpu["mask"]):
+        a = sparsify_ef.sparsify_ef_cuda(gpu["g"], gpu["e"], mask, 1.3, 0.9)
+        b = level.sparsify_ef_level_cuda(
+            gpu["g"][None], gpu["e"][None],
+            None if mask is None else mask[None], one(1.3), one(0.9),
+            one(1.0))
+        for u, v in zip(a, b):
+            _same_t(u, v[0])
+    a = chain_accum.chain_accum_cuda(gpu["gin"], gpu["g"])
+    b = level.chain_accum_level_cuda(gpu["gin"][None], gpu["g"][None],
+                                     one(1.0))
+    _same_t(a[0], b[0][0])
+    _same_t(a[1], b[1][0])
+
+
+@pytest.mark.parametrize("q", [10, 500, 5000])
+def test_threshold_search_1d_counts_on_the_card(cuda, q):
+    x = torch.from_numpy(np.random.default_rng(q).standard_normal(
+        50_000).astype(np.float32))
+    want = sp.threshold_for_topq(x, q, count_fn=ops.count_ge)
+    n0 = topq_threshold.count_ge_cuda.launches
+    got = sp.threshold_for_topq(x.to(cuda), q, count_fn=ops.count_ge)
+    assert topq_threshold.count_ge_cuda.launches == n0 + 3
+    _same_t(want, got)

@@ -75,6 +75,18 @@ def test_simulator_without_a_device_raises_where_there_is_no_card():
     assert sim.init().flat_w.device.type == "cpu"
 
 
+def test_error_feedback_state_without_a_device_raises_without_a_card():
+    from repro_torch.core import error_feedback as ef
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ef.init_ef(3, 7)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ef.init_ef_rank(7)
+    assert ef.init_ef(3, 7, device="cpu").e.device.type == "cpu"
+    assert ef.init_ef_rank(7, device="cpu").e.device.type == "cpu"
+
+
 def test_kernel_entries_follow_the_tensors_device():
     before = [k.launches for k in level.KERNELS]
     g = torch.ones(2, 10)
