@@ -14,8 +14,9 @@ Phases (any failure exits non-zero and prints no result):
    lane, a ``p == 0`` lane, a τ = +inf lane) and every τ-search kernel
    over its variants (γ_in on/off × the three global-mask forms, a
    ``p == 0`` lane, the histogram at branch 64 and at a branch past
-   shared memory, magnitudes on the histogram's bin edges, taus in any
-   order for ``count_ge_level``) at the paper's shapes (W = 1 and 28,
+   shared memory, magnitudes on the histogram's bin edges and NaN, ±inf,
+   ±0 and subnormal magnitudes at both branches, taus in any order for
+   ``count_ge_level``) at the paper's shapes (W = 1 and 28,
    d = 7850) and a large ragged one (W = 8, d = 2**23 + 125; one variant
    per τ-search kernel there), each output held bit for bit against the
    kernel's plain PyTorch version run on the CPU on the same inputs; then
@@ -45,7 +46,8 @@ Phases (any failure exits non-zero and prints no result):
    include_gamma on/off, shuffled taus with −1, 0 and +inf, the scalars as
    numbers and as tensors on the card) at d = 7850, 10**6 and 2**26 + 125
    bit for bit against their plain versions on the CPU and on the card,
-   and timed; then driven through the ``ops`` entries with launch counts
+   and timed, and ``count_ge`` on the bucket edges of its rank table with
+   B = 1, 64 and 4095 (4096 refused); then driven through the ``ops`` entries with launch counts
    read around the run: the 1-D τ search ``threshold_for_topq(x, q,
    count_fn=ops.count_ge)`` at d = 10**6 for three q, and a 28-node chain
    of scalar node steps at d = 7850 for SIA (``count_ge_fused``,
@@ -85,6 +87,7 @@ SCALAR_SHAPES = [7850, 1_000_000, 2 ** 26 + 125]
 SCALAR_DTYPES = (torch.float32, torch.bfloat16)
 SEARCH_D = 1_000_000               # the 1-D τ search counting with count_ge
 SEARCH_QS = (10, 500, 5000)
+EDGE_TAUS = (1, 64, 4095)          # count_ge on its rank table's edges
 
 
 def log(*args):
@@ -273,8 +276,11 @@ def tau_variants(large: bool):
             for branch in (BRANCH, WIDE_BRANCH):
                 yield "hist_topq_level", dict(gamma=gamma, gm=gm,
                                               branch=branch)
-    yield "hist_topq_level", dict(gamma=False, gm=None, branch=BRANCH,
-                                  edges=True)
+    for branch in (BRANCH, WIDE_BRANCH):
+        yield "hist_topq_level", dict(gamma=False, gm=None, branch=branch,
+                                      edges=True)
+        yield "hist_topq_level", dict(gamma=False, gm=None, branch=branch,
+                                      specials=True)
     yield "count_ge_level", dict()
 
 
@@ -288,15 +294,25 @@ def tau_tables(sp, ref, t: dict, opt: dict, branch: int):
     return sp._hist_tables(torch.zeros_like(hi), hi, branch)
 
 
-def edge_inputs(sp, ref, cpu: dict) -> tuple:
+def edge_inputs(sp, ref, cpu: dict, branch: int, specials: bool) -> tuple:
     """→ (inputs, tables): operand = g exactly (w = 1, e = 0), with g on
-    the bin edges of ``tables`` — the FMA-rounded round-2 candidates, tau1
-    and the bracket tops."""
+    the bin edges of ``tables`` (the FMA-rounded round-2 candidates, tau1
+    and the bracket tops) or, with ``specials``, NaN, ±inf, ±0 and
+    subnormals in a tenth of lane 0 and an all-zero last lane (its tables
+    take the zero-width floor)."""
     w, d = cpu["g"].shape
     plain = dict(cpu, e=torch.zeros_like(cpu["g"]),
                  weight=torch.ones(w), part=torch.ones(w))
-    tables = tau_tables(sp, ref, plain, dict(gm=None, gamma=False), BRANCH)
-    g = ref.hist_edge_magnitudes(tables, d, seed=SEED)
+    if specials:
+        g = cpu["g"].clone()
+        if w > 1:
+            g[-1] = 0.0
+        plain["g"] = g
+    tables = tau_tables(sp, ref, plain, dict(gm=None, gamma=False), branch)
+    if specials:
+        g[0, :d // 10] = ref.special_magnitudes(d // 10, seed=SEED)
+    else:
+        g = ref.hist_edge_magnitudes(tables, d, seed=SEED)
     return dict(plain, g=g), tables
 
 
@@ -363,8 +379,9 @@ def check_tau_kernels(level, ref, sp) -> dict:
         taus[:, 7], taus[:, 8], taus[:, 11] = np.inf, -np.inf, 0.0
         for name, opt in tau_variants(large):
             aux = {"taus_any": torch.from_numpy(taus)}
-            if opt.get("edges"):
-                inp, aux["tables"] = edge_inputs(sp, ref, cpu)
+            if opt.get("edges") or opt.get("specials"):
+                inp, aux["tables"] = edge_inputs(sp, ref, cpu, opt["branch"],
+                                                 opt.get("specials", False))
             else:
                 inp = cpu
                 if name != "count_ge_level":
@@ -876,7 +893,45 @@ def check_scalar_kernels(scalar, ref) -> dict:
         log(f"[kernels] d={d}: every scalar kernel variant bitwise equal to "
             f"its plain version on the CPU and on the card "
             f"({time.perf_counter() - t0:.1f} s)")
+    check_count_ge_edges(cuda_fns["count_ge"], ref, report["count_ge"])
     return report
+
+
+def check_count_ge_edges(count_ge, ref, r: dict):
+    """count_ge at d = SEARCH_D on the bucket edges of its rank table and
+    on the taus (one ulp either side), with NaN, ±inf, ±0 and subnormal
+    elements; taus in any order with −1, 0, +inf, NaN, ties and taus on
+    bucket boundaries, B = 1, 64 and 4095 (MAX_TAUS); float32 and
+    bfloat16; bit for bit against the plain version on the CPU. 4096 taus
+    must be refused."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for n in EDGE_TAUS:
+        taus = ref.count_edge_taus(n, seed=SEED + n)
+        x = ref.count_edge_magnitudes(taus, SEARCH_D, seed=SEED + n)
+        x[:1000] = ref.special_magnitudes(1000, seed=SEED + n)
+        for dt in SCALAR_DTYPES:
+            row = x.to(dt)
+            want = ref.ref_count_ge(row, taus)
+            got = count_ge(row.to(dev), taus.to(dev))
+            torch.cuda.synchronize()
+            r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(want, got))
+            if not bitwise_equal(want, got):
+                raise SystemExit(f"FAIL count_ge on its rank table's edges, "
+                                 f"B={n} {dt}: kernel differs from its plain "
+                                 f"version (max |diff| "
+                                 f"{max_abs_diff(want, got)})")
+            r["checked"] += 1
+    try:
+        count_ge(x.to(dev), torch.ones(EDGE_TAUS[-1] + 1, device=dev))
+    except ValueError:
+        pass
+    else:
+        raise SystemExit(f"FAIL count_ge took {EDGE_TAUS[-1] + 1} taus")
+    log(f"[kernels] count_ge on its rank table's edges at d={SEARCH_D}, "
+        f"B in {EDGE_TAUS}, float32 and bfloat16: equal to the plain version "
+        f"bit for bit; {EDGE_TAUS[-1] + 1} taus refused "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------

@@ -10,14 +10,19 @@
 
 namespace {
 
-// #{k < n : v >= a[k]} for a nondecreasing a (0 for a NaN v).
-__device__ __forceinline__ int rank_of(float v, const float* a, int n) {
-  int lo = 0, hi = n;
+// lo + #{lo <= k < hi : v >= a[k]} for a nondecreasing a (lo for a NaN v).
+__device__ __forceinline__ int rank_between(float v, const float* a, int lo,
+                                            int hi) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (v >= a[mid]) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// #{k < n : v >= a[k]} for a nondecreasing a (0 for a NaN v).
+__device__ __forceinline__ int rank_of(float v, const float* a, int n) {
+  return rank_between(v, a, 0, n);
 }
 
 // A NaN tau sorts as +inf (and counts nothing).

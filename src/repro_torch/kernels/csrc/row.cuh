@@ -140,18 +140,24 @@ __device__ __forceinline__ void block_count(int mine, int* s, int* out) {
   if (threadIdx.x == 0 && *s) atomicAdd(out, *s);
 }
 
-// Blocks for `units` units: no more than fill every SM at the kernel's
-// occupancy (the rest is walked grid-stride), no fewer than one.
+// Blocks of `threads` threads that the card keeps resident at once.
 template <typename K>
-inline int row_grid(K kernel, long long units, size_t smem) {
+inline long long resident_blocks(K kernel, int threads, size_t smem) {
   int dev = 0, sms = 1, per_sm = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRowThreads,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                 smem);
-  const long long cap = (long long)(sms > 0 ? sms : 1) *
-                        (per_sm > 0 ? per_sm : 1);
-  const long long want = (units + kRowThreads - 1) / kRowThreads;
+  return (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+}
+
+// Blocks for `units` units: no more than fill every SM at the kernel's
+// occupancy (the rest is walked grid-stride), no fewer than one.
+template <typename K>
+inline int row_grid(K kernel, long long units, size_t smem,
+                    int threads = kRowThreads) {
+  const long long cap = resident_blocks(kernel, threads, smem);
+  const long long want = (units + threads - 1) / threads;
   const long long g = want < cap ? want : cap;
   return (int)(g < 1 ? 1 : g);
 }

@@ -11,7 +11,8 @@
 // All three are integer-exact counts. On the TPU each candidate is one
 // vector compare over a whole tile (B passes over the tile), and the
 // histogram is a one-hot contraction on the MXU. Here each element finds
-// its bin once, by binary search over values held in shared memory, and
+// its bin once, from values held in shared memory (a binary search for the
+// counts, an estimate checked by exact comparisons for the histogram), and
 // adds 1 to a shared-memory histogram with an integer atomic; blocks add
 // their histograms into the output with global integer atomics. Integer
 // sums are exact in any order, so the result does not depend on the
@@ -19,8 +20,8 @@
 //
 // Bound: device-memory bytes at large d (each operand array is read once:
 // 2-3 [W, d] f32 rows plus the mask), with a log2(B)-step search per
-// element on top; at the paper's d = 7850 a launch is one tile per lane and
-// launch-bound.
+// element on top for the counts; at the paper's d = 7850 a launch is one
+// tile per lane and launch-bound.
 //
 // Counts (count_ge_level, count_ge_fused_level):
 //   * the lane's B taus are sorted into shared memory (rank by comparison,
@@ -35,13 +36,35 @@
 //
 // Histogram (hist_topq_level), per element with tables from
 // core/sparsify.py::_hist_tables (tau1 [b], new_lo, w2, top_shift [b+1]):
-//   d1 = #{j : |x| >= tau1_j} by binary search; nl, w2e, ts at index d1;
-//   d2 = the largest j in 0..b with |x| >= fma(w2e, j, nl), by the same
-//        binary search (same midpoints) as the plain version;
+//   d1 = #{j : |x| >= tau1_j}; nl, w2e, ts at index d1;
+//   d2 = the largest j in 0..b with |x| >= fma(w2e, j, nl) (0 if none),
+//        what the plain version's binary search finds;
 //   D2[d1, d2] += 1, and F[d1] += 1 when |x| >= ts.
-//   A (b+1)^2 histogram that fits in 48 KB of shared memory (b <= 107) is
+//   The digits are not searched. Bracket r's values sit in one 16-byte
+//   shared entry {tau1[r-1], tau1[r], nl, w2e}; d1 is estimated from
+//   (|x| - tau1[0]) / w1 and d2 from (|x| - nl) / w2 (reciprocals from the
+//   block's prologue), then confirmed by the exact comparisons that define
+//   them (tau1[d1-1] <= |x| < tau1[d1]; the candidate fma(w2e, d2, nl) and
+//   the next one), and stepped by one where the estimate is off. Only
+//   exact comparisons decide, so the digits equal the binary searches'
+//   for any tables whose tau1 is nondecreasing without NaN and whose
+//   candidates are nondecreasing in j (w2e finite and >= 0, nl finite);
+//   a lane whose tables are not so, or an element that needs more than
+//   kMaxSteps steps, takes the binary searches (the same midpoints as the
+//   plain version). A NaN magnitude has d1 = b (searchsorted's place for
+//   it, as in the plain version), d2 = 0 and no flag.
+//   F[d1] is counted by its complement: the flag is true for nearly every
+//   element of a bracket r >= 1 (top_shift[r] is the top candidate of
+//   bracket r - 1, about tau1[r-1]), so a shared atomic per element would
+//   pile onto the few bins most magnitudes fall in. G[r] = #{d1 = r, not
+//   |x| >= ts} is added instead and F[r] = #{d1 = r} - G[r] at the flush;
+//   F[0] (ts = the f32 maximum) is counted directly. Integers, exact.
+//   A (b+1)^2 histogram that fits in 48 KB of shared memory (b <= 106) is
 //   kept there and flushed once per block; a larger one (up to b = 1024)
-//   takes the global-atomics variant, which adds straight into D2 and F.
+//   takes the global-atomics variant, which adds D2 straight into global
+//   memory and keeps the row counts #{d1 = r} in shared memory. The grid
+//   holds as many blocks as the card keeps resident, spread over the
+//   lanes (never more than a lane's tiles).
 //
 // The operand is rebuilt with the float ops of cl_fuse_level (and of the
 // jitted reference): s = fma(w, g, e); s = fma(p, s, gamma_in) with
@@ -54,6 +77,7 @@
 #include <stdint.h>
 
 #include "rank.cuh"
+#include "row.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -170,39 +194,107 @@ counts_from_ranks_kernel(const float* __restrict__ taus, int nb_taus,
 // joint digit histogram
 // --------------------------------------------------------------------------
 
-template <int GM, bool GAMMA, bool SHARED>
-__global__ void __launch_bounds__(kThreads)
-hist_topq_level_kernel(Operand op, const float* __restrict__ tau1,
-                       const float* __restrict__ new_lo,
-                       const float* __restrict__ w2,
-                       const float* __restrict__ top_shift, int branch,
-                       int* __restrict__ d2_out, int* __restrict__ f_out,
-                       long long d, long long n_tiles) {
-  extern __shared__ float smem[];
-  const int nb = branch + 1;
-  float* s_t1 = smem;
-  float* s_nl = s_t1 + branch;
-  float* s_w2 = s_nl + nb;
-  float* s_ts = s_w2 + nb;
-  int* s_d2 = reinterpret_cast<int*>(s_ts + nb);        // [nb * nb]
-  int* s_f = s_d2 + nb * nb;                            // [nb]
-  const int w = blockIdx.y;
-  for (int j = threadIdx.x; j < branch; j += blockDim.x) {
-    s_t1[j] = tau1[(long long)w * branch + j];
+// Bracket r of a lane's tables: {tau1[r-1] (-inf for r = 0), tau1[r] (NaN
+// for r = b, which no magnitude is >=), new_lo[r], w2[r]}.
+__device__ __forceinline__ float4 bracket_of(const float* t1,
+                                             const float* nl,
+                                             const float* w2, int branch,
+                                             int r) {
+  return make_float4(r == 0 ? -INFINITY : t1[r - 1],
+                     r == branch ? __int_as_float(0x7fffffff) : t1[r],
+                     nl[r], w2[r]);
+}
+
+// The estimate of both digits: d1 ~ (m - base1) * inv1 + 1 and
+// d2 ~ (m - nl) * inv2, clamped to 0..b; `fast` is 0 for a lane whose
+// tables do not meet the rule's conditions.
+struct DigitRule {
+  float base1, inv1, inv2;
+  int fast;
+};
+
+constexpr int kMaxSteps = 2;   // estimate corrections before the search
+
+__device__ __forceinline__ int clamp_digit(float t, int branch) {
+  return (int)fminf(fmaxf(t, 0.f), (float)branch);   // NaN -> 0
+}
+
+// d1 by the plain version's binary search over tau1 (the uppers).
+__device__ __forceinline__ int search_d1(float m, const float4* br,
+                                         int branch) {
+  int lo = 0, hi = branch;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (m >= br[mid].y) lo = mid + 1; else hi = mid;
   }
-  for (int j = threadIdx.x; j < nb; j += blockDim.x) {
-    s_nl[j] = new_lo[(long long)w * nb + j];
-    s_w2[j] = w2[(long long)w * nb + j];
-    s_ts[j] = top_shift[(long long)w * nb + j];
+  return lo;
+}
+
+// d2 by the plain version's binary search over j in 0..b.
+__device__ __forceinline__ int search_d2(float m, float nl, float w2e,
+                                         int nb) {
+  int lo = 0, hi = nb;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (m >= __fmaf_rn(w2e, (float)mid, nl)) lo = mid; else hi = mid;
   }
-  if (SHARED) {
-    for (int j = threadIdx.x; j < nb * nb + nb; j += blockDim.x) s_d2[j] = 0;
+  return lo;
+}
+
+// Both digits of a magnitude: estimated and checked (FAST, the lane's
+// tables meet the rule's conditions), else searched.
+template <bool FAST>
+__device__ __forceinline__ void digits(float m, const DigitRule& rule,
+                                       const float4* br, int branch,
+                                       int& d1, int& d2) {
+  if (isnan(m)) {   // searchsorted places NaN after every candidate
+    d1 = branch;
+    d2 = 0;
+    return;
   }
-  __syncthreads();
-  int* g_d2 = d2_out + (long long)w * nb * nb;
-  int* g_f = f_out + (long long)w * nb;
-  int* hd2 = SHARED ? s_d2 : g_d2;
-  int* hf = SHARED ? s_f : g_f;
+  if (!FAST) {
+    d1 = search_d1(m, br, branch);
+    const float4 e = br[d1];
+    d2 = search_d2(m, e.z, e.w, branch + 1);
+    return;
+  }
+  int k = clamp_digit(__fmaf_rn(m - rule.base1, rule.inv1, 1.f), branch);
+  float4 e = br[k];
+  for (int step = 0;; ++step) {
+    const int dir = !(m >= e.x) ? -1 : (m >= e.y ? 1 : 0);
+    if (dir == 0) break;
+    if (step == kMaxSteps) {
+      k = search_d1(m, br, branch);
+      e = br[k];
+      break;
+    }
+    k += dir;
+    e = br[k];
+  }
+  d1 = k;
+  int c = clamp_digit((m - e.z) * rule.inv2, branch);
+  for (int step = 0;; ++step) {
+    const int dir =
+        c > 0 && !(m >= __fmaf_rn(e.w, (float)c, e.z)) ? -1
+        : c < branch && m >= __fmaf_rn(e.w, (float)(c + 1), e.z) ? 1 : 0;
+    if (dir == 0) break;
+    if (step == kMaxSteps) {
+      c = search_d2(m, e.z, e.w, branch + 1);
+      break;
+    }
+    c += dir;
+  }
+  d2 = c;
+}
+
+// The element loop of a block: both digits of each magnitude, D2 (shared
+// or global) and G; the global variant also counts #{d1 = r} in s_rows.
+template <int GM, bool GAMMA, bool SHARED, bool FAST>
+__device__ __forceinline__ void hist_elements(
+    const Operand& op, DigitRule rule, const float4* s_br, const float* s_ts,
+    int* s_g, int* s_rows, int* g_d2, int branch, long long d,
+    long long n_tiles) {
+  const int w = blockIdx.y, nb = branch + 1;
   const float wt = op.w[w];
   const float pw = GAMMA ? op.p[w] : 0.f;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -213,28 +305,99 @@ hist_topq_level_kernel(Operand op, const float* __restrict__ tau1,
       load_mag<kSrcFused, GM, GAMMA>(op, wt, pw, t, un, mag);
       for (int k = 0; k < un.cnt; ++k) {
         const float m = mag[k];
-        const int d1 = rank_of(m, s_t1, branch);
-        const float nl = s_nl[d1], w2e = s_w2[d1];
-        int lo = 0, hi = nb;
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) >> 1;
-          if (m >= __fmaf_rn(w2e, (float)mid, nl)) lo = mid; else hi = mid;
+        int d1, d2;
+        digits<FAST>(m, rule, s_br, branch, d1, d2);
+        if (SHARED) {
+          atomicAdd(&s_rows[d1 * nb + d2], 1);
+        } else {
+          atomicAdd(&g_d2[d1 * nb + d2], 1);
+          atomicAdd(&s_rows[d1], 1);
         }
-        atomicAdd(&hd2[d1 * nb + lo], 1);
-        if (m >= s_ts[d1]) atomicAdd(&hf[d1], 1);
+        const bool ge = m >= s_ts[d1];
+        if (d1 == 0 ? ge : !ge) atomicAdd(&s_g[d1], 1);
       }
     }
   }
+}
+
+template <int GM, bool GAMMA, bool SHARED>
+__global__ void __launch_bounds__(kThreads)
+hist_topq_level_kernel(Operand op, const float* __restrict__ tau1,
+                       const float* __restrict__ new_lo,
+                       const float* __restrict__ w2,
+                       const float* __restrict__ top_shift, int branch,
+                       int* __restrict__ d2_out, int* __restrict__ f_out,
+                       long long d, long long n_tiles) {
+  extern __shared__ float4 smem4[];
+  const int nb = branch + 1;
+  float4* s_br = smem4;                                  // [nb]
+  float* s_ts = reinterpret_cast<float*>(s_br + nb);     // [nb]
+  int* s_g = reinterpret_cast<int*>(s_ts + nb);          // [nb]: F0, G[r]
+  int* s_rows = s_g + nb;          // SHARED: D2 [nb * nb]; else #{d1 = r}
+  __shared__ DigitRule s_rule;
+  __shared__ int s_slow;
+  const int w = blockIdx.y;
+  const float* t1 = tau1 + (long long)w * branch;
+  const float* nl = new_lo + (long long)w * nb;
+  const float* w2l = w2 + (long long)w * nb;
+  if (threadIdx.x == 0) s_slow = 0;
+  const int n_rows = SHARED ? nb * nb : nb;
+  for (int j = threadIdx.x; j < n_rows; j += blockDim.x) s_rows[j] = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < nb; r += blockDim.x) {
+    s_br[r] = bracket_of(t1, nl, w2l, branch, r);
+    s_ts[r] = top_shift[(long long)w * nb + r];
+    s_g[r] = 0;
+    // the rule's conditions: tau1 nondecreasing without NaN (each tau1[r-1]
+    // <= its successor, +inf after the last), candidates nondecreasing in j
+    const bool ok = (r == 0 || t1[r - 1] <= (r < branch ? t1[r] : INFINITY))
+                    && isfinite(nl[r]) && isfinite(w2l[r]) && w2l[r] >= 0.f;
+    if (!ok) atomicAdd(&s_slow, 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const float span = t1[branch - 1] - t1[0];
+    DigitRule rule;
+    rule.base1 = t1[0];
+    rule.inv1 = branch > 1 ? (float)(branch - 1) / span : 0.f;
+    rule.inv2 = 1.f / w2l[0];
+    rule.fast = s_slow == 0;
+    s_rule = rule;
+  }
+  __syncthreads();
+  int* g_d2 = d2_out + (long long)w * nb * nb;
+  // the rule's choice is made once per block: an element loop that could
+  // take either path compiles into much slower code (benchmarks/
+  // torch_count_ablation.cu, mode 7)
+  if (s_rule.fast) {
+    hist_elements<GM, GAMMA, SHARED, true>(op, s_rule, s_br, s_ts, s_g,
+                                           s_rows, g_d2, branch, d,
+                                           n_tiles);
+  } else {
+    hist_elements<GM, GAMMA, SHARED, false>(op, s_rule, s_br, s_ts, s_g,
+                                            s_rows, g_d2, branch, d,
+                                            n_tiles);
+  }
+  __syncthreads();
   if (SHARED) {
-    __syncthreads();
     for (int j = threadIdx.x; j < nb * nb; j += blockDim.x) {
-      const int c = s_d2[j];
+      const int c = s_rows[j];
       if (c) atomicAdd(&g_d2[j], c);
     }
-    for (int j = threadIdx.x; j < nb; j += blockDim.x) {
-      const int c = s_f[j];
-      if (c) atomicAdd(&g_f[j], c);
+  }
+  // F[0] counted directly; F[r] = #{d1 = r} - G[r]
+  for (int r = threadIdx.x; r < nb; r += blockDim.x) {
+    int f = s_g[r];
+    if (r > 0) {
+      int rows = 0;
+      if (SHARED) {
+        for (int c = 0; c < nb; ++c) rows += s_rows[r * nb + c];
+      } else {
+        rows = s_rows[r];
+      }
+      f = rows - f;
     }
+    if (f) atomicAdd(&f_out[(long long)w * nb + r], f);
   }
 }
 
@@ -265,6 +428,25 @@ int count_launch(const Operand& op, const float* taus, int* ranks,
   return (int)cudaGetLastError();
 }
 
+// Shared memory: brackets, top_shift and F0/G (24 bytes per bracket), then
+// the (b+1)^2 histogram, or the global variant's row counts.
+size_t hist_shared_smem(int branch) {
+  const size_t nb = branch + 1;
+  return nb * 24 + nb * nb * 4;
+}
+
+size_t hist_global_smem(int branch) { return (size_t)(branch + 1) * 28; }
+
+// Blocks per lane: as many as the card keeps resident, spread over the
+// lanes, no more than a lane's tiles.
+template <typename K>
+dim3 hist_grid(K kernel, size_t smem, long long n_tiles, int w_lanes) {
+  const long long resident = resident_blocks(kernel, kThreads, smem);
+  long long x = (resident + w_lanes - 1) / w_lanes;
+  x = x < n_tiles ? x : n_tiles;
+  return dim3((unsigned)(x < 1 ? 1 : x), (unsigned)w_lanes);
+}
+
 template <int GM, bool GAMMA>
 int hist_launch(const Operand& op, const float* tau1, const float* new_lo,
                 const float* w2, const float* top_shift, int* d2, int* f,
@@ -272,16 +454,19 @@ int hist_launch(const Operand& op, const float* tau1, const float* new_lo,
   const int nb = branch + 1;
   cudaMemsetAsync(d2, 0, sizeof(int) * (size_t)w_lanes * nb * nb, stream);
   cudaMemsetAsync(f, 0, sizeof(int) * (size_t)w_lanes * nb, stream);
-  const size_t tables = (size_t)(branch + 3 * nb) * 4;
-  const size_t shared = tables + (size_t)(nb * nb + nb) * 4;
   const long long n_tiles = tiles_of(d);
-  const dim3 grid = search_grid(n_tiles, w_lanes);
+  const size_t shared = hist_shared_smem(branch);
   if (shared <= (size_t)kSharedLimit) {
-    hist_topq_level_kernel<GM, GAMMA, true><<<grid, kThreads, shared, stream>>>(
-        op, tau1, new_lo, w2, top_shift, branch, d2, f, d, n_tiles);
+    auto kernel = hist_topq_level_kernel<GM, GAMMA, true>;
+    kernel<<<hist_grid(kernel, shared, n_tiles, w_lanes), kThreads, shared,
+             stream>>>(op, tau1, new_lo, w2, top_shift, branch, d2, f, d,
+                       n_tiles);
   } else {
-    hist_topq_level_kernel<GM, GAMMA, false><<<grid, kThreads, tables, stream>>>(
-        op, tau1, new_lo, w2, top_shift, branch, d2, f, d, n_tiles);
+    auto kernel = hist_topq_level_kernel<GM, GAMMA, false>;
+    const size_t smem = hist_global_smem(branch);
+    kernel<<<hist_grid(kernel, smem, n_tiles, w_lanes), kThreads, smem,
+             stream>>>(op, tau1, new_lo, w2, top_shift, branch, d2, f, d,
+                       n_tiles);
   }
   return (int)cudaGetLastError();
 }
@@ -298,10 +483,7 @@ extern "C" {
 
 int hist_shared_max_branch() {
   int b = 1;
-  while ((size_t)(b + 1 + 3 * (b + 2)) * 4 + (size_t)((b + 2) * (b + 2) + b + 2) * 4
-         <= (size_t)kSharedLimit) {
-    ++b;
-  }
+  while (hist_shared_smem(b + 1) <= (size_t)kSharedLimit) ++b;
   return b;
 }
 

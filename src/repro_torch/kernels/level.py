@@ -149,6 +149,7 @@ def _load() -> ctypes.CDLL:
         lib.cl_fuse_launch.argtypes = [p] * 3 + scalars + [i, p, p, p, ll, p]
         lib.sparsify_ef_launch.argtypes = ([p] * 3 + scalars
                                            + [i, p, p, p, ll, p])
+        lib.count_scratch_words.argtypes = [i]
         lib.count_ge_launch.argtypes = [p, i, p, i, p, p, ll, p]
         lib.count_ge_fused_launch.argtypes = ([p] * 3 + scalars
                                               + [i, p, i, p, p, ll, p])
@@ -158,8 +159,8 @@ def _load() -> ctypes.CDLL:
                    lib.count_ge_fused_level_launch,
                    lib.hist_topq_level_launch, lib.hist_shared_max_branch,
                    lib.chain_accum_launch, lib.cl_fuse_launch,
-                   lib.sparsify_ef_launch, lib.count_ge_launch,
-                   lib.count_ge_fused_launch):
+                   lib.sparsify_ef_launch, lib.count_scratch_words,
+                   lib.count_ge_launch, lib.count_ge_fused_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -265,6 +265,82 @@ def hist_edge_magnitudes(tables, per_lane: int, seed: int = 0) -> Tensor:
     return torch.stack(rows)
 
 
+#: Buckets of ``count_ge``'s rank table (``csrc/topq_threshold.cu``,
+#: ``kBuckets``): the bit patterns from the smallest positive finite τ to
+#: the largest are cut into this many buckets of 2**shift patterns each.
+RANK_TABLE_BUCKETS = 4096
+
+
+def rank_table_range(taus: Tensor) -> tuple:
+    """→ (lo_bits, hi_bits, shift) of ``count_ge``'s rank table over
+    ``taus`` (NaN sorts as +inf), or None without a positive finite τ."""
+    t = taus.detach().to("cpu", torch.float32)
+    pos = t[(t > 0) & torch.isfinite(t)]
+    if not pos.numel():
+        return None
+    lo = int(pos.min().view(torch.int32))
+    hi = int(pos.max().view(torch.int32))
+    shift = 0
+    while (hi - lo) >> shift >= RANK_TABLE_BUCKETS:
+        shift += 1
+    return lo, hi, shift
+
+
+def count_edge_magnitudes(taus: Tensor, n: int, seed: int = 0) -> Tensor:
+    """[n] float32 values on the edges of ``count_ge``'s rank table.
+
+    Half the values are drawn from each τ and the floats one ulp either
+    side, 0, +inf and NaN; the other half from the first bit pattern of
+    every bucket of the table over ``taus``, the pattern just below it and
+    the range's ends. Signs are random. A rank that an off-by-one bucket or
+    a wrong comparison gets wrong shows on these; random data hits few.
+    """
+    t = taus.detach().to("cpu", torch.float32)
+    finite = t[torch.isfinite(t)]
+    near = torch.cat([finite, torch.nextafter(finite, torch.tensor(-math.inf)),
+                      torch.nextafter(finite, torch.tensor(math.inf)),
+                      torch.tensor([0.0, math.inf, math.nan])]).abs()
+    edges = near
+    table = rank_table_range(t)
+    if table is not None:
+        lo, hi, shift = table
+        starts = lo + (np.arange(RANK_TABLE_BUCKETS, dtype=np.int64) << shift)
+        starts = np.concatenate([starts[starts <= hi], [hi, hi + 1]])
+        bits = np.concatenate([starts, starts - 1]).astype(np.int32)
+        edges = torch.from_numpy(bits).view(torch.float32)
+    rng = np.random.default_rng(seed)
+    x = torch.where(torch.from_numpy(rng.random(n) < 0.5),
+                    near[torch.from_numpy(rng.integers(0, near.numel(), n))],
+                    edges[torch.from_numpy(rng.integers(0, edges.numel(),
+                                                        n))])
+    return torch.where(torch.from_numpy(rng.random(n) < 0.5), -x, x)
+
+
+def count_edge_taus(n: int, seed: int = 0) -> Tensor:
+    """[n] float32 taus in any order: |normal|·1.5 draws and, where n
+    allows, τ = −1, 0, +inf, NaN, a tie and taus placed on bucket
+    boundaries of ``count_ge``'s rank table over the others."""
+    rng = np.random.default_rng(seed)
+    taus = np.abs(rng.standard_normal(n)).astype(np.float32) * 1.5
+    if n >= 8:
+        taus[:5] = [-1.0, 0.0, np.inf, np.nan, taus[7]]
+        lo, hi, shift = rank_table_range(torch.from_numpy(taus[5:]))
+        k = rng.integers(0, ((hi - lo) >> shift) + 1, max(1, n // 8))
+        on = (lo + (k.astype(np.int64) << shift)).astype(np.int32)
+        taus[5:5 + on.size] = on.view(np.float32)
+    return torch.from_numpy(rng.permutation(taus))
+
+
+def special_magnitudes(n: int, seed: int = 0) -> Tensor:
+    """[n] float32 values: NaN, ±inf, ±0, subnormals, the smallest
+    normals and a few ordinary values, in a random order."""
+    vals = torch.tensor([math.nan, math.inf, -math.inf, 0.0, -0.0, 1e-45,
+                         -1e-45, 3e-39, 1.1754944e-38, -1.1754944e-38, 0.5,
+                         -2.0, 1e30], dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    return vals[torch.from_numpy(rng.integers(0, vals.numel(), n))]
+
+
 # ---------------------------------------------------------------------------
 # scalar [d] kernels (repro.kernels.chain_accum / sparsify_ef /
 # topq_threshold): one row, scalars as Python numbers or one-element tensors

@@ -45,7 +45,8 @@ def _taus(taus, dev: torch.device) -> Tensor:
 
 def _count(launch, name: str, row_args: list, taus, dev, d: int):
     n = taus.shape[0]
-    scratch = torch.empty((3 * n + 1,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((level._load().count_scratch_words(n),),
+                          dtype=torch.int32, device=dev)
     counts = torch.empty((n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = launch(*row_args, taus.data_ptr(), n, scratch.data_ptr(),

@@ -6,14 +6,18 @@ skips where there is no card. Run on the card with
 its plain version run on the CPU on the same inputs, bit for bit, for every
 float and integer output (the CPU version is the one the parity tests hold
 against the JAX package). The τ-search kernels are held the same way, at
-the histogram's shared-memory and global-atomics branches and on
-magnitudes placed on the histogram's bin edges. The scalar ``[d]`` kernels
-are held the same way in float32 and bfloat16, with their scalars as
-numbers and as tensors on the card, on views that do not start on a
-16-byte boundary, with taus in any order, through the ``ops`` entries under
-``"always"``, and against the W = 1 level kernels where the two compute
-the same function.
+the histogram's shared-memory and global-atomics branches, on magnitudes
+placed on the histogram's bin edges, on NaN, infinite, zero and subnormal
+magnitudes, and on tables that the digit estimate cannot take. The scalar
+``[d]`` kernels are held the same way in float32 and bfloat16, with their
+scalars as numbers and as tensors on the card, on views that do not start
+on a 16-byte boundary, with taus in any order, on the bucket edges of
+``count_ge``'s rank table, through the ``ops`` entries under ``"always"``,
+and against the W = 1 level kernels where the two compute the same
+function.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -249,6 +253,51 @@ def test_hist_topq_level_kernel_on_bin_edges(cuda):
         _same(a, b)
 
 
+@pytest.mark.parametrize("branch", [64, 256])
+@pytest.mark.parametrize("include_gamma", [False, True])
+def test_hist_topq_level_kernel_special_magnitudes(cuda, branch,
+                                                   include_gamma):
+    """NaN, ±inf, ±0 and subnormal magnitudes against finite tables (lane
+    0), an all-zero operand with its own zero-width tables (lane 1), and
+    magnitudes on the bin edges (lane 2)."""
+    w, d = 3, 7850
+    g = torch.from_numpy(np.random.default_rng(branch).standard_normal(
+        (w, d)).astype(np.float32))
+    g[1] = 0.0
+    tables = _tables(g, branch)
+    g[0, :500] = ref.special_magnitudes(500, seed=branch)
+    g[2, :4000] = ref.hist_edge_magnitudes(tables, 4000, seed=branch)[2]
+    zeros, one = torch.zeros_like(g), torch.ones(w)
+    args = (g, zeros, zeros, one, one)
+    want = ref.ref_hist_topq_level(*args, tables,
+                                   include_gamma=include_gamma)
+    got = level.hist_topq_level_cuda(
+        *(t.to(cuda) for t in args), tuple(t.to(cuda) for t in tables),
+        include_gamma=include_gamma)
+    for a, b in zip(want, got):
+        _same(a, b)
+
+
+def test_hist_topq_level_kernel_searches_where_the_estimate_cannot(cuda):
+    """Tables outside the estimate's conditions (a negative width, a NaN
+    bracket bottom, a +inf candidate) take the binary searches."""
+    w, d = 3, 7850
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (w, d)).astype(np.float32))
+    tau1, new_lo, w2, top_shift = (t.clone() for t in _tables(g, 64))
+    w2[0, 3] = -w2[0, 3]
+    new_lo[1, 5] = math.nan
+    tau1[2, -1] = math.inf
+    tables = (tau1, new_lo, w2, top_shift)
+    zeros, one = torch.zeros_like(g), torch.ones(w)
+    want = ref.ref_hist_topq_level(g, zeros, None, one, one, tables)
+    got = level.hist_topq_level_cuda(
+        *(t.to(cuda) for t in (g, zeros)), None,
+        *(t.to(cuda) for t in (one, one)), tuple(t.to(cuda) for t in tables))
+    for a, b in zip(want, got):
+        _same(a, b)
+
+
 def test_tau_search_ops_launch_on_cuda(cuda):
     x = _inputs(3, 1000, seed=7)
     c = {k: _both(v, cuda) for k, v in x.items()}
@@ -427,6 +476,20 @@ def test_count_ge_takes_up_to_max_taus(cuda):
         topq_threshold.count_ge_fused_cuda(gpu["g"], gpu["e"], None, 1.0,
                                            1.0, torch.ones(n + 1,
                                                            device=cuda))
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("n", [1, 64, 4095])
+def test_count_ge_kernel_on_rank_table_edges(cuda, dtype, n):
+    """Elements on the bucket edges of the rank table and on the taus (one
+    ulp either side) and special magnitudes; taus with −1, 0, +inf, NaN,
+    ties and taus on bucket boundaries, in any order."""
+    taus = ref.count_edge_taus(n, seed=n)
+    x = ref.count_edge_magnitudes(taus, 20011, seed=n)
+    x[:300] = ref.special_magnitudes(300, seed=n)
+    x = x.to(dtype)
+    got = topq_threshold.count_ge_cuda(x.to(cuda), taus.to(cuda))
+    _same_t(ref.ref_count_ge(x, taus), got)
 
 
 def test_scalar_ops_launch_on_cuda(cuda):
