@@ -1,7 +1,8 @@
-// Ablation of two count kernels of the PyTorch/CUDA port, to see where
+// Ablation of three count kernels of the PyTorch/CUDA port, to see where
 // their time goes on the card:
 //   hist_topq_level (csrc/tau_search.cu): the joint digit histogram;
-//   count_ge        (csrc/topq_threshold.cu): the rank histogram of a row.
+//   count_ge        (csrc/topq_threshold.cu): the rank histogram of a row;
+//   count_ge_level  (csrc/tau_search.cu): the rank histograms of W lanes.
 // The first two kernels below are the binary-search design of both (the
 // one before the digit estimate and the rank table), cut back by MODE:
 //   0 (a) loads and the operand only, folded into one value;
@@ -20,6 +21,13 @@
 //   histogram's element loop and flush together; 7 (6) with the check of
 //   the tables in the prologue and the choice between estimate and
 //   search made per element, not once per block as the kernel makes it.
+// count_ge_level, both designs cut back the same way (a), (b), (d), (e):
+// the binary search over the taus each block sorts (the design before the
+// rank table, copied below) at a given number of blocks per lane or the
+// resident grid, and the present kernel's per-lane rank table, built from
+// its own helpers; its mode 8 is (e) with the table copied from a scratch
+// that a W-block kernel built (level_table_build_launch), so (e) - (8) is
+// what building the table in every block costs beside that one launch.
 // The folded value goes to a sink only if it equals a constant the data
 // never gives, so nothing is dead code. Built and timed by
 // benchmarks/torch_count_kernels.py (``ablation``); not part of the port.
@@ -28,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "rank.cuh"
 #include "row.cuh"
@@ -196,6 +206,62 @@ count_ablation_kernel(const T* __restrict__ x,
 }
 
 template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+level_search_ablation_kernel(const float* __restrict__ x,
+                             const float* __restrict__ taus, int nb_taus,
+                             int* __restrict__ ranks,
+                             unsigned* __restrict__ sink, long long d,
+                             long long n_tiles) {
+  extern __shared__ float smem[];
+  const int B = nb_taus;
+  float* s_key = smem;
+  float* s_sorted = smem + B;
+  int* s_hist = reinterpret_cast<int*>(smem + 2 * B);
+  const int w = blockIdx.y;
+  const float* trow = taus + (long long)w * B;
+  for (int b = threadIdx.x; b < B; b += blockDim.x) s_key[b] = tau_key(trow[b]);
+  for (int r = threadIdx.x; r <= B; r += blockDim.x) s_hist[r] = MODE == 4;
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    s_sorted[sorted_pos(s_key, B, b)] = s_key[b];
+  }
+  __syncthreads();
+  unsigned acc = 0;
+  if (MODE != 4) {
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const TileGeom t = tile_geom_at(d, tile, w);
+      for (int u = threadIdx.x; u < t.nunits; u += blockDim.x) {
+        const Unit un = unit_at(t, u);
+        float v[4];
+        ld(x, t.row + t.t0 + un.local, un.cnt, v);
+        for (int k = 0; k < un.cnt; ++k) {
+          const float m = fabsf(v[k]);
+          if (MODE == 0) {
+            acc ^= __float_as_uint(m);
+            continue;
+          }
+          const int r = rank_of(m, s_sorted, B);
+          if (MODE == 1) {
+            acc += (unsigned)r;
+            continue;
+          }
+          if (r) atomicAdd(&s_hist[r], 1);
+        }
+      }
+    }
+  }
+  if (acc == kNever) sink[0] = acc;
+  if (MODE == 4) {
+    __syncthreads();
+    int* row = ranks + (long long)w * (B + 1);
+    for (int r = 1 + threadIdx.x; r <= B; r += blockDim.x) {
+      const int c = s_hist[r];
+      if (c) atomicAdd(&row[r], c);
+    }
+  }
+}
+
+template <int MODE>
 int hist_mode(const float* const* p, int branch, const int* seed_d2,
               int* d2, int* f, unsigned* sink, int w_lanes, long long d,
               int per_lane, cudaStream_t s) {
@@ -291,7 +357,7 @@ hist_new_ablation_kernel(present_hist::Operand op,
       for (int u = threadIdx.x; u < t.nunits; u += blockDim.x) {
         const Unit un = unit_at(t, u);
         float mag[4];
-        load_mag<kSrcFused, kGmShared, true>(op, wt, pw, t, un, mag);
+        load_mag<kGmShared, true>(op, wt, pw, t, un, mag);
         for (int k = 0; k < un.cnt; ++k) {
           const float m = mag[k];
           if (MODE == 0) {
@@ -339,7 +405,7 @@ template <typename T, int MODE>
 __global__ void __launch_bounds__(present_count::kCountThreads)
 count_new_ablation_kernel(const T* __restrict__ x,
                           const float* __restrict__ sorted, int nb_taus,
-                          const present_count::RankTable* __restrict__ table,
+                          const RankTable* __restrict__ table,
                           const unsigned* __restrict__ entry_words,
                           int* __restrict__ ranks,
                           unsigned* __restrict__ sink, long long d) {
@@ -395,6 +461,115 @@ count_new_ablation_kernel(const T* __restrict__ x,
   }
 }
 
+// The words of one lane in a table scratch: RankTable, entries, sorted.
+__host__ __device__ inline int level_table_words(int nb_taus) {
+  return kTableWords + kEntryWords + nb_taus;
+}
+
+// One block per lane: the present kernel's prologue, written to a scratch.
+__global__ void __launch_bounds__(kThreads)
+level_table_build_kernel(const float* __restrict__ taus, int nb_taus,
+                         int* __restrict__ tables) {
+  using namespace present_hist;
+  extern __shared__ float smem[];
+  const int B = nb_taus, w = blockIdx.x;
+  const LaneTable s = lane_table_at(smem, B);
+  __shared__ RankTable s_t;
+  lane_table_prologue(taus, B, w, s, s_t);
+  int* out = tables + (long long)w * level_table_words(B);
+  if (threadIdx.x == 0) *reinterpret_cast<RankTable*>(out) = s_t;
+  const int* words = reinterpret_cast<const int*>(s.entries);
+  for (int j = threadIdx.x; j < kEntryWords; j += blockDim.x) {
+    out[kTableWords + j] = words[j];
+  }
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    out[kTableWords + kEntryWords + b] = __float_as_int(s.sorted[b]);
+  }
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+level_table_ablation_kernel(const T* __restrict__ x,
+                            const float* __restrict__ taus, int nb_taus,
+                            const int* __restrict__ tables,
+                            int* __restrict__ ranks,
+                            unsigned* __restrict__ sink, long long d,
+                            long long n_tiles) {
+  using namespace present_hist;
+  extern __shared__ float smem[];
+  const int B = nb_taus, w = blockIdx.y;
+  const LaneTable s = lane_table_at(smem, B);
+  __shared__ RankTable s_t;
+  if (MODE == 8) {
+    const int* in = tables + (long long)w * level_table_words(B);
+    if (threadIdx.x == 0) s_t = *reinterpret_cast<const RankTable*>(in);
+    int* words = reinterpret_cast<int*>(s.entries);
+    for (int j = threadIdx.x; j < kEntryWords; j += blockDim.x) {
+      words[j] = in[kTableWords + j];
+    }
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
+      s.sorted[b] = __int_as_float(in[kTableWords + kEntryWords + b]);
+    }
+  } else {
+    lane_table_prologue(taus, B, w, s, s_t);
+  }
+  for (int r = threadIdx.x; r <= B; r += blockDim.x) s.hist[r] = MODE >= 4;
+  __syncthreads();
+  const RankTable t = s_t;
+  unsigned acc = 0;
+  if (MODE < 4) {
+    for_each_lane_element(x, w, d, n_tiles, [&](float v) {
+      const float m = fabsf(v);
+      if (MODE == 0) {
+        acc ^= __float_as_uint(m);
+        return;
+      }
+      const int r = table_rank(m, t, s.entries, s.sorted);
+      if (MODE == 1) {
+        acc += (unsigned)r;
+        return;
+      }
+      if (r) atomicAdd(&s.hist[r], 1);
+    });
+  }
+  if (acc == kNever) sink[0] = acc;
+  __syncthreads();
+  if (MODE >= 4) {
+    int* row = ranks + (long long)w * (B + 1);
+    for (int r = 1 + threadIdx.x; r <= B; r += blockDim.x) {
+      const int c = s.hist[r];
+      if (c) atomicAdd(&row[r], c);
+    }
+  }
+}
+
+template <typename T, int MODE>
+int level_mode(int design, const void* x, const float* taus, int nb_taus,
+               const int* tables, int* ranks, unsigned* sink, int w_lanes,
+               long long d, int per_lane, cudaStream_t s) {
+  const long long n_tiles = present_hist::tiles_of(d);
+  if (design == 0) {
+    if (!std::is_same<T, float>::value) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(3 * nb_taus + 1) * 4;
+    auto kernel = level_search_ablation_kernel<MODE>;
+    const dim3 grid = per_lane > 0 ? dim3(per_lane, w_lanes)
+                                   : present_hist::resident_grid(
+                                         kernel, smem, n_tiles, w_lanes);
+    kernel<<<grid, kThreads, smem, s>>>(static_cast<const float*>(x), taus,
+                                        nb_taus, ranks, sink, d, n_tiles);
+  } else {
+    const size_t smem = present_hist::lane_table_smem(nb_taus);
+    auto kernel = level_table_ablation_kernel<T, MODE>;
+    const dim3 grid = per_lane > 0 ? dim3(per_lane, w_lanes)
+                                   : present_hist::resident_grid(
+                                         kernel, smem, n_tiles, w_lanes);
+    kernel<<<grid, kThreads, smem, s>>>(static_cast<const T*>(x), taus,
+                                        nb_taus, tables, ranks, sink, d,
+                                        n_tiles);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int MODE>
 int hist_new_mode(const float* const* p, int branch, const int* seed_d2,
                   int* d2, int* f, unsigned* sink, int w_lanes, long long d,
@@ -404,7 +579,7 @@ int hist_new_mode(const float* const* p, int branch, const int* seed_d2,
   const long long n_tiles = (d + kTile - 1) / kTile;
   auto kernel = hist_new_ablation_kernel<MODE>;
   const dim3 grid = per_lane > 0 ? dim3(per_lane, w_lanes)
-                                 : present_hist::hist_grid(kernel, smem,
+                                 : present_hist::resident_grid(kernel, smem,
                                                            n_tiles, w_lanes);
   kernel<<<grid, kThreads, smem, s>>>(op, p[6], p[7], p[8], p[9], branch,
                                       seed_d2, d2, f, sink, d, n_tiles);
@@ -466,6 +641,46 @@ int count_new_ablation_launch(int mode, int bf16, const void* x,
   if (bf16) MODES(__nv_bfloat16);
   MODES(float);
 #undef MODES
+}
+
+int level_table_scratch_words(int nb_taus, int w_lanes) {
+  return level_table_words(nb_taus) * w_lanes;
+}
+
+// The W-block table kernel: each lane's table into `tables`.
+int level_table_build_launch(const float* taus, int nb_taus, int* tables,
+                             int w_lanes, void* stream) {
+  level_table_build_kernel<<<w_lanes, kThreads,
+                             present_hist::lane_table_smem(nb_taus),
+                             (cudaStream_t)stream>>>(taus, nb_taus, tables);
+  return (int)cudaGetLastError();
+}
+
+// design 0: the binary search over float32 rows (per_lane blocks per
+// lane, or the resident grid for 0); 1: the present rank table over float32
+// or bfloat16 rows (mode 8: the table copied from `tables`, which
+// level_table_build_launch filled).
+int level_ablation_launch(int design, int mode, int bf16, const void* x,
+                          const float* taus, int nb_taus, const int* tables,
+                          int* ranks, unsigned* sink, int w_lanes,
+                          long long d, int per_lane, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define LEVEL(T, M) \
+  return level_mode<T, M>(design, x, taus, nb_taus, tables, ranks, sink, \
+                          w_lanes, d, per_lane, s)
+#define MODES(T)                                                     \
+  switch (mode) {                                                    \
+    case 0: LEVEL(T, 0);                                             \
+    case 1: LEVEL(T, 1);                                             \
+    case 3: LEVEL(T, 3);                                             \
+    case 8: if (design == 1) LEVEL(T, 8);                            \
+            return (int)cudaErrorInvalidValue;                       \
+    default: LEVEL(T, 4);                                            \
+  }
+  if (bf16) MODES(__nv_bfloat16);
+  MODES(float);
+#undef MODES
+#undef LEVEL
 }
 
 // p: g, e, gamma_in, gm [d], weight, part, tau1, new_lo, w2, top_shift.

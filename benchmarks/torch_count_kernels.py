@@ -1,24 +1,32 @@
 """Card timings of the port's count kernels, one tree against another.
 
-Times ``hist_topq_level`` (W = 8, d = 2**23 + 125 and the paper's W = 28,
-d = 7850; γ_in and a lane-shared global mask; branch 64), ``count_ge``
-(d = 2**26 + 125 and 7850, float32 and bfloat16, 64 shuffled taus with
-−1, 0, +inf and a tie) and ``count_ge_fused`` (the same rows, γ_in on)
-with CUDA events over back-to-back launches, on inputs made on the card
-from a seed. Needs a CUDA card and nvcc; run from the repository root:
+Times ``hist_topq_level`` and ``count_ge_fused_level`` (W = 8, d = 2**23 +
+125 and the paper's W = 28, d = 7850; γ_in and a lane-shared global mask;
+branch 64), ``count_ge_level`` (the same shapes; 64 shuffled taus per lane
+with ±inf, 0 and a tie, and at the large shape also a first scan round's
+64 evenly spaced candidates), ``count_ge`` (d = 2**26 + 125 and 7850,
+float32 and bfloat16, 64 shuffled taus with −1, 0, +inf and a tie) and
+``count_ge_fused`` (the same rows, γ_in on) with CUDA events over
+back-to-back launches, on inputs made on the card from a seed. Needs a
+CUDA card and nvcc; run from the repository root:
 
     python3 benchmarks/torch_count_kernels.py ab --old OLD_SRC [--new SRC]
     python3 benchmarks/torch_count_kernels.py ablation [--src SRC]
+        [--only hist,count_ge,level_search,level_table]
 
 ``ab`` loads the kernels of two trees into one process (each tree's
 ``repro_torch/kernels/level.py`` built into that tree's ``build/``),
 holds their outputs equal on every case and times them in turns, old,
-new, new, old, five rounds; it prints the medians (at the paper shapes a
-call is bound by the host's enqueue, whose time drifts, so only turns in
-one process compare). ``ablation`` builds
-``benchmarks/torch_count_ablation.cu`` (both kernels cut back step by
-step: loads, digits or ranks, atomics, flush) and times its variants
-beside the full kernels of the tree under SRC.
+new, new, old, for ten rounds; it prints the medians (at the
+paper shapes a call is bound by the host's enqueue, whose time drifts, so
+only turns in one process compare), and beside them the device time per
+call of the same calls captured in a CUDA graph and replayed, which the
+host's enqueue does not reach. ``ablation`` builds
+``benchmarks/torch_count_ablation.cu`` (the count kernels cut back step
+by step: loads, digits or ranks, atomics, flush) and times its variants
+beside the full kernels of the tree under SRC; ``--only`` picks sections
+(``level_search``: ``count_ge_level``'s binary-search design at 64 blocks
+per lane and at the resident grid; ``level_table``: its rank-table design).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ LARGE_ROW = 2 ** 26 + 125
 PAPER_ROW = 7850
 BRANCH = 64
 SEED = 0
+AB_ROUNDS = 10     # rounds of old, new, new, old turns per case
 
 
 def nvidia_smi() -> str:
@@ -69,6 +78,24 @@ def cuda_time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_time_ms(fn, calls: int, reps: int) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``reps`` times (no host enqueue between them)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_time_ms(graph.replay, reps) / calls
+    del graph
+    return ms
 
 
 def level_inputs(w: int, d: int, seed: int) -> dict:
@@ -99,6 +126,22 @@ def row_inputs(d: int, seed: int) -> dict:
     taus[:4] = [-1.0, 0.0, np.inf, taus[9]]
     x["taus"] = torch.from_numpy(rng.permutation(taus)).cuda()
     return x
+
+
+def level_taus(w: int, seed: int) -> torch.Tensor:
+    """[w, 64] taus in any order with +inf, −inf, 0 and a tie per lane
+    (chip_smoke's ``count_ge_level`` taus)."""
+    rng = np.random.default_rng(seed)
+    taus = np.abs(rng.standard_normal((w, BRANCH))).astype(np.float32)
+    taus[:, 5] = taus[:, 9]
+    taus[:, 7], taus[:, 8], taus[:, 11] = np.inf, -np.inf, 0.0
+    return torch.from_numpy(taus).cuda()
+
+
+def scan_taus(sp, x: torch.Tensor) -> torch.Tensor:
+    """A first scan round's 64 evenly spaced candidates per lane of x."""
+    hi = torch.clamp(x.abs().amax(-1), min=1e-30) * sp._HI_SCALE
+    return sp._hist_tables(torch.zeros_like(hi), hi, BRANCH)[0].contiguous()
 
 
 def load_level(src: str, tag: str):
@@ -152,6 +195,23 @@ def cases(sp, ref):
                 t["g"], t["e"], t["gin"], t["weight"], t["part"], tables,
                 t["gm"], include_gamma=True))
         yield f"hist_topq_level/{tag}", tag == "large", make
+
+        def make(w=w, d=d):
+            t = level_inputs(w, d, SEED + w)
+            taus = hist_tables(sp, ref, t)[0]
+            return lambda level, lib: (
+                lambda: level.count_ge_fused_level_cuda(
+                    t["g"], t["e"], t["gin"], t["weight"], t["part"], taus,
+                    t["gm"], include_gamma=True))
+        yield f"count_ge_fused_level/{tag}", tag == "large", make
+        for name, scan in ((tag, False),) + ((("scan", True),)
+                                             if tag == "large" else ()):
+            def make(w=w, d=d, scan=scan):
+                x = level_inputs(w, d, SEED + w)["g"]
+                taus = scan_taus(sp, x) if scan else level_taus(w, SEED + w)
+                return lambda level, lib: (
+                    lambda: level.count_ge_level_cuda(x, taus))
+            yield f"count_ge_level/{name}", tag == "large", make
     for tag, d in (("large", LARGE_ROW), ("paper", PAPER_ROW)):
         for dt in (torch.float32, torch.bfloat16):
             for fused in (False, True):
@@ -185,17 +245,25 @@ def ab(old: str, new: str, out_path: str | None) -> int:
                                                      outs["new"]))
         result["outputs_equal"] &= same
         times = {"old": [], "new": []}
-        for _ in range(5):
+        graph = {"old": [], "new": []}
+        for _ in range(AB_ROUNDS):
             for k in ("old", "new", "new", "old"):
                 times[k].append(cuda_time_ms(fns[k], 20 if large else 300))
+                graph[k].append(graph_time_ms(fns[k], 10 if large else 50,
+                                              3 if large else 10))
         med = {k: float(np.median(v)) for k, v in times.items()}
-        result["kernels"][name] = dict(times, old_median=med["old"],
-                                       new_median=med["new"],
-                                       speedup=med["old"] / med["new"],
-                                       outputs_equal=same)
+        gmed = {k: float(np.median(v)) for k, v in graph.items()}
+        result["kernels"][name] = dict(
+            times, graph_old=graph["old"], graph_new=graph["new"],
+            old_median=med["old"], new_median=med["new"],
+            speedup=med["old"] / med["new"], graph_old_median=gmed["old"],
+            graph_new_median=gmed["new"],
+            graph_speedup=gmed["old"] / gmed["new"], outputs_equal=same)
         print(f"[ab] {name}: old {med['old']:.4f} ms, new {med['new']:.4f} "
-              f"ms (medians of 10 turns each), old/new "
-              f"{med['old'] / med['new']:.3f}; outputs equal: {same}",
+              f"ms (medians of {2 * AB_ROUNDS} turns each), old/new "
+              f"{med['old'] / med['new']:.3f}; in a CUDA graph old "
+              f"{gmed['old']:.4f} ms, new {gmed['new']:.4f} ms, old/new "
+              f"{gmed['old'] / gmed['new']:.3f}; outputs equal: {same}",
               flush=True)
         del fns, bind, outs
         torch.cuda.empty_cache()
@@ -221,6 +289,10 @@ def build_ablation(level) -> ctypes.CDLL:
     lib.count_ablation_launch.argtypes = [i, i, p, p, i, p, p, ll, p]
     lib.hist_new_ablation_launch.argtypes = lib.hist_ablation_launch.argtypes
     lib.count_new_ablation_launch.argtypes = [i, i, p, p, i, p, p, ll, p]
+    lib.level_ablation_launch.argtypes = [i, i, i, p, p, i, p, p, p, i, ll,
+                                          i, p]
+    lib.level_table_build_launch.argtypes = [p, i, p, i, p]
+    lib.level_table_scratch_words.argtypes = [i, i]
     lib.count_scratch_words.argtypes = [i]
     lib.count_ge_launch.argtypes = [p, i, p, i, p, p, ll, p]
     lib.hist_topq_level_launch.argtypes = (
@@ -228,7 +300,67 @@ def build_ablation(level) -> ctypes.CDLL:
     return lib
 
 
-def ablation(src: str, out_path: str | None) -> int:
+SECTIONS = ("hist", "count_ge", "level_search", "level_table")
+
+
+def ablate_level(lib, level, sp, only: set, sink, stream) -> dict:
+    """count_ge_level at W = 8, d = 2**23 + 125, shuffled and scan taus:
+    the binary-search design at 64 blocks per lane and at the resident
+    grid, and the rank-table design (its full time only with
+    ``level_table``, so that a run of ``level_search`` alone times no part
+    of the present kernel)."""
+    w, d = LARGE_LEVEL
+    x = level_inputs(w, d, SEED + w)["g"]
+    ranks = torch.zeros((w, BRANCH + 1), dtype=torch.int32, device="cuda")
+    modes = {0: "a_loads", 1: "b_rank", 3: "d_no_flush", 4: "e_flush"}
+    out = {}
+    print(f"[ablation] count_ge_level W={w} d={d} B={BRANCH}, "
+          f"{math.ceil(d / 8192)} tiles per lane", flush=True)
+    x16 = x.to(torch.bfloat16)
+    for label, taus in (("any", level_taus(w, SEED + w)),
+                        ("scan", scan_taus(sp, x))):
+        def launch(design, mode, per_lane, tables=None, taus=taus, x=x):
+            _check(lib.level_ablation_launch(
+                design, mode, int(x.dtype == torch.bfloat16), x.data_ptr(),
+                taus.data_ptr(), BRANCH,
+                None if tables is None else tables.data_ptr(),
+                ranks.data_ptr(), sink.data_ptr(), w, d, per_lane, stream))
+        if "level_search" in only:
+            for per_lane in (64, 0):
+                for mode, name in modes.items():
+                    out[f"{label}/search/{name}/{per_lane or 'resident'}"] = \
+                        cuda_time_ms(lambda: launch(0, mode, per_lane), 50)
+        if "level_table" in only:
+            full = lambda: level.count_ge_level_cuda(x, taus)  # noqa: E731
+            out[f"{label}/table/full_first"] = cuda_time_ms(full, 50)
+            tables = torch.zeros(lib.level_table_scratch_words(BRANCH, w),
+                                 dtype=torch.int32, device="cuda")
+
+            def build():
+                _check(lib.level_table_build_launch(
+                    taus.data_ptr(), BRANCH, tables.data_ptr(), w, stream))
+            out[f"{label}/table/build_kernel"] = cuda_time_ms(build, 50)
+            for per_lane in (0, 64):
+                for mode, name in {**modes,
+                                   8: "e_flush_table_copied"}.items():
+                    if mode == 8 and per_lane:
+                        continue
+                    out[f"{label}/table/{name}/{per_lane or 'resident'}"] = \
+                        cuda_time_ms(lambda: launch(1, mode, per_lane,
+                                                    tables), 50)
+            out[f"{label}/table/full_last"] = cuda_time_ms(full, 50)
+            # bfloat16 rows: half the bytes, the same element loop
+            out[f"{label}/table/bf16/full"] = cuda_time_ms(
+                lambda: level.count_ge_level_cuda(x16, taus), 50)
+            for mode, name in modes.items():
+                out[f"{label}/table/bf16/{name}/resident"] = cuda_time_ms(
+                    lambda: launch(1, mode, 0, tables, x=x16), 50)
+    for k, v in out.items():
+        print(f"[ablation] count_ge_level {k}: {v:.4f} ms", flush=True)
+    return out
+
+
+def ablation(src: str, out_path: str | None, only: set) -> int:
     sys.path.insert(0, src)
     from repro_torch.core import sparsify as sp
     from repro_torch.kernels import level, ref, topq_threshold
@@ -238,9 +370,25 @@ def ablation(src: str, out_path: str | None) -> int:
     stream = torch.cuda.current_stream().cuda_stream
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
     result = dict(card=nvidia_smi(), hist={}, count_ge={})
-    modes = {0: "a_loads", 1: "b_d1", 2: "c_d2", 3: "d_no_flush",
-             4: "e_flush"}
+    print(f"[ablation] card {result['card']}", flush=True)
+    if {"level_search", "level_table"} & only:
+        result["count_ge_level"] = ablate_level(lib, level, sp, only, sink,
+                                                stream)
+    if "hist" in only:
+        ablate_hist(lib, level, sp, ref, result, sink, stream)
+    if "count_ge" in only:
+        ablate_count_ge(lib, topq_threshold, result, sink, stream)
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(result, indent=1))
+    return 0
 
+
+MODES = {0: "a_loads", 1: "b_d1", 2: "c_d2", 3: "d_no_flush", 4: "e_flush"}
+
+
+def ablate_hist(lib, level, sp, ref, result, sink, stream):
+    modes = MODES
     w, d = LARGE_LEVEL
     t = level_inputs(w, d, SEED + w)
     tables = hist_tables(sp, ref, t)
@@ -298,6 +446,9 @@ def ablation(src: str, out_path: str | None) -> int:
     del t
     torch.cuda.empty_cache()
 
+
+def ablate_count_ge(lib, topq_threshold, result, sink, stream):
+    modes = MODES
     x = row_inputs(LARGE_ROW, SEED + 1)
     keys = torch.where(torch.isnan(x["taus"]), math.inf, x["taus"])
     sorted_taus = torch.sort(keys).values.contiguous()
@@ -360,10 +511,6 @@ def ablation(src: str, out_path: str | None) -> int:
         cg["full_last"] = cuda_time_ms(full, 50)
         for k, v in cg.items():
             print(f"[ablation] count_ge {name} {k}: {v:.4f} ms", flush=True)
-    if out_path:
-        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
-        Path(out_path).write_text(json.dumps(result, indent=1))
-    return 0
 
 
 def main() -> int:
@@ -373,7 +520,13 @@ def main() -> int:
     ap.add_argument("--old")
     ap.add_argument("--new", default=str(ROOT / "src"))
     ap.add_argument("--json")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="ablation sections, comma-separated: "
+                         + ", ".join(SECTIONS))
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        ap.error(f"--only takes {', '.join(SECTIONS)}")
     if not torch.cuda.is_available():
         print("no CUDA device; this script times kernels on a GPU",
               file=sys.stderr)
@@ -383,7 +536,7 @@ def main() -> int:
             ap.error("ab needs --old")
         return ab(os.path.abspath(args.old), os.path.abspath(args.new),
                   args.json)
-    return ablation(os.path.abspath(args.src), args.json)
+    return ablation(os.path.abspath(args.src), args.json, only)
 
 
 if __name__ == "__main__":

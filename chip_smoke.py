@@ -16,7 +16,11 @@ Phases (any failure exits non-zero and prints no result):
    ``p == 0`` lane, the histogram at branch 64 and at a branch past
    shared memory, magnitudes on the histogram's bin edges and NaN, ±inf,
    ±0 and subnormal magnitudes at both branches, taus in any order for
-   ``count_ge_level``) at the paper's shapes (W = 1 and 28,
+   ``count_ge_level``, and ``count_ge_level`` on five lanes whose rank
+   tables cover other ranges — all taus ≤ 0; ties, ±inf and NaN; all
+   equal; subnormals to 1e30; a first scan round — with each lane's rows
+   on its table's edges, B = 1, 64 and 4095, float32 and bfloat16 rows, at
+   d = 2**20 + 77) at the paper's shapes (W = 1 and 28,
    d = 7850) and a large ragged one (W = 8, d = 2**23 + 125; one variant
    per τ-search kernel there), each output held bit for bit against the
    kernel's plain PyTorch version run on the CPU on the same inputs; then
@@ -88,6 +92,7 @@ SCALAR_DTYPES = (torch.float32, torch.bfloat16)
 SEARCH_D = 1_000_000               # the 1-D τ search counting with count_ge
 SEARCH_QS = (10, 500, 5000)
 EDGE_TAUS = (1, 64, 4095)          # count_ge on its rank table's edges
+LANES_D = 2 ** 20 + 77             # count_ge_level on its special lanes
 
 
 def log(*args):
@@ -332,10 +337,11 @@ def call_tau(fns, name: str, t: dict, opt: dict, aux: dict):
 def tau_cost(name: str, w: int, d: int, n: int) -> tuple:
     """(bytes, f32 operations) the timed variant must spend: each input
     read once, each output written once; per element the operand's flops
-    and the binary searches' compares (and candidate fmas)."""
+    and the binary searches' compares (and candidate fmas), or for
+    ``count_ge_level`` the table lookup (|x|, its bucket, one compare)."""
     search = math.ceil(math.log2(n + 1))
     if name == "count_ge_level":
-        return (w * d + 2 * w * n) * 4, w * d * (1 + search)
+        return (w * d + 2 * w * n) * 4, w * d * 3
     operand = (3 * w * d + d + 2 * w) * 4          # g, e, γ_in, gm[d], w, p
     flops = 6 + search                              # 2 fma, 1−m, ·, |·|
     if name == "count_ge_fused_level":
@@ -434,9 +440,69 @@ def check_tau_kernels(level, ref, sp) -> dict:
             log(f"[time] {name} W={w} d={d} B={n}: kernel {ms:.4f} ms, "
                 f"plain on card {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({100 * bound_ms / ms:.1f}% of bound)")
-        del cpu, gpu
+        # count_ge_level on bfloat16 rows (read as such, half the bytes)
+        x16 = gpu["g"].to(torch.bfloat16)
+        taus = torch.from_numpy(taus).to(dev)
+        ms = cuda_time_ms(lambda: cuda_fns["count_ge_level"](x16, taus),
+                          20 if large else 200)
+        plain_ms = cuda_time_ms(lambda: plain_fns["count_ge_level"](x16,
+                                                                    taus),
+                                5 if large else 50)
+        nbytes, ops = tau_cost("count_ge_level", w, d, BRANCH)
+        nbytes -= w * d * 2
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        report["count_ge_level"]["shapes"].append(dict(
+            W=w, d=d, dtype="bfloat16", ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_share=bound_ms / ms))
+        log(f"[time] count_ge_level W={w} d={d} B={BRANCH} bfloat16: kernel "
+            f"{ms:.4f} ms, plain on card {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of bound)")
+        del cpu, gpu, x16
         torch.cuda.empty_cache()
+    check_count_ge_level_lanes(cuda_fns["count_ge_level"], ref,
+                               report["count_ge_level"])
     return report
+
+
+def check_count_ge_level_lanes(count_ge_level, ref, r: dict):
+    """count_ge_level at d = LANES_D on five lanes whose rank tables cover
+    other ranges (``ref.count_level_edge_taus``), each lane's rows on its
+    table's edges and its taus with NaN, ±inf, ±0 and subnormals in lane 0;
+    B = 1, 64 and 4095 (MAX_TAUS); float32 and bfloat16 rows; the operand
+    at an odd offset of a larger buffer; bit for bit against the plain
+    version on the CPU. 4096 taus must be refused."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for n in EDGE_TAUS:
+        taus = ref.count_level_edge_taus(n, seed=SEED + n)
+        w, d = taus.shape[0], LANES_D
+        x = ref.count_level_edge_rows(taus, d, seed=SEED + n)
+        for dt in SCALAR_DTYPES:
+            rows = x.to(dt)
+            flat = torch.zeros(w * d + 1, dtype=dt, device=dev)
+            flat[1:] = rows.reshape(-1).to(dev)
+            want = ref.ref_count_ge_level(rows, taus)
+            got = count_ge_level(flat[1:].view(w, d), taus.to(dev))
+            torch.cuda.synchronize()
+            r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(want, got))
+            if not bitwise_equal(want, got):
+                raise SystemExit(f"FAIL count_ge_level on its special lanes, "
+                                 f"B={n} {dt}: kernel differs from its plain "
+                                 f"version (max |diff| "
+                                 f"{max_abs_diff(want, got)})")
+            r["checked"] += 1
+    try:
+        count_ge_level(x.to(dev), torch.ones((w, EDGE_TAUS[-1] + 1),
+                                             device=dev))
+    except ValueError:
+        pass
+    else:
+        raise SystemExit(f"FAIL count_ge_level took {EDGE_TAUS[-1] + 1} "
+                         f"taus")
+    log(f"[kernels] count_ge_level on five special lanes at d={LANES_D}, "
+        f"B in {EDGE_TAUS}, float32 and bfloat16: equal to the plain "
+        f"version bit for bit; {EDGE_TAUS[-1] + 1} taus refused "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------

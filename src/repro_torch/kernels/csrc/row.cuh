@@ -72,12 +72,19 @@ __device__ __forceinline__ void ldf(const float* __restrict__ p, long long i,
 }
 
 // bfloat16 to float32 is exact: the 16 bits are the float's upper half.
+// C = 4 (tau_search.cu's tiles) reads 8 bytes, C = 8 16 bytes.
 template <int C>
 __device__ __forceinline__ void ldf(const __nv_bfloat16* __restrict__ p,
                                     long long i, float (&v)[C]) {
   const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
   if constexpr (C == 1) {
     v[0] = __uint_as_float((unsigned)h[i] << 16);
+  } else if constexpr (C == 4) {   // 8 bytes: p + i is 8-byte aligned
+    const uint2 q = *reinterpret_cast<const uint2*>(h + i);
+    v[0] = __uint_as_float(q.x << 16);
+    v[1] = __uint_as_float(q.x & 0xffff0000u);
+    v[2] = __uint_as_float(q.y << 16);
+    v[3] = __uint_as_float(q.y & 0xffff0000u);
   } else {
     static_assert(C == 8, "a bfloat16 vector unit holds 8 values");
     const uint4 q = *reinterpret_cast<const uint4*>(h + i);

@@ -11,28 +11,41 @@
 // All three are integer-exact counts. On the TPU each candidate is one
 // vector compare over a whole tile (B passes over the tile), and the
 // histogram is a one-hot contraction on the MXU. Here each element finds
-// its bin once, from values held in shared memory (a binary search for the
-// counts, an estimate checked by exact comparisons for the histogram), and
-// adds 1 to a shared-memory histogram with an integer atomic; blocks add
-// their histograms into the output with global integer atomics. Integer
-// sums are exact in any order, so the result does not depend on the
-// schedule.
+// its bin once, from values held in shared memory (a table lookup or a
+// binary search for the counts, an estimate checked by exact comparisons
+// for the histogram), and adds 1 to a shared-memory histogram with an
+// integer atomic; blocks add their histograms into the output with global
+// integer atomics. Integer sums are exact in any order, so the result does
+// not depend on the schedule.
 //
 // Bound: device-memory bytes at large d (each operand array is read once:
-// 2-3 [W, d] f32 rows plus the mask), with a log2(B)-step search per
-// element on top for the counts; at the paper's d = 7850 a launch is one
-// tile per lane and launch-bound.
+// x, or 2-3 [W, d] f32 rows plus the mask); at the paper's d = 7850 a
+// launch is one tile per lane and launch-bound.
 //
 // Counts (count_ge_level, count_ge_fused_level):
-//   * the lane's B taus are sorted into shared memory (rank by comparison,
-//     ties by index; a NaN tau sorts as +inf and counts nothing);
-//   * an element's rank r = #{k : |x| >= sorted_k} is a binary search;
-//     a shared [B+1] histogram counts the ranks, and blocks add it into a
-//     global [W, B+1] scratch;
+//   * the lane's B taus are sorted into shared memory by each block (rank
+//     by comparison, ties by index; a NaN tau sorts as +inf and counts
+//     nothing);
+//   * an element's rank r = #{k : |x| >= sorted_k} goes into a shared
+//     [B+1] histogram, and blocks add it into a global [W, B+1] scratch;
 //   * a second kernel turns the ranks into suffix sums, counts[w, b] =
 //     #{rank >= pos_b + 1}, pos_b being tau b's place in the sorted order.
-//   Taus in any order give the integers of the plain broadcast comparison,
-//   so one kernel serves the materialized and the fused operand.
+//   Taus in any order give the integers of the plain broadcast comparison.
+//   count_ge_level takes each rank from the lane's RankTable (rank.cuh, the
+//   rule of topq_threshold.cu's count_ge): one load for an |x| outside the
+//   buckets that hold a tau, a search over a bucket's own taus otherwise.
+//   Each block builds its lane's table in its prologue from the taus it
+//   has just sorted, in the same 48 KB as the histogram (the keys share
+//   the histogram's words), so every B up to 4095 takes it. Building it
+//   in every block cost a launch about 0.004 ms on the card, a W-block
+//   table kernel 0.007 ms and one launch more, which the launch-bound
+//   paper shape pays in full (benchmarks/torch_count_ablation.cu). Its
+//   grid holds as many blocks as the card keeps resident, spread over the
+//   lanes (never more than a lane's tiles).
+//   float32 rows are read with 16-byte loads, bfloat16 rows with 8-byte
+//   ones as the upper halves of float32s (row.cuh), no copy.
+//   count_ge_fused_level, whose three rows hide its search, keeps the
+//   binary search over the sorted taus and 64 blocks per lane.
 //
 // Histogram (hist_topq_level), per element with tables from
 // core/sparsify.py::_hist_tables (tau1 [b], new_lo, w2, top_shift [b+1]):
@@ -82,13 +95,11 @@
 
 namespace {
 
-constexpr int kMaxBlocksPerLane = 64;   // tiles are walked grid-stride
+constexpr int kMaxBlocksPerLane = 64;   // count_ge_fused_level's grid
 constexpr int kSharedLimit = 48 * 1024;
 
-enum Source { kSrcX = 0, kSrcFused = 1 };
-
 struct Operand {
-  const float* g;     // x for kSrcX
+  const float* g;
   const float* e;
   const float* gin;   // null without gamma_in
   const float* gm;    // null, [d] or [W, d]
@@ -97,17 +108,13 @@ struct Operand {
 };
 
 // |operand| of one unit (cnt elements) of a tile.
-template <int SRC, int GM, bool GAMMA>
+template <int GM, bool GAMMA>
 __device__ __forceinline__ void load_mag(const Operand& op, float wt,
                                          float pw, const TileGeom& t,
                                          const Unit& un, float mag[4]) {
   const long long i = t.row + t.t0 + un.local;
   float vg[4], ve[4], vi[4], vm[4];
   ld(op.g, i, un.cnt, vg);
-  if (SRC == kSrcX) {
-    for (int k = 0; k < un.cnt; ++k) mag[k] = fabsf(vg[k]);
-    return;
-  }
   ld(op.e, i, un.cnt, ve);
   if (GAMMA) ld(op.gin, i, un.cnt, vi);
   if (GM != kGmNone) load_gmask(op.gm, GM, t, un, vm);
@@ -123,7 +130,9 @@ __device__ __forceinline__ void load_mag(const Operand& op, float wt,
 // counts: rank histogram, then suffix sums
 // --------------------------------------------------------------------------
 
-template <int SRC, int GM, bool GAMMA>
+// count_ge_fused_level: ranks by binary search over the lane's taus, sorted
+// in shared memory by each block.
+template <int GM, bool GAMMA>
 __global__ void __launch_bounds__(kThreads)
 count_rank_kernel(Operand op, const float* __restrict__ taus, int nb_taus,
                   int* __restrict__ ranks, long long d, long long n_tiles) {
@@ -141,14 +150,14 @@ count_rank_kernel(Operand op, const float* __restrict__ taus, int nb_taus,
     s_sorted[sorted_pos(s_key, B, b)] = s_key[b];
   }
   __syncthreads();
-  const float wt = SRC == kSrcFused ? op.w[w] : 0.f;
+  const float wt = op.w[w];
   const float pw = GAMMA ? op.p[w] : 0.f;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const TileGeom t = tile_geom_at(d, tile, w);
     for (int u = threadIdx.x; u < t.nunits; u += blockDim.x) {
       const Unit un = unit_at(t, u);
       float mag[4];
-      load_mag<SRC, GM, GAMMA>(op, wt, pw, t, un, mag);
+      load_mag<GM, GAMMA>(op, wt, pw, t, un, mag);
       for (int k = 0; k < un.cnt; ++k) {
         const int r = rank_of(mag[k], s_sorted, B);
         if (r) atomicAdd(&s_hist[r], 1);
@@ -159,6 +168,99 @@ count_rank_kernel(Operand op, const float* __restrict__ taus, int nb_taus,
   int* row = ranks + (long long)w * (B + 1);
   for (int r = 1 + threadIdx.x; r <= B; r += blockDim.x) {
     const int c = s_hist[r];
+    if (c) atomicAdd(&row[r], c);
+  }
+}
+
+// The shared memory of a count_ge_level block: the rank histogram [B + 1]
+// (the keys while the taus are sorted), the sorted taus [B], the table's
+// entries.
+struct LaneTable {
+  int* hist;
+  float* sorted;
+  unsigned short* entries;
+};
+
+__device__ __forceinline__ LaneTable lane_table_at(float* smem, int B) {
+  LaneTable s;
+  s.hist = reinterpret_cast<int*>(smem);
+  s.sorted = smem + B + 1;
+  s.entries = reinterpret_cast<unsigned short*>(s.sorted + B);
+  return s;
+}
+
+size_t lane_table_smem(int nb_taus) {
+  return (size_t)(2 * nb_taus + 1) * 4 + (size_t)kEntryWords * 4;
+}
+
+// A count_ge_level block's prologue: lane w's taus sorted, their RankTable
+// built into s_t and s.entries, the histogram zeroed.
+__device__ __forceinline__ void lane_table_prologue(const float* taus, int B,
+                                                    int w, const LaneTable& s,
+                                                    RankTable& s_t) {
+  const float* trow = taus + (long long)w * B;
+  float* s_key = reinterpret_cast<float*>(s.hist);
+  for (int b = threadIdx.x; b < B; b += blockDim.x) s_key[b] = tau_key(trow[b]);
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    s.sorted[sorted_pos(s_key, B, b)] = s_key[b];
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r <= B; r += blockDim.x) s.hist[r] = 0;
+  build_rank_table(s.sorted, B, s_t, s.entries);
+}
+
+// Call f(v) for each element of lane w in this block's tiles, as float32:
+// 4-element units through the middle of a tile (16-byte loads of float32,
+// 8-byte loads of bfloat16), the scalar head and tail by the first threads.
+template <typename T, typename F>
+__device__ __forceinline__ void for_each_lane_element(const T* __restrict__ x,
+                                                      int w, long long d,
+                                                      long long n_tiles,
+                                                      F&& f) {
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const TileGeom t = tile_geom_at(d, tile, w);
+    const long long base = t.row + t.t0;
+    for (int u = threadIdx.x; u < t.nvec; u += blockDim.x) {
+      float v[4];
+      ldf<4>(x, base + t.head + 4 * u, v);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f(v[k]);
+    }
+    const int rest = t.len - 4 * t.nvec;   // head + tail, under 8
+    if ((int)threadIdx.x < rest) {
+      const int j = (int)threadIdx.x < t.head
+                        ? (int)threadIdx.x
+                        : t.head + 4 * t.nvec + ((int)threadIdx.x - t.head);
+      float v[1];
+      ldf<1>(x, base + j, v);
+      f(v[0]);
+    }
+  }
+}
+
+// count_ge_level: ranks from the lane's RankTable, built in each block's
+// prologue (see the header), over the block's tiles of lane blockIdx.y.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+count_table_level_kernel(const T* __restrict__ x,
+                         const float* __restrict__ taus, int nb_taus,
+                         int* __restrict__ ranks, long long d,
+                         long long n_tiles) {
+  extern __shared__ float smem[];
+  const int B = nb_taus, w = blockIdx.y;
+  const LaneTable s = lane_table_at(smem, B);
+  __shared__ RankTable s_t;
+  lane_table_prologue(taus, B, w, s, s_t);
+  const RankTable t = s_t;
+  for_each_lane_element(x, w, d, n_tiles, [&](float v) {
+    const int r = table_rank(fabsf(v), t, s.entries, s.sorted);
+    if (r) atomicAdd(&s.hist[r], 1);
+  });
+  __syncthreads();
+  int* row = ranks + (long long)w * (B + 1);
+  for (int r = 1 + threadIdx.x; r <= B; r += blockDim.x) {
+    const int c = s.hist[r];
     if (c) atomicAdd(&row[r], c);
   }
 }
@@ -302,7 +404,7 @@ __device__ __forceinline__ void hist_elements(
     for (int u = threadIdx.x; u < t.nunits; u += blockDim.x) {
       const Unit un = unit_at(t, u);
       float mag[4];
-      load_mag<kSrcFused, GM, GAMMA>(op, wt, pw, t, un, mag);
+      load_mag<GM, GAMMA>(op, wt, pw, t, un, mag);
       for (int k = 0; k < un.cnt; ++k) {
         const float m = mag[k];
         int d1, d2;
@@ -408,24 +510,56 @@ inline dim3 search_grid(long long n_tiles, int w_lanes) {
   return dim3((unsigned)(x < 1 ? 1 : x), (unsigned)w_lanes);
 }
 
-size_t count_smem(int nb_taus) { return (size_t)(3 * nb_taus + 1) * 4; }
+// Blocks per lane: as many as the card keeps resident, spread over the
+// lanes, no more than a lane's tiles.
+template <typename K>
+dim3 resident_grid(K kernel, size_t smem, long long n_tiles, int w_lanes) {
+  const long long resident = resident_blocks(kernel, kThreads, smem);
+  long long x = (resident + w_lanes - 1) / w_lanes;
+  x = x < n_tiles ? x : n_tiles;
+  return dim3((unsigned)(x < 1 ? 1 : x), (unsigned)w_lanes);
+}
 
-template <int SRC, int GM, bool GAMMA>
+int counts_launch(const float* taus, int* ranks, int* counts, int w_lanes,
+                  int nb_taus, cudaStream_t stream) {
+  counts_from_ranks_kernel<<<w_lanes, kThreads,
+                             (size_t)(2 * nb_taus + 1) * 4, stream>>>(
+      taus, nb_taus, ranks, counts);
+  return (int)cudaGetLastError();
+}
+
+template <int GM, bool GAMMA>
 int count_launch(const Operand& op, const float* taus, int* ranks,
                  int* counts, int w_lanes, int nb_taus, long long d,
                  cudaStream_t stream) {
   cudaMemsetAsync(ranks, 0, sizeof(int) * (size_t)w_lanes * (nb_taus + 1),
                   stream);
   const long long n_tiles = tiles_of(d);
-  count_rank_kernel<SRC, GM, GAMMA>
-      <<<search_grid(n_tiles, w_lanes), kThreads, count_smem(nb_taus),
-         stream>>>(op, taus, nb_taus, ranks, d, n_tiles);
-  int rc = (int)cudaGetLastError();
+  count_rank_kernel<GM, GAMMA>
+      <<<search_grid(n_tiles, w_lanes), kThreads,
+         (size_t)(3 * nb_taus + 1) * 4, stream>>>(op, taus, nb_taus, ranks,
+                                                  d, n_tiles);
+  const int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  counts_from_ranks_kernel<<<w_lanes, kThreads,
-                             (size_t)(2 * nb_taus + 1) * 4, stream>>>(
-      taus, nb_taus, ranks, counts);
-  return (int)cudaGetLastError();
+  return counts_launch(taus, ranks, counts, w_lanes, nb_taus, stream);
+}
+
+template <typename T>
+int count_table_launch(const void* x, const float* taus, int* ranks,
+                       int* counts, int w_lanes, int nb_taus, long long d,
+                       cudaStream_t stream) {
+  const size_t smem = lane_table_smem(nb_taus);
+  if (smem > (size_t)kSharedLimit) return (int)cudaErrorInvalidValue;
+  cudaMemsetAsync(ranks, 0, sizeof(int) * (size_t)w_lanes * (nb_taus + 1),
+                  stream);
+  const long long n_tiles = tiles_of(d);
+  auto kernel = count_table_level_kernel<T>;
+  kernel<<<resident_grid(kernel, smem, n_tiles, w_lanes), kThreads, smem,
+           stream>>>(static_cast<const T*>(x), taus, nb_taus, ranks, d,
+                     n_tiles);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return counts_launch(taus, ranks, counts, w_lanes, nb_taus, stream);
 }
 
 // Shared memory: brackets, top_shift and F0/G (24 bytes per bracket), then
@@ -436,16 +570,6 @@ size_t hist_shared_smem(int branch) {
 }
 
 size_t hist_global_smem(int branch) { return (size_t)(branch + 1) * 28; }
-
-// Blocks per lane: as many as the card keeps resident, spread over the
-// lanes, no more than a lane's tiles.
-template <typename K>
-dim3 hist_grid(K kernel, size_t smem, long long n_tiles, int w_lanes) {
-  const long long resident = resident_blocks(kernel, kThreads, smem);
-  long long x = (resident + w_lanes - 1) / w_lanes;
-  x = x < n_tiles ? x : n_tiles;
-  return dim3((unsigned)(x < 1 ? 1 : x), (unsigned)w_lanes);
-}
 
 template <int GM, bool GAMMA>
 int hist_launch(const Operand& op, const float* tau1, const float* new_lo,
@@ -458,13 +582,13 @@ int hist_launch(const Operand& op, const float* tau1, const float* new_lo,
   const size_t shared = hist_shared_smem(branch);
   if (shared <= (size_t)kSharedLimit) {
     auto kernel = hist_topq_level_kernel<GM, GAMMA, true>;
-    kernel<<<hist_grid(kernel, shared, n_tiles, w_lanes), kThreads, shared,
-             stream>>>(op, tau1, new_lo, w2, top_shift, branch, d2, f, d,
-                       n_tiles);
+    kernel<<<resident_grid(kernel, shared, n_tiles, w_lanes), kThreads,
+             shared, stream>>>(op, tau1, new_lo, w2, top_shift, branch, d2,
+                               f, d, n_tiles);
   } else {
     auto kernel = hist_topq_level_kernel<GM, GAMMA, false>;
     const size_t smem = hist_global_smem(branch);
-    kernel<<<hist_grid(kernel, smem, n_tiles, w_lanes), kThreads, smem,
+    kernel<<<resident_grid(kernel, smem, n_tiles, w_lanes), kThreads, smem,
              stream>>>(op, tau1, new_lo, w2, top_shift, branch, d2, f, d,
                        n_tiles);
   }
@@ -475,6 +599,7 @@ int hist_launch(const Operand& op, const float* tau1, const float* new_lo,
 
 // --------------------------------------------------------------------------
 // C interface (ctypes). Pointers are contiguous float32 / int32 CUDA buffers
+// (count_ge_level's x float32 or bfloat16, by dtype, 16-byte aligned)
 // checked by the Python wrapper; outputs are zeroed here, on the caller's
 // stream. Returns cudaGetLastError() after the launches.
 // --------------------------------------------------------------------------
@@ -487,13 +612,16 @@ int hist_shared_max_branch() {
   return b;
 }
 
-int count_ge_level_launch(const float* x, const float* taus, int* ranks,
-                          int* counts, int w_lanes, int nb_taus, long long d,
-                          void* stream_ptr) {
-  const Operand op{x, nullptr, nullptr, nullptr, nullptr, nullptr};
-  return count_launch<kSrcX, kGmNone, false>(
-      op, taus, ranks, counts, w_lanes, nb_taus, d,
-      (cudaStream_t)stream_ptr);
+int count_ge_level_launch(const void* x, int dtype, const float* taus,
+                          int* ranks, int* counts, int w_lanes, int nb_taus,
+                          long long d, void* stream_ptr) {
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  if (dtype == kBF16) {
+    return count_table_launch<__nv_bfloat16>(x, taus, ranks, counts, w_lanes,
+                                             nb_taus, d, s);
+  }
+  return count_table_launch<float>(x, taus, ranks, counts, w_lanes, nb_taus,
+                                   d, s);
 }
 
 int count_ge_fused_level_launch(const float* g, const float* e,
@@ -505,8 +633,8 @@ int count_ge_fused_level_launch(const float* g, const float* e,
   const Operand op{g, e, gin, gm, weight, part};
   cudaStream_t s = (cudaStream_t)stream_ptr;
 #define COUNT(GMK, GA)                                                     \
-  return count_launch<kSrcFused, GMK, GA>(op, taus, ranks, counts,        \
-                                          w_lanes, nb_taus, d, s)
+  return count_launch<GMK, GA>(op, taus, ranks, counts, w_lanes, nb_taus, \
+                               d, s)
   if (gin != nullptr) {
     if (gm_kind == kGmShared) COUNT(kGmShared, true);
     if (gm_kind == kGmLane) COUNT(kGmLane, true);

@@ -19,16 +19,13 @@
 //      #{rank >= place_b + 1}.
 // Taus may come in any order and need no check on the host.
 //
-// count_ge finds ranks by table lookup, not by search. Non-negative floats
-// order as their bit patterns do, so the sort block also cuts the patterns
-// from the smallest positive finite tau to the largest into kBuckets
-// buckets of 2^shift patterns each and stores, per bucket, the rank of its
-// first pattern and whether a tau lies inside it (a RankTable). Each block
-// of the row kernel copies the table into shared memory; an |x| below the
-// range has the rank #{tau <= 0}, one above it #{tau < +inf} (all B for
-// +inf, 0 for NaN), one inside a bucket without a tau the bucket's rank,
-// all from one load; only a bucket holding a tau runs a binary search over
-// its own taus. The rank histogram is one shared [B + 1] array: copies per
+// count_ge finds ranks by table lookup, not by search: the sort block also
+// builds the RankTable of the sorted taus (rank.cuh: kBuckets buckets over
+// the bit patterns from the smallest positive finite tau to the largest,
+// one load per element outside the buckets that hold a tau) into the
+// scratch, and each block of the row kernel copies it into shared memory.
+// tau_search.cu's count_ge_level builds the same table per lane with the
+// same device code. The rank histogram is one shared [B + 1] array: copies per
 // lane of a warp were measured and bought nothing, even on a row whose
 // elements all share one rank (benchmarks/torch_count_ablation.cu, mode 5).
 // count_ge_fused, whose three rows hide its search, keeps the binary
@@ -53,40 +50,8 @@
 namespace {
 
 constexpr int kSharedLimit = 48 * 1024;
-constexpr int kBuckets = 4096;         // rank-table buckets
 constexpr int kSortThreads = 1024;
 constexpr int kCountThreads = 512;     // fewer blocks, fewer flush atomics
-constexpr unsigned kInfBits = 0x7f800000u;
-constexpr unsigned kTauInside = 0x8000u;   // flag bit of a table entry
-
-// Ranks of the sorted taus by bit pattern: buckets of 2^shift patterns
-// from lo_bits (the smallest positive finite tau) up to hi_bits (the
-// largest); entry k of the table holds the rank of the bucket's first
-// pattern, | kTauInside when the bucket holds a tau.
-struct RankTable {
-  unsigned lo_bits, hi_bits;
-  int shift;
-  int below;    // #{tau <= 0}: the rank of an |x| under the range
-  int finite;   // #{tau < +inf}: the rank of a finite |x| at or over it
-  int all;      // B: the rank of +inf
-};
-
-constexpr int kTableWords = sizeof(RankTable) / 4;
-constexpr int kEntryWords = (kBuckets + 2) / 2;   // kBuckets + 1 uint16
-
-__device__ __forceinline__ int table_rank(float m, const RankTable& t,
-                                          const unsigned short* entries,
-                                          const float* sorted) {
-  const unsigned u = __float_as_uint(m);
-  if (u < t.lo_bits) return t.below;
-  if (u >= t.hi_bits) return u > kInfBits ? 0 : u == kInfBits ? t.all
-                                                              : t.finite;
-  const unsigned k = (u - t.lo_bits) >> t.shift;
-  const unsigned e = entries[k];
-  const int r = (int)(e & ~kTauInside);
-  if (!(e & kTauInside)) return r;
-  return rank_between(m, sorted, r, (int)(entries[k + 1] & ~kTauInside));
-}
 
 // One block: sorted[place_b] = key_b and place[b] = place_b; with TABLE
 // also the RankTable of the sorted keys and its kBuckets + 1 entries.
@@ -100,7 +65,6 @@ sort_taus_kernel(const float* __restrict__ taus, int nb_taus,
   const int B = nb_taus;
   float* s_key = smem;
   float* s_sorted = smem + B;                               // TABLE: [B]
-  unsigned short* s_p = reinterpret_cast<unsigned short*>(smem + 2 * B);
   __shared__ RankTable s_t;
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     s_key[b] = tau_key(taus[b]);
@@ -114,57 +78,12 @@ sort_taus_kernel(const float* __restrict__ taus, int nb_taus,
   }
   if (!TABLE) return;
   __syncthreads();
-  // the boundaries of the keys <= 0 and of the finite keys (keys are never
-  // NaN): one p in 0..B meets each
-  for (int p = threadIdx.x; p <= B; p += blockDim.x) {
-    if ((p == 0 || s_sorted[p - 1] <= 0.f) && (p == B || s_sorted[p] > 0.f)) {
-      s_t.below = p;
-    }
-    if ((p == 0 || s_sorted[p - 1] < INFINITY) &&
-        (p == B || s_sorted[p] == INFINITY)) {
-      s_t.finite = p;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    RankTable t = s_t;
-    const bool any = t.below < t.finite;
-    t.lo_bits = any ? __float_as_uint(s_sorted[t.below]) : kInfBits;
-    t.hi_bits = any ? __float_as_uint(s_sorted[t.finite - 1]) : kInfBits;
-    t.shift = 0;
-    while (((t.hi_bits - t.lo_bits) >> t.shift) >= (unsigned)kBuckets) {
-      ++t.shift;
-    }
-    t.all = B;
-    s_t = t;
-    *table = t;
-  }
-  __syncthreads();
-  const RankTable t = s_t;
-  // P[k] = #{keys <= 0} + #{finite keys > 0 in buckets before k}
-  for (int k = threadIdx.x; k <= kBuckets; k += blockDim.x) {
-    int lo = t.below, hi = t.finite;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (((__float_as_uint(s_sorted[mid]) - t.lo_bits) >> t.shift) <
-          (unsigned)k) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    s_p[k] = (unsigned short)lo;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k <= kBuckets; k += blockDim.x) {
-    const bool inside = k < kBuckets && s_p[k + 1] > s_p[k];
-    entries[k] = (unsigned short)(s_p[k] | (inside ? kTauInside : 0u));
-  }
+  build_rank_table(s_sorted, B, s_t, entries);
+  if (threadIdx.x == 0) *table = s_t;
 }
 
 size_t sort_smem(int nb_taus, bool table) {
-  return table ? (size_t)nb_taus * 8 + (size_t)kEntryWords * 4
-               : (size_t)nb_taus * 4;
+  return (size_t)nb_taus * (table ? 8 : 4);
 }
 
 // Sorted taus, the table's entries and the rank histogram.

@@ -137,7 +137,7 @@ def _load() -> ctypes.CDLL:
         lib.sparsify_ef_level_launch.argtypes = [p] * 11 + tail
         lib.chain_accum_level_launch.argtypes = [p] * 4 + [i] + [p] * 3 + tail
         lib.level_tiles.argtypes = [ll]
-        lib.count_ge_level_launch.argtypes = [p] * 4 + [i, i, ll, p]
+        lib.count_ge_level_launch.argtypes = [p, i] + [p] * 3 + [i, i, ll, p]
         lib.count_ge_fused_level_launch.argtypes = (
             [p] * 6 + [i] + [p] * 3 + [i, i, ll, p])
         lib.hist_topq_level_launch.argtypes = (
@@ -331,8 +331,9 @@ def chain_accum_level_cuda(gamma_in, gbar, valid, gmask=None):
 # τ search: candidate counts and the joint digit histogram
 # ---------------------------------------------------------------------------
 
-#: Largest number of taus per lane the count kernels take: the sorted taus
-#: and the rank histogram share 48 KB of shared memory per block.
+#: Largest number of taus per lane the count kernels take: the sorted taus,
+#: the rank histogram (and count_ge_level's rank table) share 48 KB of
+#: shared memory per block.
 MAX_TAUS = 4095
 #: Largest branch of the joint histogram (the reference's limit too).
 MAX_BRANCH = 1024
@@ -364,20 +365,25 @@ def _fused_operand_args(g, e, gamma_in, weight, participate, gmask,
 def count_ge_level_cuda(x, taus):
     """CUDA :func:`repro_torch.kernels.ref.ref_count_ge_level`.
 
-    x: [W, d] float32; taus: [W, B] float32 in any order, B ≤ MAX_TAUS.
-    → counts [W, B] int32, ``#{i : |x_{w,i}| >= taus_{w,b}}``.
+    x: [W, d] float32 or bfloat16 (read as float32 in the kernel, not
+    copied); taus: [W, B] float32 in any order, B ≤ MAX_TAUS.
+    → counts [W, B] int32, ``#{i : |x_{w,i}| >= taus_{w,b}}``. Each rank
+    comes from a table of the lane's taus (one load, a search only in a
+    bucket that holds a τ), not from a binary search.
     """
     w_lanes, d, dev = _lanes(x)
+    if x.dtype not in ROW_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     lib = _load()
-    x = _rows("x", x, (w_lanes, d), dev)
+    x = _rows("x", x, (w_lanes, d), dev, x.dtype)
     taus = _taus("taus", taus, w_lanes, dev, MAX_TAUS)
     n = taus.shape[1]
     ranks = torch.empty((w_lanes, n + 1), dtype=torch.int32, device=dev)
     counts = torch.empty((w_lanes, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.count_ge_level_launch(_ptr(x), _ptr(taus), _ptr(ranks),
-                                       _ptr(counts), w_lanes, n, d,
-                                       _stream(dev))
+        rc = lib.count_ge_level_launch(_ptr(x), ROW_DTYPES[x.dtype],
+                                       _ptr(taus), _ptr(ranks), _ptr(counts),
+                                       w_lanes, n, d, _stream(dev))
     _raise_on(rc, "count_ge_level")
     count_ge_level_cuda.launches += 1
     return counts

@@ -140,7 +140,8 @@ def cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
 
 
 def count_ge_level(x, taus, *, mode: Mode = "auto"):
-    """Per-lane candidate counts ([W, d] × [W, B] → [W, B] int32)."""
+    """Per-lane candidate counts ([W, d] float32 or bfloat16 × [W, B]
+    float32 → [W, B] int32)."""
     if _kernel(mode, x):
         return level.count_ge_level_cuda(x, taus)
     return ref.ref_count_ge_level(x, taus)

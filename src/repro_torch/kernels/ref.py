@@ -341,6 +341,37 @@ def special_magnitudes(n: int, seed: int = 0) -> Tensor:
     return vals[torch.from_numpy(rng.integers(0, vals.numel(), n))]
 
 
+def count_level_edge_taus(n: int, seed: int = 0) -> Tensor:
+    """[5, n] float32 taus in any order whose lanes span other ranges:
+    every τ ≤ 0 (0, −0 and −inf where n allows); |normal|·1.5 draws with
+    +inf, −inf, NaN, 0 and ties; one value n times; log-uniform from the
+    smallest subnormal to 1e30; a first scan round's n evenly spaced
+    candidates below a maximum of 3 (what ``threshold_for_topq(count_fn=
+    ...)`` counts). Each lane's rank table covers another range."""
+    rng = np.random.default_rng(seed)
+    t = np.abs(rng.standard_normal((5, n))).astype(np.float32) * 1.5
+    t[0] = -t[0]
+    t[0, :3] = [0.0, -0.0, -np.inf][:n]
+    if n >= 8:
+        t[1, :7] = [np.inf, -np.inf, np.nan, 0.0, np.inf, t[1, 7], t[1, 7]]
+    t[2] = np.float32(0.7)
+    t[3] = np.exp(rng.uniform(np.log(1e-45), np.log(1e30), n))
+    hi = torch.full((1,), 3.0) * sp._HI_SCALE
+    t[4] = sp._hist_tables(torch.zeros_like(hi), hi, n)[0][0].numpy()
+    return torch.from_numpy(np.stack([rng.permutation(lane) for lane in t]))
+
+
+def count_level_edge_rows(taus: Tensor, d: int, seed: int = 0) -> Tensor:
+    """[W, d] float32 rows for ``count_ge_level`` over the lanes of
+    ``taus``: each lane on the edges of its own rank table and its taus
+    (:func:`count_edge_magnitudes`), with NaN, ±inf, ±0 and subnormals in
+    the first tenth of lane 0."""
+    x = torch.stack([count_edge_magnitudes(lane, d, seed=seed + w)
+                     for w, lane in enumerate(taus)])
+    x[0, :d // 10] = special_magnitudes(d // 10, seed=seed)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # scalar [d] kernels (repro.kernels.chain_accum / sparsify_ef /
 # topq_threshold): one row, scalars as Python numbers or one-element tensors

@@ -20,12 +20,17 @@ port's plain versions (``repro_torch.core.sparsify._hist_digits``,
 * The rank table: 4096 buckets over the patterns from the smallest positive
   finite τ to the largest; below → #{τ ≤ 0}, above → #{τ < +inf} (all for
   +inf, none for NaN), inside a bucket → its first pattern's rank plus a
-  binary search over the taus inside it.
+  binary search over the taus inside it. ``csrc/tau_search.cu::
+  count_ge_level`` builds the same table per lane (``[W, B]`` taus), held
+  against ``ref_count_ge_level`` and jitted ``repro.kernels.ref.
+  ref_count_ge_level``.
 
 Inputs: magnitudes on the histogram's bin edges and one ulp either side,
 an all-zero operand (the tables' zero-width floor), NaN, ±inf, ±0 and
 subnormals; taus on the table's bucket boundaries, −1, 0, +inf, NaN and
-ties, B ∈ {1, 64, 4095}, rows in float32 and bfloat16.
+ties, B ∈ {1, 64, 4095}, rows in float32 and bfloat16; per-lane taus whose
+ranges differ (all ≤ 0; ties with ±inf and NaN; all equal; subnormals to
+1e30; a first scan round's evenly spaced candidates).
 """
 
 import math
@@ -37,7 +42,9 @@ import pytest
 import torch
 
 from repro.core import sparsify as jsp
+from repro.kernels import ref as jref
 from repro_torch.core import sparsify as tsp
+from repro_torch.kernels import level as tlevel
 from repro_torch.kernels import ref as tref
 
 torch.set_num_threads(1)
@@ -48,6 +55,7 @@ BUCKETS = tref.RANK_TABLE_BUCKETS
 
 _jax_digits = jax.jit(jsp._hist_digits)
 _jax_count_ge = jax.jit(jsp.count_ge)
+_jax_count_ge_level = jax.jit(jref.ref_count_ge_level)
 
 
 def _f32(v) -> torch.Tensor:
@@ -301,3 +309,80 @@ def test_rank_table_answers_random_rows_with_one_load():
     got, searched = mirror_count_ge(x, taus)
     assert torch.equal(got, tref.ref_count_ge(x, taus))
     assert float(searched.float().mean()) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the per-lane rank tables of count_ge_level
+# ---------------------------------------------------------------------------
+
+def mirror_rank_tables(taus: torch.Tensor) -> list:
+    """One table per lane of ``[W, B]`` taus, as each block of the kernel
+    builds its lane's."""
+    return [mirror_rank_table(lane) for lane in taus]
+
+
+def mirror_count_ge_level(x: torch.Tensor, taus: torch.Tensor):
+    """→ (counts [W, B] int32, searched [W, d]) by the per-lane tables."""
+    out = [mirror_count_ge(row, lane) for row, lane in zip(x, taus)]
+    return (torch.stack([c for c, _ in out]),
+            torch.stack([s for _, s in out]))
+
+
+def _subnormal(t: torch.Tensor) -> torch.Tensor:
+    return (t != 0) & (t.abs() < torch.finfo(torch.float32).tiny)
+
+
+def _flush(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(_subnormal(t), t * 0.0, t)
+
+
+LANE_KINDS = ("all <= 0", "ties, ±inf, NaN", "all equal",
+              "subnormals to 1e30", "scan round")
+
+
+@pytest.mark.parametrize("n_taus", [1, 64, tlevel.MAX_TAUS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lane_rank_tables_match_the_references(n_taus, dtype):
+    taus = tref.count_level_edge_taus(n_taus, seed=n_taus)
+    x = tref.count_level_edge_rows(taus, 3000, seed=n_taus)
+    jx = jnp.asarray(x.numpy()).astype(dtype)
+    rows = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+    got, searched = mirror_count_ge_level(rows, taus)
+    assert torch.equal(got, tref.ref_count_ge_level(rows.to(
+        getattr(torch, dtype)), taus))
+    want = np.asarray(_jax_count_ge_level(jx, jnp.asarray(taus.numpy())))
+    # XLA:CPU compares with subnormals read as zero; the card and the
+    # plain version compare exactly. They agree wherever no τ is
+    # subnormal, and JAX equals the rule on the flushed inputs everywhere.
+    normal = ~(_subnormal(taus).any(-1))
+    assert bool(normal[3]) == (n_taus == 1)
+    np.testing.assert_array_equal(got[normal].numpy(), want[normal.numpy()])
+    flushed, _ = mirror_count_ge_level(_flush(rows), _flush(taus))
+    np.testing.assert_array_equal(flushed.numpy(), want)
+    tables = mirror_rank_tables(taus)
+    # the lanes' tables differ in range: none for τ ≤ 0, one bucket for
+    # equal taus, the widest shift for subnormals to 1e30
+    assert tables[0]["lo"] == tables[0]["hi"] == INF_BITS
+    assert tables[2]["lo"] == tables[2]["hi"]
+    if n_taus > 1:
+        assert tables[3]["shift"] > max(t["shift"] for t in tables[1:3])
+    for kind, t, lane in zip(LANE_KINDS, tables, searched):
+        assert int(t["inside"].sum()) <= t["finite"] - t["below"], kind
+        assert int(lane.sum()) < lane.numel(), kind
+
+
+def test_lane_rank_tables_answer_a_scan_round_with_one_load():
+    """On each lane's first scan round (the taus ``threshold_for_topq(
+    count_fn=ops.count_ge_level)`` counts), few elements land in a bucket
+    that holds a tau."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 50_000)).astype(np.float32)) * torch.tensor([[1.0], [1e-3],
+                                                         [30.0], [1e-30]])
+    hi = x.abs().amax(-1) * tsp._HI_SCALE
+    taus = tsp._hist_tables(torch.zeros_like(hi), hi, 64)[0]
+    got, searched = mirror_count_ge_level(x, taus)
+    assert torch.equal(got, tref.ref_count_ge_level(x, taus))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        _jax_count_ge_level(jnp.asarray(x.numpy()),
+                            jnp.asarray(taus.numpy()))))
+    assert float(searched.float().mean(-1).max()) < 0.05

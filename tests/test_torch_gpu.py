@@ -8,7 +8,9 @@ float and integer output (the CPU version is the one the parity tests hold
 against the JAX package). The τ-search kernels are held the same way, at
 the histogram's shared-memory and global-atomics branches, on magnitudes
 placed on the histogram's bin edges, on NaN, infinite, zero and subnormal
-magnitudes, and on tables that the digit estimate cannot take. The scalar
+magnitudes, and on tables that the digit estimate cannot take;
+``count_ge_level`` on lanes whose rank tables cover other ranges, float32
+and bfloat16, B up to ``MAX_TAUS``. The scalar
 ``[d]`` kernels are held the same way in float32 and bfloat16, with their
 scalars as numbers and as tensors on the card, on views that do not start
 on a 16-byte boundary, with taus in any order, on the bucket edges of
@@ -210,6 +212,29 @@ def test_count_ge_level_kernel_taus_in_any_order(cuda, w, d):
     xs, xg = _both(x["g"], cuda)
     ts, tg = _both(taus, cuda)
     _same(ref.ref_count_ge_level(xs, ts), level.count_ge_level_cuda(xg, tg))
+
+
+@pytest.mark.parametrize("n", [1, 64, level.MAX_TAUS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_count_ge_level_kernel_on_special_lanes(cuda, n, dtype):
+    """Lanes whose taus span other ranges (all ≤ 0; ties with ±inf and NaN;
+    all equal; subnormals to 1e30; a first scan round), each lane's rows on
+    the edges of its rank table, at d = 3·8192 + 77: several tiles per
+    lane, lanes that start off a 16-byte boundary, and the [W, d] operand
+    at an odd offset of a larger buffer (the wrapper copies it, without a
+    cast: bfloat16 rows reach the kernel as bfloat16)."""
+    taus = ref.count_level_edge_taus(n, seed=n)
+    w, d = taus.shape[0], 3 * 8192 + 77
+    x = ref.count_level_edge_rows(taus, d, seed=n).to(dtype)
+    flat = torch.zeros(w * d + 1, dtype=dtype)
+    flat[1:] = x.reshape(-1)
+    got = ops.count_ge_level(flat.to(cuda)[1:].view(w, d), taus.to(cuda),
+                             mode="always")
+    _same(ref.ref_count_ge_level(x, taus), got)
+    if n == level.MAX_TAUS:
+        with pytest.raises(ValueError, match=str(n)):
+            level.count_ge_level_cuda(x.to(cuda),
+                                      torch.ones((w, n + 1), device=cuda))
 
 
 @pytest.mark.parametrize("w,d", SHAPES)
