@@ -57,7 +57,22 @@ Phases (any failure exits non-zero and prints no result):
    of scalar node steps at d = 7850 for SIA (``count_ge_fused``,
    ``sparsify_ef``, ``chain_accum``) and CL-SIA (``count_ge_fused``,
    ``cl_fuse``), τ left on the card; τ, γ, the EF rows and nnz must equal
-   the same run on the CPU bit for bit.
+   the same run on the CPU bit for bit;
+6. routed constellation trees — the paper simulator (K = 28, d = 7850,
+   exact Top-Q) on ``walker_delta(4, 7, gateways=(1, 15))`` routed by
+   widest path, 20 rounds each after a warm-up: CL-SIA and SIA with
+   ``tree_topology`` and a ``FailureSchedule`` that kills client 0 in
+   rounds 2-7 (the tree re-routes from (L, W) = (8, 5) to (10, 4)), CL-SIA
+   on a ``TopologySchedule.from_link_events`` schedule (two trees padded to
+   one shape, so ``valid == 0`` lanes reach the kernels), and SIA on the
+   bandwidth-aware plan (per-client ``q_budget``); level-kernel launches
+   held to one per level of each round's plan, the loss must fall, CL-SIA's
+   bits must equal the §V closed form over the live uplinks every round,
+   three rounds across a re-route on the card fed the CPU run's gradients
+   must give the CPU's model, EF rows, bits and nnz bit for bit (loss to
+   rtol 1e-4), and a padded plan must give the same round as the same plan
+   unpadded; ms per round beside the chain round of the same run, and
+   torch.profiler's device-busy share of a tree round.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -672,8 +687,8 @@ def card_matches_cpu(sim_card, sim_cpu, label: str, rounds: int = 3):
             for (a, c), (b, e) in zip(taus_cpu, taus_card)))
         same = same and all(bitwise_equal(u, v) for u, v in (
             (s_cpu.flat_w, s_card.flat_w), (s_cpu.ef, s_card.ef),
-            (l_cpu.stats.bits, l_card.stats.bits),
-            (l_cpu.stats.nnz_out, l_card.stats.nnz_out)))
+            (l_cpu.stats[0].bits, l_card.stats[0].bits),
+            (l_cpu.stats[0].nnz_out, l_card.stats[0].nnz_out)))
         rel = abs(float(l_card.loss) - float(l_cpu.loss)) / abs(
             float(l_cpu.loss))
         worst = max(worst, rel)
@@ -1118,6 +1133,212 @@ def scalar_path(level, scalar) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: routed constellation trees, relay failures, topology schedules
+# ---------------------------------------------------------------------------
+
+# walker_delta(4, 7, gateways=(1, 15)): 28 satellites, the paper's K; its
+# widest-path tree is (L, W) = (8, 5), (10, 4) with client 0 dead
+WALKER = dict(num_planes=4, sats_per_plane=7, gateways=(1, 15))
+FAILURES = {2: ([0], []), 8: ([], [0])}          # client 0 dead rounds 2-7
+LINK_EVENTS = {3: ([(1, 2), (1, 8)], []), 9: ([], [(1, 2), (1, 8)])}
+# the rounds compared card against CPU: each crosses a re-route
+TREE_CMP_ROUNDS = {"failure": (1, 2, 3), "links": (2, 3, 4),
+                   "budgets": (0, 1, 2)}
+
+
+def tree_card_matches_cpu(sim_card, sim_cpu, plans, label: str):
+    """Rounds over ``plans`` (a re-route among them), both simulators fed
+    the CPU run's gradients: model, EF rows, bits and nnz bit for bit,
+    the loss to rtol 1e-4."""
+    from repro_torch.data.federated import client_minibatch
+
+    gen = torch.Generator().manual_seed(SEED)
+    s_cpu, s_card = sim_cpu.init(), sim_card.init()
+    worst = 0.0
+    for r, plan in enumerate(plans):
+        bx, by = client_minibatch(sim_cpu.fed, sim_cpu.pc.batch_size, gen)
+        grads = sim_cpu.client_grads(s_cpu.flat_w, bx, by)
+        s_cpu, l_cpu = sim_cpu.aggregate_step(s_cpu, plan, grads)
+        s_card, l_card = sim_card.aggregate_step(s_card, plan, grads.cuda())
+        same = all(bitwise_equal(u, v) for u, v in (
+            (s_cpu.flat_w, s_card.flat_w), (s_cpu.ef, s_card.ef),
+            (l_cpu.stats[0].bits, l_card.stats[0].bits),
+            (l_cpu.stats[0].nnz_out, l_card.stats[0].nnz_out)))
+        rel = abs(float(l_card.loss) - float(l_cpu.loss)) / abs(
+            float(l_cpu.loss))
+        worst = max(worst, rel)
+        if not same or rel > 1e-4:
+            raise SystemExit(f"FAIL {label} round {r} (plan {plan.shape}): "
+                             f"card and CPU differ (state/bits equal: "
+                             f"{same}, loss rel {rel:.2e})")
+    log(f"[tree] {label}: {len(plans)} rounds over plans "
+        f"{[p.shape for p in plans]} on the card vs the CPU with the same "
+        f"gradients: model, EF rows, bits and nnz bit for bit; loss max rel "
+        f"diff {worst:.2e}")
+
+
+def padded_equals_unpadded(sim, pairs, label: str):
+    """Each (unpadded, padded) plan pair on the card, same state and
+    gradients: bits, nnz, EF rows and model bit for bit."""
+    rng = np.random.default_rng(SEED + 60)
+    k, d = sim.k, sim.d
+    grads = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32)
+                             * np.float32(0.01)).cuda()
+    state = sim.init()._replace(ef=torch.from_numpy(
+        rng.standard_normal((k, d), dtype=np.float32)
+        * np.float32(1e-3)).cuda())
+    for plain, padded in pairs:
+        (s1, l1), (s2, l2) = (sim.aggregate_step(state, p, grads)
+                              for p in (plain, padded))
+        if not all(bitwise_equal(u, v) for u, v in (
+                (s1.flat_w, s2.flat_w), (s1.ef, s2.ef),
+                (l1.stats[0].bits, l2.stats[0].bits),
+                (l1.stats[0].nnz_out, l2.stats[0].nnz_out))):
+            raise SystemExit(f"FAIL {label}: plan {plain.shape} and the same "
+                             f"plan padded to {padded.shape} differ")
+    log(f"[tree] {label}: padded = unpadded on the card, bit for bit, for "
+        + ", ".join(f"{a.shape} -> {b.shape}" for a, b in pairs))
+
+
+def tree_path(level, data) -> dict:
+    from repro_torch.agg import TopologySchedule, compile_plan
+    from repro_torch.core import comm_cost as cc
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.fed import Simulator
+    from repro_torch.fed.topology import FailureSchedule, TreeTopology
+    from repro_torch.topo import walker_delta
+
+    pc, fed, test = data
+    k = pc.num_clients
+    g = walker_delta(**WALKER)
+    if g.num_clients != k:
+        raise SystemExit(f"FAIL the Walker shell has {g.num_clients} "
+                         f"clients, the paper {k}")
+    kw = dict(q=pc.q, q_global=pc.q_global, q_local=pc.q_local)
+    topo = TreeTopology(g, "widest")
+    fails = FailureSchedule(k, FAILURES)
+    sched = TopologySchedule.from_link_events(g, LINK_EVENTS, rounds=ROUNDS,
+                                              routing="widest")
+    sia = AggConfig(kind=AggKind.SIA, **kw)
+    budget_plan = topo.plan(bandwidth_aware=True, cfg=sia)
+    budgets = TopologySchedule(plans=(budget_plan,), round_index=(0,))
+    # (label, kind, tree_topology, run() keywords, the plan of round r)
+    runs = [
+        ("cl_sia failure", AggKind.CL_SIA, topo,
+         dict(failure_schedule=fails),
+         lambda r: topo.plan(dead=tuple(fails.dead_at(r)))),
+        ("sia failure", AggKind.SIA, topo, dict(failure_schedule=fails),
+         lambda r: topo.plan(dead=tuple(fails.dead_at(r)))),
+        ("cl_sia links", AggKind.CL_SIA, None,
+         dict(topology_schedule=sched), sched.plan_at),
+        ("sia budgets", AggKind.SIA, None, dict(topology_schedule=budgets),
+         budgets.plan_at),
+    ]
+    shapes = {label: sorted({plan_of(r).shape for r in range(ROUNDS)})
+              for label, _, _, _, plan_of in runs}
+    log(f"[tree] walker_delta(4, 7, gateways=(1, 15)), widest-path: plans "
+        f"{shapes}; q_budget {budget_plan.q_budget.tolist()}")
+    sims = {label: Simulator(pc, AggConfig(kind=kind, **kw), fed,
+                             tree_topology=tt, device="cuda")
+            for label, kind, tt, _, _ in runs}
+    chain = Simulator(pc, AggConfig(kind=AggKind.CL_SIA, **kw), fed,
+                      device="cuda")
+    t0 = time.perf_counter()
+    for label, _, _, rkw, _ in runs:
+        sims[label].run(2, seed=SEED, **rkw)
+    chain.run(1, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"[tree] warm-up: {time.perf_counter() - t0:.1f} s")
+
+    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS[:3]]
+    level.reset_launch_counts()
+    torch.cuda.synchronize()
+    results, per_round = {}, {}
+    for label, kind, _, rkw, plan_of in runs:
+        before = [fn.launches for fn in level.KERNELS[:3]]
+        t0 = time.perf_counter()
+        out = sims[label].run(ROUNDS, seed=SEED, test_x=test.x,
+                              test_y=test.y, eval_every=ROUNDS, **rkw)
+        torch.cuda.synchronize()
+        per_round[label] = 1e3 * (time.perf_counter() - t0) / ROUNDS
+        grown = {n: fn.launches - b for n, fn, b in
+                 zip(names, level.KERNELS[:3], before)}
+        levels = sum(plan_of(r).shape[0] for r in range(ROUNDS))
+        fused = kind == AggKind.CL_SIA
+        want = {"cl_fuse_level": levels if fused else 0,
+                "sparsify_ef_level": 0 if fused else levels,
+                "chain_accum_level": 0 if fused else levels}
+        if grown != want:
+            raise SystemExit(f"FAIL {label}: level-kernel launches {grown}, "
+                             f"predicted {want} (one per level)")
+        results[label] = out
+        log(f"[tree] {label:15s}: loss {out['loss'][0]:.4f} -> "
+            f"{out['loss'][-1]:.4f}, acc {out['accuracy'][-1][1]:.3f}, "
+            f"bits/round {np.mean(out['bits']):.0f}, "
+            f"{per_round[label]:.2f} ms/round (host clock, synchronized); "
+            f"level-kernel launches {grown} = "
+            f"{levels / ROUNDS:.1f} per round (predicted)")
+    launches = {n: fn.launches for n, fn in zip(names, level.KERNELS[:3])}
+    t0 = time.perf_counter()
+    chain_out = chain.run(ROUNDS, seed=SEED)
+    torch.cuda.synchronize()
+    chain_ms = 1e3 * (time.perf_counter() - t0) / ROUNDS
+    log(f"[tree] ms per round, same process: chain cl_sia {chain_ms:.2f}; "
+        + ", ".join(f"{lb} {ms:.2f}" for lb, ms in per_round.items())
+        + f"; launches over the tree runs {launches}")
+
+    for label, out in results.items():
+        if not all(math.isfinite(v) for v in out["loss"]):
+            raise SystemExit(f"FAIL {label}: loss not finite")
+        if not out["loss"][-1] < out["loss"][0]:
+            raise SystemExit(f"FAIL {label}: loss did not fall "
+                             f"({out['loss'][0]} -> {out['loss'][-1]})")
+    expect = cc.cl_sia_bits(k, pc.d, pc.q)
+    dead_rounds = [r for r in range(ROUNDS) if fails.dead_at(r)]
+    want = [cc.cl_sia_bits_tree(k - len(fails.dead_at(r)), pc.d, pc.q)
+            for r in range(ROUNDS)]
+    if results["cl_sia failure"]["bits"] != want:
+        raise SystemExit(f"FAIL cl_sia failure bits "
+                         f"{results['cl_sia failure']['bits']}, closed form "
+                         f"over the live uplinks {want}")
+    if any(b != expect for b in results["cl_sia links"]["bits"]):
+        raise SystemExit(f"FAIL cl_sia links bits differ from the closed "
+                         f"form {expect}")
+    if chain_out["bits"] != results["cl_sia links"]["bits"]:
+        raise SystemExit("FAIL CL-SIA bits differ between chain and tree")
+    uniform = results["sia failure"]["bits"]
+    log(f"[tree] CL-SIA bits = closed form {expect:.0f} in every round with "
+        f"all clients alive (failure run outside rounds {dead_rounds[0]}-"
+        f"{dead_rounds[-1]}, every round of the link schedule), and "
+        f"{want[dead_rounds[0]]:.0f} (K - 1 uplinks) while client 0 is "
+        f"dead; SIA budgets {np.mean(results['sia budgets']['bits']):.0f} "
+        f"bits/round vs uniform on the same tree "
+        f"{np.mean(uniform[:dead_rounds[0]] + uniform[dead_rounds[-1] + 1:]):.0f}")
+
+    for label, kind, _, _, plan_of in runs:
+        tree_card_matches_cpu(
+            sims[label], Simulator(pc, AggConfig(kind=kind, **kw), fed,
+                                   device="cpu"),
+            [plan_of(r) for r in TREE_CMP_ROUNDS[label.split()[1]]], label)
+
+    # the schedule's padded plans beside their routed trees compiled alone,
+    # and the dead-relay plan padded to the largest shape of the run
+    pairs = [(compile_plan(sched.raw_at(r)), sched.plan_at(r))
+             for r in (0, min(LINK_EVENTS))]
+    dead = topo.plan(dead=(0,))
+    pairs.append((dead, dead.pad((max(dead.shape[0], sched.shape[0]),
+                                  max(dead.shape[1], sched.shape[1])))))
+    for label in ("cl_sia failure", "sia failure"):
+        padded_equals_unpadded(sims[label], pairs, label.split()[0])
+    if not any(float(b.slot_mask.min()) == 0.0 for _, b in pairs):
+        raise SystemExit("FAIL no padded lane reached the kernels")
+
+    profile_rounds(sims["cl_sia failure"], "cl_sia walker tree", None)
+    profile_rounds(chain, "cl_sia chain (phase 6)", None)
+    return launches
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -1192,6 +1413,8 @@ def main() -> int:
     launches = main_path(level, data)
     launches.update(threshold_path(level, data))
     launches.update(scalar_path(level, scalar))
+    for name, n in tree_path(level, data).items():
+        launches[name] += n
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",

@@ -1,4 +1,9 @@
+from repro_torch.agg.aggregator import (AggState, Aggregator, RoundOut,
+                                        flat_dim)
 from repro_torch.agg.plan import (AggPlan, RoundResult, as_tree,
-                                  compile_plan, execute)
+                                  bandwidth_budgets, compile_plan, execute)
+from repro_torch.agg.schedule import TopologySchedule, common_shape
 
-__all__ = ["AggPlan", "RoundResult", "as_tree", "compile_plan", "execute"]
+__all__ = ["AggPlan", "RoundResult", "as_tree", "bandwidth_budgets",
+           "compile_plan", "execute", "TopologySchedule", "common_shape",
+           "Aggregator", "AggState", "RoundOut", "flat_dim"]

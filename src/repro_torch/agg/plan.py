@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.algorithms import AggConfig, HopStats, level_step
+from repro_torch.core.algorithms import (AggConfig, AggKind, HopStats,
+                                         level_step)
 from repro_torch.topo.tree import PS, AggTree, build_schedule, path_tree
 
 Tensor = torch.Tensor
@@ -108,12 +109,23 @@ def as_tree(topology: Topology, num_clients: Optional[int] = None) -> AggTree:
 
     * ``int K`` — the paper's identity chain over K clients;
     * :class:`AggTree` — used as-is;
+    * anything with a ``.tree()`` method (``repro_torch.fed.topology``'s
+      ``TreeTopology``) — its routed tree;
+    * a ``ConstellationGraph`` — routed by the shortest-path policy;
+    * anything with an ``.order()`` method (``ChainTopology``) — its chain;
     * 1-D int sequence — a (healed/permuted) chain visiting order.
     """
     if isinstance(topology, AggTree):
         return topology
     if isinstance(topology, (int, np.integer)):
         return path_tree(int(topology))
+    if hasattr(topology, "tree") and callable(topology.tree):
+        return topology.tree()
+    if hasattr(topology, "client_nodes"):         # ConstellationGraph
+        from repro_torch.topo.routing import shortest_path_tree
+        return shortest_path_tree(topology)
+    if hasattr(topology, "order") and callable(topology.order):
+        return _order_to_tree(np.asarray(topology.order()), num_clients)
     return _order_to_tree(np.asarray(topology), num_clients)
 
 
@@ -144,6 +156,33 @@ def compile_plan(topology: Topology, *,
     if pad_to is not None:
         plan = plan.pad(tuple(pad_to))
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Bandwidth-aware budgets
+# ---------------------------------------------------------------------------
+
+def bandwidth_budgets(cfg: AggConfig, tree: AggTree, *,
+                      floor: int = 1) -> np.ndarray:
+    """Per-client local Top-Q budgets scaled by uplink bandwidth.
+
+    ``q_k = max(floor, round(q_base · bw_k / max bw))`` in float64, where
+    ``q_base`` is the algorithm's local budget (``q``, or ``q_local`` for
+    the TC variants). Narrow uplinks transmit fewer nonzeros; zero-bandwidth
+    stubs get the floor (they never transmit anyway).
+    """
+    if tree.uplink_bw_bps is None:
+        raise ValueError("tree has no per-link bandwidth (built by hand?) — "
+                         "route it from a ConstellationGraph")
+    bw = np.asarray(tree.uplink_bw_bps, np.float64)
+    base = (cfg.q_local if cfg.kind in (AggKind.TC_SIA, AggKind.CL_TC_SIA)
+            else cfg.q)
+    pos = bw[bw > 0]
+    if pos.size == 0:
+        return np.full((tree.num_clients,), floor, np.int32)
+    scaled = np.round(base * bw / pos.max())
+    return np.where(bw > 0, np.maximum(floor, scaled),
+                    floor).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

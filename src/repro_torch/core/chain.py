@@ -52,3 +52,37 @@ def run_chain(
     stats = HopStats(*(torch.stack(leaf) for leaf in zip(*hop_stats)))
     return ChainResult(aggregate=gamma, e_new=torch.stack(e_rows),
                        stats=stats)
+
+
+def run_chain_with_topology(
+    cfg: AggConfig,
+    grads: Tensor,
+    e: Tensor,
+    weights: Tensor,
+    order,                         # [K] int — the clients' visiting order
+    *,
+    global_mask: Optional[Tensor] = None,
+    participate: Optional[Tensor] = None,
+) -> ChainResult:
+    """Chain aggregation over an arbitrary (healed) node ordering.
+
+    Client ``order[j]`` takes chain row j: ``order[0]`` is the client next
+    to the PS and ``order[-1]`` the far end, where the hops start. This is
+    the reference's code (its docstring's "farthest first" describes the
+    walk, not the index), and the same order ``compile_plan`` takes, so
+    ``execute(compile_plan(order))`` gives the same bits. EF rows and stats
+    come back in *client* index order.
+    """
+    k = grads.shape[0]
+    perm = torch.as_tensor(order, dtype=torch.int64, device=grads.device)
+    if perm.shape != (k,):
+        raise ValueError(f"order must be [K={k}]; got {tuple(perm.shape)}")
+    inv = torch.argsort(perm)
+    res = run_chain(cfg, grads[perm], e[perm], weights[perm],
+                    global_mask=global_mask,
+                    participate=None if participate is None
+                    else participate[perm])
+    stats = HopStats(*(s[inv] if s.ndim >= 1 and s.shape[0] == k else s
+                       for s in res.stats))
+    return ChainResult(aggregate=res.aggregate, e_new=res.e_new[inv],
+                       stats=stats)

@@ -1,4 +1,8 @@
 from repro_torch.fed.simulator import (LogisticRegression, RoundLog,
                                        SimState, Simulator)
+from repro_torch.fed.topology import (ChainTopology, FailureSchedule,
+                                      LatencyModel, TreeTopology)
 
-__all__ = ["LogisticRegression", "RoundLog", "SimState", "Simulator"]
+__all__ = ["LogisticRegression", "RoundLog", "SimState", "Simulator",
+           "ChainTopology", "FailureSchedule", "LatencyModel",
+           "TreeTopology"]

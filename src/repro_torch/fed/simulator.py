@@ -7,9 +7,11 @@ Per round:
   1. every client takes one SGD step on its local minibatch → effective
      gradient g_k = −lr·∇_k;
   2. the round's aggregation topology — the chain, a permuted chain via
-     ``order_fn``, or any compiled :class:`~repro_torch.agg.AggPlan` —
-     aggregates {D_k·g_k} with the configured Algorithm 1–5 (error
-     feedback persists across rounds);
+     ``order_fn``, a routed constellation tree (``tree_topology``, re-routed
+     around the dead relays of a ``failure_schedule``), a
+     ``topology_schedule``, or any compiled
+     :class:`~repro_torch.agg.AggPlan` — aggregates {D_k·g_k} with the
+     configured Algorithm 1–5 (error feedback persists across rounds);
   3. the PS applies w ← w + γ_1 / D.
 
 Rounds run on ``cuda`` unless the simulator is built with another
@@ -29,11 +31,16 @@ import torch
 from torch import nn
 
 from repro_torch.agg.plan import AggPlan, Topology, compile_plan, execute
+from repro_torch.agg.schedule import TopologySchedule
 from repro_torch.configs.paper_mnist import PaperConfig
 from repro_torch.core import tcs as tcs_mod
-from repro_torch.core.algorithms import AggConfig, AggKind, HopStats
+from repro_torch.core.algorithms import AggConfig, AggKind
 from repro_torch.data.federated import FederatedData, client_minibatch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fed.topology import FailureSchedule, TreeTopology
+# re-exported: this module held them before repro_torch.runtime.fault
+from repro_torch.runtime.fault import (banked_mass,  # noqa: F401
+                                       dead_banked_mass)
 
 Tensor = torch.Tensor
 
@@ -83,17 +90,6 @@ def unflatten_lr(flat: Tensor, pc: PaperConfig) -> dict:
             "b": flat[wd:wd + pc.num_classes]}
 
 
-def banked_mass(ef: Tensor) -> Tensor:
-    """Per-client ‖e_k‖₁ — the loss bound if client k dies now."""
-    return ef.abs().sum(dim=-1)
-
-
-def dead_banked_mass(ef: Tensor, participation: Tensor) -> Tensor:
-    """Σ over non-participants of ‖e_k‖₁ (the round's ‖e_dead‖)."""
-    dead = 1.0 - torch.clamp(participation, 0.0, 1.0)
-    return (dead * banked_mass(ef)).sum()
-
-
 # ---------------------------------------------------------------------------
 # Simulator
 # ---------------------------------------------------------------------------
@@ -106,29 +102,48 @@ class SimState(NamedTuple):
 
 
 class RoundLog(NamedTuple):
-    """Per-round telemetry; leaves stay on the device until :meth:`run`
-    reads them after the last round."""
+    """Per-round telemetry, with the reference's fields in its order.
+
+    Leaves stay on the device until :meth:`run` reads them after the last
+    round. ``stats`` holds the per-stage
+    :class:`~repro_torch.core.algorithms.HopStats` (stage 0 = the client
+    forest, leaves [K] in client index order; flat plans have that one
+    stage), and ``stage_ef_mass`` the banked mass of each upper EF tier of a
+    nested plan (none for flat plans).
+    """
 
     loss: Tensor            # full-train-set loss after the update
-    stats: HopStats         # per-client §V HopStats, leaves [K]
+    stats: tuple            # per-stage HopStats (§V exact per-hop bits)
     participation: Tensor   # [K] effective mask (participate ∧ alive)
     ef_mass: Tensor         # [K] ‖e_k‖₁ banked after this round
+    stage_ef_mass: tuple    # banked mass per upper EF tier ([K_s] each)
     ef_dead_mass: Tensor    # Σ over non-participants of ‖e_k‖₁
 
 
 @dataclasses.dataclass
 class Simulator:
-    """Multi-hop FL simulator over flat aggregation plans (the paper's
-    chain by default)."""
+    """Multi-hop FL simulator over flat aggregation plans.
+
+    The default topology is the paper's identity chain. ``tree_topology``
+    routes a constellation graph instead; relay deaths from a
+    ``failure_schedule`` passed to :meth:`run` re-route the tree (re-rooting
+    the severed subtree through surviving ISLs).
+    """
 
     pc: PaperConfig
     agg: AggConfig
     fed: FederatedData
     local_lr: float = 0.1
+    tree_topology: Optional[TreeTopology] = None
     device: DeviceLike = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if (self.tree_topology is not None
+                and self.tree_topology.num_clients != self.fed.num_clients):
+            raise ValueError(
+                f"tree topology has {self.tree_topology.num_clients} "
+                f"clients, data has {self.fed.num_clients}")
         self.fed = FederatedData(x=self.fed.x.to(self.device),
                                  y=self.fed.y.to(self.device))
         self.k = self.fed.num_clients
@@ -198,43 +213,84 @@ class Simulator:
             loss=lr_loss(unflatten_lr(flat_new, pc),
                          self.fed.x.reshape(-1, pc.input_dim),
                          self.fed.y.reshape(-1)),
-            stats=res.stats, participation=part,
-            ef_mass=banked_mass(res.e_new),
+            stats=(res.stats,), participation=part,
+            ef_mass=banked_mass(res.e_new), stage_ef_mass=(),
             ef_dead_mass=dead_banked_mass(res.e_new, part))
         return new_state, log
 
     def run(self, rounds: int, *, seed: int = 0, eval_every: int = 10,
             test_x: Optional[Tensor] = None, test_y: Optional[Tensor] = None,
             participate_fn: Optional[Callable] = None,
+            failure_schedule: Optional[FailureSchedule] = None,
             order_fn: Optional[Callable] = None,
+            topology_schedule: Optional[TopologySchedule] = None,
             topology: Optional[Topology] = None) -> dict:
         """Train for ``rounds`` → dict of curves: ``loss``, ``bits`` and
-        ``nnz`` per round, ``accuracy`` as (round, acc) pairs every
-        ``eval_every`` rounds and at the last, plus the final ``state``.
+        ``nnz`` per round (summed over the stages), ``accuracy`` as
+        (round, acc) pairs every ``eval_every`` rounds and at the last,
+        plus the final ``state``.
 
         ``participate_fn(r, state) -> [K]`` gives each round's straggler
-        mask. The aggregation topology is the paper's chain, or the fixed
-        ``topology`` (anything :func:`repro_torch.agg.compile_plan` takes,
-        e.g. a ``star_tree``), or per round ``order_fn(r, state) -> [K]``, a
-        permuted chain visiting order (compiled once per distinct order).
+        mask. Per-round topology sources (mutually exclusive, as in the
+        reference):
+
+        * ``failure_schedule`` (needs ``tree_topology``): relay deaths
+          re-route the aggregation tree around the dead node, which is
+          parked at the PS as an unreachable stub (``plan.alive`` zeros its
+          participation); its banked EF mass transmits after recovery;
+        * ``order_fn(r, state) -> [K]``: a permuted chain visiting order,
+          compiled once per distinct order;
+        * ``topology_schedule``: a :class:`~repro_torch.agg.TopologySchedule`
+          whose plans share one padded ``(L, W)``;
+        * ``topology``: one fixed topology (anything
+          :func:`repro_torch.agg.compile_plan` takes, e.g. a ``star_tree``)
+          — the port's own shorthand, taken alone.
+
+        With none of them the round runs on ``tree_topology``'s tree, or on
+        the paper's chain. Each distinct topology compiles once, at its own
+        ``(L, W)``: the port has no trace to keep, so nothing is re-padded.
         Nothing is read back from the device until the last round has been
         issued.
         """
-        if topology is not None and order_fn is not None:
-            raise ValueError("pass either topology or order_fn, not both")
+        topo = self.tree_topology
+        if topology is not None and (
+                topo is not None or failure_schedule is not None
+                or order_fn is not None or topology_schedule is not None):
+            raise ValueError("topology is a fixed topology, taken alone: "
+                             "not with tree_topology, failure_schedule, "
+                             "order_fn or topology_schedule")
+        if failure_schedule is not None and topo is None:
+            raise ValueError("failure_schedule needs tree_topology (chain "
+                             "failures go through participate_fn + order_fn)")
+        if order_fn is not None and (topo is not None
+                                     or topology_schedule is not None):
+            raise ValueError("order_fn is a chain-mode knob; trees, nested "
+                             "plans and schedules carry their own topology")
+        if topology_schedule is not None and topo is not None:
+            raise ValueError("pass either tree_topology/nested_topology or "
+                             "topology_schedule, not both")
         gen = torch.Generator().manual_seed(seed)
         state = self.init()
-        fixed = compile_plan(self.k if topology is None else topology,
-                             num_clients=self.k)
         plans: dict = {}
 
-        def plan_for(r: int, state: SimState) -> AggPlan:
-            if order_fn is None:
-                return fixed
-            key = tuple(int(i) for i in order_fn(r, state))
+        def cached(key, build: Callable[[], Topology]) -> AggPlan:
             if key not in plans:
-                plans[key] = compile_plan(list(key), num_clients=self.k)
+                plans[key] = compile_plan(build(), num_clients=self.k)
             return plans[key]
+
+        def plan_for(r: int, state: SimState) -> AggPlan:
+            if topology_schedule is not None:
+                return topology_schedule.plan_at(r)
+            if topology is not None:
+                return cached(("fixed",), lambda: topology)
+            if topo is not None:
+                dead = (tuple(failure_schedule.dead_at(r))
+                        if failure_schedule is not None else ())
+                return cached(("tree", dead), lambda: topo.tree(dead=dead))
+            if order_fn is not None:
+                order = tuple(int(i) for i in order_fn(r, state))
+                return cached(("order", order), lambda: list(order))
+            return cached(("chain",), lambda: self.k)
 
         logs, accs = [], []
         for r in range(rounds):
@@ -253,6 +309,8 @@ class Simulator:
                                             test_y.to(self.device))))
         return {"state": state,
                 "loss": [float(log.loss) for log in logs],
-                "bits": [float(log.stats.bits.sum()) for log in logs],
-                "nnz": [float(log.stats.nnz_out.sum()) for log in logs],
+                "bits": [float(sum(s.bits.sum() for s in log.stats))
+                         for log in logs],
+                "nnz": [float(sum(s.nnz_out.sum() for s in log.stats))
+                        for log in logs],
                 "accuracy": [(r, float(a)) for r, a in accs]}

@@ -1,0 +1,143 @@
+"""The port's paper-figure scripts and examples, on the CPU at small K.
+
+Each ``benchmarks/torch_*.py`` figure twin and ``examples/torch_*.py``
+runs with ``--device cpu``, fewer clients and fewer rounds, and its rows
+are held to the paper's claims as ``tests/test_e2e_fedsim.py`` holds the
+simulator: the Fig 2a ordering, CL-SIA's bits equal to the §V closed form
+(on every topology, and on the healed tree while a relay is down), and
+CL-SIA's normalized efficiency equal to K.
+"""
+
+import importlib
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import PAPER
+from repro_torch.core import comm_cost as cc
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+D, Q = PAPER.d, PAPER.q
+
+
+def _load(folder: str, name: str):
+    path = str(REPO / folder)
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _rows(lines, prefix):
+    return [ln.split(",") for ln in lines if ln.startswith(prefix)]
+
+
+def test_fig2a_ordering_and_closed_form(capsys):
+    lines = _load("benchmarks", "torch_fig2a_comm_cost").main(
+        ["--device", "cpu", "--ks", "4", "10", "--rounds", "12"])
+    assert "# device: cpu" in capsys.readouterr().out
+    bits = {(int(k), name): float(v) for _, k, name, v in
+            _rows(lines, "fig2a,") if k != "K"}
+    for k in (4, 10):
+        assert bits[(k, "CL-SIA")] == cc.cl_sia_bits(k, D, Q)
+        assert bits[(k, "IA (dense)")] == cc.dense_ia_bits(k, D)
+    b = {name: v for (k, name), v in bits.items() if k == 10}
+    assert b["CL-TC-SIA"] < b["CL-SIA"] < b["TC-SIA"] < b["SIA"]
+    assert b["SIA"] == pytest.approx(b["RE-SIA"], rel=0.15)
+    assert b["SIA"] < b["routing (sparse)"] < b["IA (dense)"]
+    assert lines[-1].endswith("(OK)")
+
+
+def test_fig2b_efficiency():
+    lines = _load("benchmarks", "torch_fig2b_efficiency").main(
+        ["--device", "cpu", "--ks", "8", "--rounds", "12"])
+    eff = {name: float(v) for _, k, name, v in _rows(lines, "fig2b,8,")}
+    assert eff["CL-SIA"] == pytest.approx(8, rel=1e-6)
+    assert eff["SIA"] > 1.5 * 8
+    assert eff["routing"] == (8 * 8 + 8) / 2
+    assert lines[-1].startswith("# CL-SIA normalized/K = 1.000")
+
+
+def test_fig3_convergence():
+    lines = _load("benchmarks", "torch_fig3_convergence").main(
+        ["--device", "cpu", "--k", "6", "--rounds", "40",
+         "--eval-every", "13"])
+    acc = {}
+    for _, name, r, a in _rows(lines, "fig3,")[1:]:
+        acc.setdefault(name, []).append((int(r), float(a)))
+    assert set(acc) == {"SIA", "RE-SIA", "CL-SIA", "TC-SIA", "CL-TC-SIA"}
+    for name, curve in acc.items():
+        assert [r for r, _ in curve] == [0, 13, 26, 39]
+        assert curve[-1][1] > curve[0][1], name
+    assert acc["SIA"][-1][1] > 0.9 and acc["CL-SIA"][-1][1] > 0.9
+
+
+def test_fig4_equal_bandwidth():
+    lines = _load("benchmarks", "torch_fig4_equal_bandwidth").main(
+        ["--device", "cpu", "--k", "4", "--rounds", "20",
+         "--eval-every", "19"])
+    assert lines[0].endswith(f"target_bits={cc.cl_sia_bits(4, D, Q):.0f}")
+    qs = {name: int(q) for _, name, q, _, _ in _rows(lines, "fig4,")[1:]}
+    assert qs["CL-SIA"] == Q
+    # SIA's support grows along the chain: at CL-SIA's bits its Q is lower
+    assert all(1 <= q < D for q in qs.values())
+    assert qs["SIA"] < Q
+    finals = [float(a) for _, _, _, r, a in _rows(lines, "fig4,")[1:]
+              if r == "19"]
+    assert len(finals) == 5 and all(0.0 <= a <= 1.0 for a in finals)
+
+
+def test_fig_tree_topologies():
+    lines = _load("benchmarks", "torch_fig_tree_topologies").main(
+        ["--device", "cpu", "--rounds", "6"])
+    k = 12
+    cl = [float(v) for _, _, alg, v, _ in _rows(lines, "tree,")
+          if alg == "CL-SIA"]
+    assert len(cl) == 6 and set(cl) == {cc.cl_sia_bits_tree(k, D, Q)}
+    dense = [float(v) for _, _, alg, v, _ in _rows(lines, "tree,")
+             if alg == "IA (dense)"]
+    assert set(dense) == {cc.dense_ia_bits_tree(k, D)}
+    crit = {t: float(v) for _, t, alg, v, _ in _rows(lines, "tree,")
+            if alg == "CL-SIA critical-path ms"}
+    assert crit["walker-delta-3x4"] < crit["chain-12"]
+    sched = _rows(lines, "schedule,")
+    assert sched[0][3] == "6 plans"
+    assert {float(r[3]) for r in sched[1:]} == {cc.cl_sia_bits_tree(k, D, Q)}
+    bw = {r[2]: float(r[3]) for r in _rows(lines, "bw_budget,")}
+    assert bw["bw-scaled"] < bw["uniform"] == cc.cl_sia_bits(k, D, Q)
+
+
+def test_quickstart(capsys):
+    res = _load("examples", "torch_quickstart").main(
+        ["--device", "cpu", "--k", "6", "--rounds", "30"])
+    assert "device cpu" in capsys.readouterr().out
+    assert res["cl_sia"][1] == cc.cl_sia_bits(6, D, Q)
+    assert res["dense_ia"][1] == cc.dense_ia_bits(6, D)
+    assert res["sia"][0] > 0.9 and res["cl_sia"][0] > 0.9
+
+
+def test_constellation_tree_example():
+    out = _load("examples", "torch_constellation_tree").main(
+        ["--device", "cpu", "--rounds", "30"])
+    live = [11 if 10 <= r < 20 else 12 for r in range(30)]
+    assert out["bits"] == [cc.cl_sia_bits_tree(n, D, Q) for n in live]
+    assert out["accuracy"][-1][1] > 0.9
+
+
+def test_multihop_satellite_example():
+    out = _load("examples", "torch_multihop_satellite").main(
+        ["--device", "cpu", "--rounds", "30"])
+    assert all(b <= cc.cl_sia_bits(12, D, Q) for b in out["bits"])
+    assert out["accuracy"][-1][1] > 0.9
+
+
+def test_time_varying_topology_example():
+    out = _load("examples", "torch_time_varying_topology").main(
+        ["--device", "cpu", "--rounds", "30"])
+    sched = out["schedule"]
+    assert len(sched.plans) == 2 and len({p.shape for p in sched.plans}) == 1
+    assert set(out["bits"]) == {cc.cl_sia_bits_tree(12, D, Q)}
+    assert out["accuracy"][-1][1] > 0.9

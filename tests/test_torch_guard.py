@@ -39,8 +39,16 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
+def _scripts():
+    """The port's figure twins and examples."""
+    return (sorted((REPO / "benchmarks").glob("torch_*.py"))
+            + sorted((REPO / "examples").glob("torch_*.py")))
+
+
 def test_port_and_chip_smoke_never_import_jax_or_the_reference():
-    files = [p for _, p in _modules()] + [REPO / "chip_smoke.py"]
+    files = ([p for _, p in _modules()] + [REPO / "chip_smoke.py"]
+             + _scripts())
+    assert len(_scripts()) >= 10
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path} imports {bad}"
@@ -61,6 +69,25 @@ def test_importing_every_port_module_loads_no_jax():
     assert proc.returncode == 0 and "PASS" in proc.stdout, proc.stderr
 
 
+def test_importing_the_scripts_loads_no_jax():
+    """Each figure twin and example imports (its ``main`` not run) without
+    JAX or the JAX package in the process."""
+    code = ("import importlib.util, sys\n"
+            f"for path in {[str(p) for p in _scripts()]!r}:\n"
+            "    sys.path.insert(0, path.rsplit('/', 1)[0])\n"
+            "    spec = importlib.util.spec_from_file_location('m', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('PASS')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "PASS" in proc.stdout, proc.stderr
+
+
 def _fed(k=3):
     return FederatedData(x=torch.zeros(k, 4, PAPER.input_dim),
                          y=torch.zeros(k, 4, dtype=torch.int64))
@@ -73,6 +100,26 @@ def test_simulator_without_a_device_raises_where_there_is_no_card():
         Simulator(PAPER, AggConfig(), _fed())
     sim = Simulator(PAPER, AggConfig(), _fed(), device="cpu")
     assert sim.init().flat_w.device.type == "cpu"
+
+
+def test_tree_simulator_and_aggregator_raise_where_there_is_no_card():
+    from repro_torch.agg import Aggregator
+    from repro_torch.fed.topology import TreeTopology
+    from repro_torch.topo import walker_delta
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    topo = TreeTopology(walker_delta(1, 3), "widest")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulator(PAPER, AggConfig(), _fed(), tree_topology=topo)
+    sim = Simulator(PAPER, AggConfig(), _fed(), tree_topology=topo,
+                    device="cpu")
+    assert sim.init().ef.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Aggregator(AggConfig(), 3, 7, topology=topo)
+    agg = Aggregator(AggConfig(kind="tc_sia"), 3, 7, topology=topo,
+                     device="cpu")
+    state = agg.init_state()
+    assert state.ef.device.type == state.tcs_prev.device.type == "cpu"
 
 
 def test_error_feedback_state_without_a_device_raises_without_a_card():
