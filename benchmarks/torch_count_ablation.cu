@@ -57,7 +57,7 @@ __device__ __forceinline__ void load_mag_fused(
   ld(g, i, un.cnt, vg);
   ld(e, i, un.cnt, ve);
   ld(gin, i, un.cnt, vi);
-  load_gmask(gm, kGmShared, t, un, vm);
+  load_gmask(gm, 0, t, un, vm);
   for (int k = 0; k < un.cnt; ++k) {
     float s = __fmaf_rn(wt, vg[k], ve[k]);
     s = __fmaf_rn(pw, s, vi[k]);
@@ -357,7 +357,7 @@ hist_new_ablation_kernel(present_hist::Operand op,
       for (int u = threadIdx.x; u < t.nunits; u += blockDim.x) {
         const Unit un = unit_at(t, u);
         float mag[4];
-        load_mag<kGmShared, true>(op, wt, pw, t, un, mag);
+        load_mag<kGmRows, true>(op, wt, pw, 0, t, un, mag);
         for (int k = 0; k < un.cnt; ++k) {
           const float m = mag[k];
           if (MODE == 0) {
@@ -574,7 +574,7 @@ template <int MODE>
 int hist_new_mode(const float* const* p, int branch, const int* seed_d2,
                   int* d2, int* f, unsigned* sink, int w_lanes, long long d,
                   int per_lane, cudaStream_t s) {
-  const present_hist::Operand op{p[0], p[1], p[2], p[3], p[4], p[5]};
+  const present_hist::Operand op{p[0], p[1], p[2], p[3], p[4], p[5], 1};
   const size_t smem = present_hist::hist_shared_smem(branch);
   const long long n_tiles = (d + kTile - 1) / kTile;
   auto kernel = hist_new_ablation_kernel<MODE>;

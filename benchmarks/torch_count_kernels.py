@@ -6,7 +6,10 @@ branch 64), ``count_ge_level`` (the same shapes; 64 shuffled taus per lane
 with ±inf, 0 and a tie, and at the large shape also a first scan round's
 64 evenly spaced candidates), ``count_ge`` (d = 2**26 + 125 and 7850,
 float32 and bfloat16, 64 shuffled taus with −1, 0, +inf and a tie) and
-``count_ge_fused`` (the same rows, γ_in on) with CUDA events over
+``count_ge_fused`` (the same rows, γ_in on), and at the large level shape
+``cl_fuse_level`` and ``chain_accum_level`` with the lane-shared mask and
+all four mask-taking level kernels with a cohort-shared ``[B, d]`` mask
+(B = 2 and 8), with CUDA events over
 back-to-back launches, on inputs made on the card from a seed. Needs a
 CUDA card and nvcc; run from the repository root:
 
@@ -52,6 +55,7 @@ PAPER_ROW = 7850
 BRANCH = 64
 SEED = 0
 AB_ROUNDS = 10     # rounds of old, new, new, old turns per case
+MASK_COHORTS = (2, 8)   # cohort-shared masks timed at the large shape
 
 
 def nvidia_smi() -> str:
@@ -146,8 +150,9 @@ def scan_taus(sp, x: torch.Tensor) -> torch.Tensor:
 
 def load_level(src: str, tag: str):
     """→ (module, library): the ``level`` module of the tree under SRC,
-    loaded under its own name (it imports no other module of its
-    package), with its kernels built."""
+    loaded under its own name, with its kernels built. (It may import the
+    package's plain versions, which come from the tree first on
+    ``sys.path``; they only check arguments there.)"""
     path = Path(src) / "repro_torch" / "kernels" / "level.py"
     spec = importlib.util.spec_from_file_location(f"level_{tag}", path)
     mod = importlib.util.module_from_spec(spec)
@@ -184,6 +189,35 @@ def row_count(lib, fused: bool, rows: dict, taus, d: int):
     return counts
 
 
+def masked_call(sp, ref, kernel: str, b: int):
+    """→ make(level, lib) → the call of ``kernel`` at the large shape with
+    a lane-shared [d] global mask (b = 0) or a cohort-shared [b, d] one;
+    the CL step without mask_in, the τ search with γ_in."""
+    w, d = LARGE_LEVEL
+    t = level_inputs(w, d, SEED + w)
+    tables = hist_tables(sp, ref, t)
+    kw = {}
+    if b:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + b)
+        t["gm"] = (torch.rand(b, d, generator=gen, device="cuda")
+                   < 0.1).float()
+        kw = dict(gmask_cohorts=b)
+    ones = torch.ones(w, device="cuda")
+    operand = (t["g"], t["e"], t["gin"], t["weight"], t["part"])
+    calls = {
+        "cl_fuse_level": lambda level: level.cl_fuse_level_cuda(
+            t["g"], t["e"], t["gin"], t["weight"], ones, t["part"], ones,
+            t["gm"], **kw),
+        "chain_accum_level": lambda level: level.chain_accum_level_cuda(
+            t["gin"], t["g"], ones, t["gm"], **kw),
+        "count_ge_fused_level": lambda level: level.count_ge_fused_level_cuda(
+            *operand, tables[0], t["gm"], include_gamma=True, **kw),
+        "hist_topq_level": lambda level: level.hist_topq_level_cuda(
+            *operand, tables, t["gm"], include_gamma=True, **kw),
+    }
+    return lambda level, lib: (lambda: calls[kernel](level))
+
+
 def cases(sp, ref):
     """(name, large, make) for every timed case; make(level, lib) → the
     call of that tree."""
@@ -212,6 +246,13 @@ def cases(sp, ref):
                 return lambda level, lib: (
                     lambda: level.count_ge_level_cuda(x, taus))
             yield f"count_ge_level/{name}", tag == "large", make
+    for b in (0,) + MASK_COHORTS:
+        kernels = ("cl_fuse_level", "chain_accum_level") + (
+            ("count_ge_fused_level", "hist_topq_level") if b else ())
+        for kernel in kernels:
+            yield (f"{kernel}/large/{f'cohort{b}' if b else 'shared'}",
+                   True, lambda kernel=kernel, b=b: masked_call(
+                       sp, ref, kernel, b))
     for tag, d in (("large", LARGE_ROW), ("paper", PAPER_ROW)):
         for dt in (torch.float32, torch.bfloat16):
             for fused in (False, True):
@@ -430,12 +471,12 @@ def ablate_hist(lib, level, sp, ref, result, sink, stream):
                 _check(rc)
             hist[f"present/{label}/{per_lane or 'resident'}"] = cuda_time_ms(
                 launch, 50)
-    # the present kernel through its C entry, as the wrapper calls it
-    gm_shared = 1
+    # the present kernel through its C entry, as the wrapper calls it: the
+    # lane-shared [d] mask is one row for all w lanes
 
     def entry():
         rc = lib.hist_topq_level_launch(
-            *ptrs[:3], *ptrs[4:6], ptrs[3], gm_shared, *ptrs[6:],
+            *ptrs[:3], *ptrs[4:6], ptrs[3], w, *ptrs[6:],
             d2.data_ptr(), f.data_ptr(), w, BRANCH, d, stream)
         _check(rc)
     hist["present/c_entry"] = cuda_time_ms(entry, 50)

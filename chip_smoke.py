@@ -25,7 +25,11 @@ Phases (any failure exits non-zero and prints no result):
    per τ-search kernel there), each output held bit for bit against the
    kernel's plain PyTorch version run on the CPU on the same inputs; then
    each kernel timed with CUDA events beside its plain version on the card
-   and its bound;
+   and its bound; the four kernels that take a global mask also in its
+   cohort-shared [B, d] form (``gmask_cohorts=B``) at the large shape with
+   B = 2 and 8 and at the paper's batched round (8 cohorts × 28 lanes,
+   d = 7850), held and timed the same way (the bound counts B·d mask
+   bytes);
 3. main path, exact Top-Q — the paper simulator (K = 28, d = 7850,
    ``kernel_mode="auto"``) on the card, after one warm-up round of each
    algorithm, for 20 rounds of each algorithm on the chain and of each
@@ -72,7 +76,21 @@ Phases (any failure exits non-zero and prints no result):
    must give the CPU's model, EF rows, bits and nnz bit for bit (loss to
    rtol 1e-4), and a padded plan must give the same round as the same plan
    unpadded; ms per round beside the chain round of the same run, and
-   torch.profiler's device-busy share of a tree round.
+   torch.profiler's device-busy share of a tree round;
+7. multi-tenant cohort rounds — ``Simulator.run_batched`` (K = 28,
+   d = 7850, B = 8 seeds, 10 rounds after a warm-up): TC-SIA and CL-TC-SIA
+   on the chain and the star, CL-TC-SIA on phase 6's Walker tree through
+   its relay failure, and TC-SIA under threshold Top-Q (scan and hist) on
+   the chain; level-kernel launches held to one per level of each round's
+   plan for all cohorts together (not B per level), every cohort equal to
+   the sequential ``run(seed)`` on the card bit for bit (model, EF rows,
+   bits, nnz), the loss falling in every cohort, three batched rounds on
+   the card fed the CPU's gradients equal to the CPU's bit for bit (four
+   of the runs), and a ``RoundScheduler`` fed a chain, a star, a Walker
+   tree and a K = 4 chain meeting no more input signatures than buckets;
+   then one batched round against B sequential rounds at B = 1, 2, 4, 8
+   (host clock), and torch.profiler's device ops and busy time of a
+   batched round.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -195,14 +213,16 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def kernel_bytes(name: str, w: int, d: int) -> int:
+def kernel_bytes(name: str, w: int, d: int, mask_rows: int = 1) -> int:
     """Bytes the timed variant must move: each input read once, each
-    output written once (per-lane scalars and counts included)."""
-    if name == "cl_fuse_level":        # g,e,γ_in,mask_in,gm[d] → γ,e′
-        return (6 * w * d + d) * 4 + 4 * w * 4 + 2 * w * 4
+    output written once (per-lane scalars and counts included); the global
+    mask is ``mask_rows`` rows of d (1: lane-shared, B: cohort-shared)."""
+    m = mask_rows * d
+    if name == "cl_fuse_level":        # g,e,γ_in,mask_in,gm → γ,e′
+        return (6 * w * d + m) * 4 + 4 * w * 4 + 2 * w * 4
     if name == "sparsify_ef_level":    # g,e,mask_in → ḡ,e′
         return 5 * w * d * 4 + 3 * w * 4 + w * 4
-    return (3 * w * d + d) * 4 + w * 4 + 2 * w * 4   # γ_in,ḡ,gm[d] → γ
+    return (3 * w * d + m) * 4 + w * 4 + 2 * w * 4   # γ_in,ḡ,gm → γ
 
 
 TIMED = {"cl_fuse_level": dict(gm="gm", mask=True, err=False),
@@ -349,15 +369,17 @@ def call_tau(fns, name: str, t: dict, opt: dict, aux: dict):
     return fns[name](*operand, aux["tables"], gm, include_gamma=opt["gamma"])
 
 
-def tau_cost(name: str, w: int, d: int, n: int) -> tuple:
+def tau_cost(name: str, w: int, d: int, n: int,
+             mask_rows: int = 1) -> tuple:
     """(bytes, f32 operations) the timed variant must spend: each input
     read once, each output written once; per element the operand's flops
     and the binary searches' compares (and candidate fmas), or for
-    ``count_ge_level`` the table lookup (|x|, its bucket, one compare)."""
+    ``count_ge_level`` the table lookup (|x|, its bucket, one compare).
+    The global mask is ``mask_rows`` rows of d."""
     search = math.ceil(math.log2(n + 1))
     if name == "count_ge_level":
         return (w * d + 2 * w * n) * 4, w * d * 3
-    operand = (3 * w * d + d + 2 * w) * 4          # g, e, γ_in, gm[d], w, p
+    operand = (3 * w * d + mask_rows * d + 2 * w) * 4   # g, e, γ_in, gm, w, p
     flops = 6 + search                              # 2 fma, 1−m, ·, |·|
     if name == "count_ge_fused_level":
         return operand + 2 * w * n * 4, w * d * flops
@@ -827,6 +849,119 @@ def threshold_path(level, data) -> dict:
             profile_rounds(sims[(AggKind.CL_SIA, impl)],
                            f"cl_sia threshold {impl} {topo_name}", topo)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (continued): the cohort-shared [B, d] global mask
+# ---------------------------------------------------------------------------
+
+# (W lanes, d, B cohorts): the large shape with 2 and 8 cohorts (B·d % 4 ≠
+# 0 for every cohort row b > 0), and the paper's batched round, 8 cohorts
+# of 28 lanes
+COHORT_SHAPES = [(LARGE[0], LARGE[1], 2), (LARGE[0], LARGE[1], 8),
+                 (8 * 28, 7850, 8)]
+COHORT_KERNELS = ("cl_fuse_level", "chain_accum_level",
+                  "count_ge_fused_level", "hist_topq_level")
+
+
+def call_cohort(fns, name: str, t: dict, b: int, tables):
+    """Kernel ``name`` (CUDA wrapper or plain version) with the cohort
+    mask ``t["gmc"]`` of ``b`` cohorts: CL with mask_in, the τ search with
+    γ_in (the CL-TC-SIA operand)."""
+    if name == "cl_fuse_level":
+        return fns[name](t["g"], t["e"], t["gin"], t["weight"], t["tau"],
+                         t["part"], t["valid"], t["gmc"], t["mask"],
+                         gmask_cohorts=b)
+    if name == "chain_accum_level":
+        return fns[name](t["gin"], t["g"], t["valid"], t["gmc"],
+                         gmask_cohorts=b)
+    operand = (t["g"], t["e"], t["gin"], t["weight"], t["part"])
+    if name == "count_ge_fused_level":
+        return (fns[name](*operand, tables[0], t["gmc"], include_gamma=True,
+                          gmask_cohorts=b),)
+    return fns[name](*operand, tables, t["gmc"], include_gamma=True,
+                     gmask_cohorts=b)
+
+
+def check_cohort_kernels(level, ref, sp, report: dict):
+    """The four kernels that take a global mask, in its cohort-shared
+    [B, d] form, at COHORT_SHAPES: bit for bit against their plain
+    versions on the CPU (a straggler, a ``valid == 0`` and a τ = +inf lane
+    among them), then timed beside their plain versions on the card; the
+    bound counts B·d mask bytes."""
+    cuda_fns = {n: getattr(level, n + "_cuda") for n in COHORT_KERNELS}
+    plain_fns = {n: getattr(ref, "ref_" + n) for n in COHORT_KERNELS}
+    dev = torch.device("cuda")
+    inputs = {}
+    for w, d, b in COHORT_SHAPES:
+        t0 = time.perf_counter()
+        if (w, d) not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            inputs[(w, d)] = {k: torch.from_numpy(v) for k, v in
+                              make_inputs(w, d, SEED + 40 + w).items()
+                              if k not in ("gm", "gmw")}
+        cpu = dict(inputs[(w, d)])
+        rng = np.random.default_rng(SEED + 50 + b)
+        cpu["gmc"] = torch.from_numpy(
+            (rng.random((b, d), dtype=np.float32) < 0.1).astype(np.float32))
+        op = ref.fused_operand(cpu["g"], cpu["e"], cpu["gin"], cpu["weight"],
+                               cpu["part"], cpu["gmc"], include_gamma=True,
+                               gmask_cohorts=b)
+        hi = torch.clamp(op.abs().amax(-1), min=1e-30) * sp._HI_SCALE
+        tables = sp._hist_tables(torch.zeros_like(hi), hi, BRANCH)
+        del op
+        gpu = {k: v.to(dev) for k, v in cpu.items()}
+        tables_gpu = tuple(u.to(dev) for u in tables)
+        for name in COHORT_KERNELS:
+            got = call_cohort(cuda_fns, name, gpu, b, tables_gpu)
+            torch.cuda.synchronize()
+            want = call_cohort(plain_fns, name, cpu, b, tables)
+            on_card = call_cohort(plain_fns, name, gpu, b, tables_gpu)
+            r = report[name]
+            for u, v, c in zip(want, got, on_card):
+                r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(u, v))
+                r["max_abs_err_plain_on_card"] = max(
+                    r["max_abs_err_plain_on_card"], max_abs_diff(c, v))
+                if not bitwise_equal(u, v):
+                    raise SystemExit(
+                        f"FAIL {name} cohort mask B={b} at W={w} d={d}: "
+                        f"kernel differs from its plain version on the CPU "
+                        f"(max |diff| {max_abs_diff(u, v)})")
+            r["checked"] += 1
+            r.setdefault("cohort_variants", []).append(
+                f"W={w} d={d} B={b}")
+            del got, want, on_card
+        log(f"[kernels] cohort mask W={w} d={d} B={b}: "
+            f"{', '.join(COHORT_KERNELS)} bitwise equal to the plain CPU "
+            f"versions ({time.perf_counter() - t0:.1f} s)")
+        gpu["valid"].fill_(1.0)
+        gpu["part"].fill_(1.0)
+        big = w * d > 10 ** 7
+        for name in COHORT_KERNELS:
+            ms = cuda_time_ms(lambda: call_cohort(cuda_fns, name, gpu, b,
+                                                  tables_gpu),
+                              20 if big else 200)
+            plain_ms = cuda_time_ms(lambda: call_cohort(
+                plain_fns, name, gpu, b, tables_gpu), 5 if big else 50)
+            if name in ("cl_fuse_level", "chain_accum_level"):
+                nbytes, ops_n = kernel_bytes(name, w, d, mask_rows=b), 0
+            else:
+                nbytes, ops_n = tau_cost(name, w, d, BRANCH, mask_rows=b)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops_n / F32_OPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            report[name]["shapes"].append(dict(
+                W=w, d=d, cohorts=b, mask_form="cohort", ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_share=bound_ms / ms))
+            log(f"[time] {name} cohort mask W={w} d={d} B={b}: kernel "
+                f"{ms:.4f} ms, plain on card {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of bound)")
+        del cpu, gpu, tables_gpu
+        torch.cuda.empty_cache()
+    inputs.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -1339,6 +1474,258 @@ def tree_path(level, data) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: multi-tenant cohort rounds
+# ---------------------------------------------------------------------------
+
+COHORT_SEEDS = tuple(SEED + i for i in range(8))   # B = 8 cohorts
+BATCHED_ROUNDS = 10           # the walker run re-routes at 2 and back at 8
+SCALING_COHORTS = (1, 2, 4, 8)
+SCALING_ROUNDS = 5
+# the runs compared card against CPU, and their rounds
+BATCHED_CMP = {"tc_sia star": (0, 1, 2), "cl_tc_sia walker": (1, 2, 3),
+               "tc_sia scan": (0, 1, 2), "tc_sia hist": (0, 1, 2)}
+
+
+def batched_runs(pc, k):
+    """(label, AggConfig keywords, Simulator keywords, run keywords, the
+    plan of round r, level-kernel launches per level) of phase 7."""
+    from repro_torch.agg import compile_plan
+    from repro_torch.core.algorithms import AggKind
+    from repro_torch.fed.topology import FailureSchedule, TreeTopology
+    from repro_torch.topo import star_tree, walker_delta
+
+    exact = dict(q=pc.q, q_global=pc.q_global, q_local=pc.q_local)
+    thr = dict(exact, topq_impl="threshold", hist_branch=BRANCH)
+    chain, star = compile_plan(k), compile_plan(star_tree(k))
+    topo = TreeTopology(walker_delta(**WALKER), "widest")
+    fails = FailureSchedule(k, FAILURES)
+    tc = dict(sparsify_ef_level=1, chain_accum_level=1)
+    tc_exact = dict(kind=AggKind.TC_SIA, **exact)
+    cl_tc = dict(kind=AggKind.CL_TC_SIA, **exact)
+    return [
+        ("tc_sia chain", tc_exact, {}, {}, lambda r: chain, tc),
+        ("tc_sia star", tc_exact, {}, dict(topology=star_tree(k)),
+         lambda r: star, tc),
+        ("cl_tc_sia chain", cl_tc, {}, {}, lambda r: chain,
+         dict(cl_fuse_level=1)),
+        ("cl_tc_sia star", cl_tc, {}, dict(topology=star_tree(k)),
+         lambda r: star, dict(cl_fuse_level=1)),
+        ("cl_tc_sia walker", cl_tc, dict(tree_topology=topo),
+         dict(failure_schedule=fails),
+         lambda r: topo.plan(dead=tuple(fails.dead_at(r))),
+         dict(cl_fuse_level=1)),
+        ("tc_sia scan", dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["scan"]),
+         {}, {}, lambda r: chain,
+         dict(tc, count_ge_fused_level=THRESHOLD["scan"]["hist_rounds"])),
+        ("tc_sia hist", dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["hist"]),
+         {}, {}, lambda r: chain, dict(tc, hist_topq_level=1)),
+    ]
+
+
+def batched_card_matches_cpu(sim_card, sim_cpu, plans, label: str):
+    """Batched rounds over ``plans``, both simulators fed the CPU's
+    gradients of every cohort: model, EF rows, bits and nnz bit for bit,
+    the loss to rtol 1e-4."""
+    from repro_torch.data.federated import client_minibatch
+
+    gens = [torch.Generator().manual_seed(s) for s in COHORT_SEEDS]
+    s_cpu = sim_cpu.init_batched(COHORT_SEEDS)
+    s_card = sim_card.init_batched(COHORT_SEEDS)
+    worst = 0.0
+    for r, plan in enumerate(plans):
+        grads = []
+        for i, gen in enumerate(gens):
+            bx, by = client_minibatch(sim_cpu.fed, sim_cpu.pc.batch_size, gen)
+            grads.append(sim_cpu.client_grads(s_cpu.flat_w[i], bx, by))
+        grads = torch.stack(grads)
+        s_cpu, l_cpu = sim_cpu.aggregate_step_batched(s_cpu, plan, grads)
+        s_card, l_card = sim_card.aggregate_step_batched(s_card, plan,
+                                                         grads.cuda())
+        same = all(bitwise_equal(u, v) for u, v in (
+            (s_cpu.flat_w, s_card.flat_w), (s_cpu.ef, s_card.ef),
+            (l_cpu.stats[0].bits, l_card.stats[0].bits),
+            (l_cpu.stats[0].nnz_out, l_card.stats[0].nnz_out)))
+        rel = float(((l_card.loss.cpu() - l_cpu.loss).abs()
+                     / l_cpu.loss.abs()).max())
+        worst = max(worst, rel)
+        if not same or rel > 1e-4:
+            raise SystemExit(f"FAIL {label} batched round {r} (plan "
+                             f"{plan.shape}): card and CPU differ "
+                             f"(state/bits equal: {same}, loss rel "
+                             f"{rel:.2e})")
+    log(f"[batched] {label}: {len(plans)} rounds of {len(COHORT_SEEDS)} "
+        f"cohorts over plans {[p.shape for p in plans]} on the card vs the "
+        f"CPU with the same gradients: model, EF rows, bits and nnz bit for "
+        f"bit; loss max rel diff {worst:.2e}")
+
+
+def scheduler_buckets(cfg, k: int, d: int):
+    """A RoundScheduler on the card fed three submits of a chain, a star
+    and a routed Walker tree (one K = 28 bucket, padded to its running
+    maximum) and a K = 4 chain (a second bucket): each cohort's result
+    equals a sequential ``execute`` on its own plan, and the scheduler
+    meets no more input signatures than it launched buckets."""
+    from repro_torch.agg import (CohortRound, RoundScheduler, compile_plan,
+                                 execute)
+    from repro_torch.fed.topology import TreeTopology
+    from repro_torch.topo import star_tree, walker_delta
+
+    walker = TreeTopology(walker_delta(**WALKER), "widest").plan()
+    plans = [compile_plan(k), compile_plan(star_tree(k)), walker,
+             compile_plan(4)]
+    sched = RoundScheduler(cfg)
+    rng = np.random.default_rng(SEED + 70)
+    for sub in range(3):
+        rounds = []
+        for i, plan in enumerate(plans):
+            kk = plan.num_clients
+            t = lambda a: torch.from_numpy(  # noqa: E731
+                np.asarray(a, np.float32)).cuda()
+            rounds.append(CohortRound(
+                (sub, i), plan, t(rng.standard_normal((kk, d)) * 0.01),
+                t(rng.standard_normal((kk, d)) * 1e-3),
+                t(rng.uniform(0.5, 1.5, kk)),
+                t(rng.random(d) < 0.01), t(rng.random(kk) < 0.9)))
+        got = sched.submit(rounds)
+        for r in rounds:
+            want = execute(cfg, r.plan, r.grads, r.e, r.weights,
+                           global_mask=r.global_mask,
+                           participate=r.participate)
+            res = got[r.cohort_id]
+            if not all(bitwise_equal(u, v) for u, v in (
+                    (want.aggregate, res.aggregate),
+                    (want.e_new, res.e_new),
+                    (want.stats.nnz_out, res.stats.nnz_out),
+                    (want.stats.bits, res.stats.bits))):
+                raise SystemExit(f"FAIL scheduler cohort {r.cohort_id} "
+                                 f"(plan {r.plan.shape}) differs from "
+                                 f"sequential execute")
+    sched.assert_bucket_specializations()
+    if sched.trace_counter.count != 2:
+        raise SystemExit(f"FAIL the scheduler met "
+                         f"{sched.trace_counter.count} input signatures "
+                         f"for 2 buckets")
+    log(f"[batched] RoundScheduler on the card: 3 submits of chain, star, "
+        f"Walker tree (K = {k}) and a K = 4 chain; buckets "
+        f"{[(e['key'][0], e['shape'], e['padded_cohorts']) for e in sched.bucket_log[:2]]}"
+        f"; {sched.trace_counter.count} specializations for "
+        f"{sched.expected_specializations} buckets; every cohort equal to "
+        f"sequential execute bit for bit")
+
+
+def batched_path(level, data) -> dict:
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.fed import Simulator
+
+    pc, fed, test = data
+    k = pc.num_clients
+    runs = batched_runs(pc, k)
+    sims = {label: Simulator(pc, AggConfig(**cfg), fed, device="cuda", **skw)
+            for label, cfg, skw, _, _, _ in runs}
+    b = len(COHORT_SEEDS)
+    t0 = time.perf_counter()
+    for label, _, _, rkw, _, _ in runs:
+        sims[label].run_batched(2, seeds=COHORT_SEEDS, **rkw)
+        sims[label].run(1, seed=SEED, **rkw)
+    torch.cuda.synchronize()
+    log(f"[batched] warm-up: {time.perf_counter() - t0:.1f} s")
+
+    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS]
+    level.reset_launch_counts()
+    torch.cuda.synchronize()
+    results, per_round = {}, {}
+    for label, _, _, rkw, plan_of, per_level in runs:
+        before = [fn.launches for fn in level.KERNELS]
+        t0 = time.perf_counter()
+        out = sims[label].run_batched(BATCHED_ROUNDS, seeds=COHORT_SEEDS,
+                                      test_x=test.x, test_y=test.y,
+                                      eval_every=BATCHED_ROUNDS, **rkw)
+        torch.cuda.synchronize()
+        per_round[label] = 1e3 * (time.perf_counter() - t0) / BATCHED_ROUNDS
+        grown = {n: fn.launches - c for n, fn, c in
+                 zip(names, level.KERNELS, before)}
+        levels = sum(plan_of(r).shape[0] for r in range(BATCHED_ROUNDS))
+        want = {n: levels * per_level.get(n, 0) for n in names}
+        if grown != want:
+            raise SystemExit(f"FAIL batched {label}: level-kernel launches "
+                             f"{grown}, predicted {want} (one per level for "
+                             f"all {b} cohorts)")
+        results[label] = out
+        loss = np.asarray(out["loss"])
+        log(f"[batched] {label:16s} B={b}: loss {loss[0].mean():.4f} -> "
+            f"{loss[-1].mean():.4f} (cohort mean), acc "
+            f"{np.mean(out['accuracy'][-1][1]):.3f}, bits/round/cohort "
+            f"{np.mean(out['bits']):.0f}, {per_round[label]:.2f} ms per "
+            f"batched round (host clock, synchronized); launches "
+            f"{ {n: v for n, v in grown.items() if v} } = "
+            f"{levels / BATCHED_ROUNDS:.1f} levels per round")
+    launches = {n: fn.launches for n, fn in zip(names, level.KERNELS)}
+    log(f"[batched] launches over the batched runs: {launches}")
+    for name in ("cl_fuse_level", "sparsify_ef_level", "chain_accum_level",
+                 "count_ge_fused_level", "hist_topq_level"):
+        if launches[name] <= 0:
+            raise SystemExit(f"FAIL {name} was never launched on the "
+                             f"batched path")
+
+    for label, _, _, rkw, _, _ in runs:
+        out = results[label]
+        loss = np.asarray(out["loss"])
+        if not (np.isfinite(loss).all() and (loss[-1] < loss[0]).all()):
+            raise SystemExit(f"FAIL batched {label}: loss did not fall in "
+                             f"every cohort ({loss[0]} -> {loss[-1]})")
+        st = out["state"]
+        for i, seed in enumerate(COHORT_SEEDS):
+            ref = sims[label].run(BATCHED_ROUNDS, seed=seed, **rkw)
+            same = (bitwise_equal(st.flat_w[i], ref["state"].flat_w)
+                    and bitwise_equal(st.ef[i], ref["state"].ef)
+                    and [row[i] for row in out["bits"]] == ref["bits"]
+                    and [row[i] for row in out["nnz"]] == ref["nnz"])
+            if not same:
+                raise SystemExit(f"FAIL batched {label}: cohort {i} differs "
+                                 f"from run(seed={seed}) on the card")
+    log(f"[batched] every cohort of every batched run equals the sequential "
+        f"run(seed) on the card bit for bit: model, EF rows, bits and nnz "
+        f"over {BATCHED_ROUNDS} rounds")
+
+    for label, cfg, skw, _, plan_of, _ in runs:
+        if label in BATCHED_CMP:
+            batched_card_matches_cpu(
+                sims[label], Simulator(pc, AggConfig(**cfg), fed,
+                                       device="cpu", **skw),
+                [plan_of(r) for r in BATCHED_CMP[label]], label)
+
+    scheduler_buckets(AggConfig(**runs[0][1]), k, pc.d)
+
+    # one batched round against B sequential rounds, B = 1, 2, 4, 8
+    for label in ("tc_sia chain", "cl_tc_sia walker"):
+        rkw = next(r[3] for r in runs if r[0] == label)
+        sim = sims[label]
+        cells = []
+        for nb in SCALING_COHORTS:
+            seeds = COHORT_SEEDS[:nb]
+            t0 = time.perf_counter()
+            sim.run_batched(SCALING_ROUNDS, seeds=seeds, **rkw)
+            torch.cuda.synchronize()
+            batched = 1e3 * (time.perf_counter() - t0) / SCALING_ROUNDS
+            t0 = time.perf_counter()
+            for seed in seeds:
+                sim.run(SCALING_ROUNDS, seed=seed, **rkw)
+            torch.cuda.synchronize()
+            seq = 1e3 * (time.perf_counter() - t0) / SCALING_ROUNDS
+            cells.append(f"B={nb}: batched {batched:.2f} ms, {nb} sequential "
+                         f"{seq:.2f} ms ({seq / batched:.2f}x)")
+        log(f"[batched] {label}, one batched round vs B sequential rounds "
+            f"(host clock, synchronized, {SCALING_ROUNDS} rounds each): "
+            + "; ".join(cells))
+    for label in ("tc_sia chain", "cl_tc_sia walker", "tc_sia scan"):
+        rkw = next(r[3] for r in runs if r[0] == label)
+        sim = sims[label]
+        profile_calls(f"batched {label} B={b}", lambda: sim.run_batched(
+            3, seeds=COHORT_SEEDS, **rkw), 3)
+    return launches
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -1408,6 +1795,7 @@ def main() -> int:
                          topq_threshold.count_ge_fused_cuda)}
     report = check_kernels(level, ref)
     report.update(check_tau_kernels(level, ref, sp))
+    check_cohort_kernels(level, ref, sp, report)
     report.update(check_scalar_kernels(scalar, ref))
     data = paper_data()
     launches = main_path(level, data)
@@ -1415,6 +1803,8 @@ def main() -> int:
     launches.update(scalar_path(level, scalar))
     for name, n in tree_path(level, data).items():
         launches[name] += n
+    for name, n in batched_path(level, data).items():
+        launches[name] = launches.get(name, 0) + n
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",
@@ -1440,7 +1830,8 @@ def main() -> int:
     kernels = []
     for name, r in report.items():
         # the large float32 shape (a scalar kernel's last shape is bf16)
-        large = [x for x in r["shapes"] if x.get("dtype") != "bfloat16"][-1]
+        large = [x for x in r["shapes"] if x.get("dtype") != "bfloat16"
+                 and "cohorts" not in x][-1]
         kernels.append(dict(
             name=name, route="cuda", source=csrc + source[name],
             replaces=replaces[name], launches=launches[name],
@@ -1448,7 +1839,9 @@ def main() -> int:
             plain_ms=large["plain_ms"], bound_ms=large["bound_ms"],
             bound_by=large.get("bound_by", "bytes"), library_ms=None,
             max_abs_err_plain_on_card=r["max_abs_err_plain_on_card"],
-            variants_checked=r["checked"], shapes=r["shapes"]))
+            variants_checked=r["checked"], shapes=r["shapes"],
+            **({"cohort_variants": r["cohort_variants"]}
+               if "cohort_variants" in r else {})))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

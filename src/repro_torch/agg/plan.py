@@ -6,7 +6,9 @@ routed :class:`~repro_torch.topo.tree.AggTree` — lowers to one canonical
 form, the :class:`AggPlan`: a padded ``(L, W)`` level schedule (L levels run
 in order, the W slots of a level run as the lanes of one level step).
 ``execute(cfg, plan, ...)`` is the single round entry point, bit-exact to
-:func:`repro_torch.core.chain.run_chain` on chain plans.
+:func:`repro_torch.core.chain.run_chain` on chain plans;
+``execute_batched`` runs B cohorts' rounds with one level step per level
+for all of them.
 
 The plan's arrays stay numpy on the host; ``execute`` runs on the device of
 the gradients it is given.
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.algorithms import (AggConfig, AggKind, HopStats,
-                                         level_step)
+                                         level_step, level_step_batched)
 from repro_torch.topo.tree import PS, AggTree, build_schedule, path_tree
 
 Tensor = torch.Tensor
@@ -268,3 +270,141 @@ def execute(
                        for leaf in zip(*st_lvl)))
     agg = inbox[k] if r_sinks == 1 else inbox[k:k + r_sinks]
     return RoundResult(aggregate=agg, e_new=e_out, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# execute_batched — B cohorts per level step (multi-tenant rounds)
+# ---------------------------------------------------------------------------
+
+def stack_plans(plans: Sequence[AggPlan]) -> AggPlan:
+    """Stack B shape-identical plans into one cohort-batched plan whose
+    array leaves carry a leading cohort axis ``[B, ...]``.
+
+    The plans must agree on ``(L, W)``, client count, sink count and
+    ``q_budget`` presence: pad them to a common shape first
+    (:func:`repro_torch.agg.schedule.common_shape`, or let
+    :class:`repro_torch.agg.batching.RoundScheduler` do it). A stacked plan
+    is taken only by :func:`execute_batched`.
+    """
+    if not plans:
+        raise ValueError("stack_plans needs at least one plan")
+    p0 = plans[0]
+    for p in plans[1:]:
+        if p.shape != p0.shape:
+            raise ValueError(f"plan shapes differ: {p.shape} vs {p0.shape} "
+                             f"(pad to a common shape first)")
+        if (p.num_clients, p.num_sinks) != (p0.num_clients, p0.num_sinks):
+            raise ValueError("stacked plans must share client/sink counts")
+        if (p.q_budget is None) != (p0.q_budget is None):
+            raise ValueError("stacked plans must agree on q_budget presence")
+    stk = lambda leaf: np.stack([np.asarray(getattr(p, leaf))  # noqa: E731
+                                 for p in plans])
+    return AggPlan(node_id=stk("node_id"), slot_mask=stk("slot_mask"),
+                   parent_row=stk("parent_row"), flat_pos=stk("flat_pos"),
+                   alive=stk("alive"),
+                   q_budget=None if p0.q_budget is None else stk("q_budget"),
+                   num_clients=p0.num_clients, num_sinks=p0.num_sinks)
+
+
+def execute_batched(
+    cfg: AggConfig,
+    plan: AggPlan,
+    grads: Tensor,                 # [B, K, d] per-cohort client gradients
+    e: Tensor,                     # [B, K, d] per-cohort EF memory
+    weights: Tensor,               # [B, K]
+    *,
+    global_mask: Optional[Tensor] = None,  # [B, d] per-cohort TCS masks
+    participate: Optional[Tensor] = None,  # [B, K] per-cohort stragglers
+) -> RoundResult:
+    """B independent aggregation rounds, one level step per level for all.
+
+    ``plan`` is one plan shared by every cohort (leaves ``[L, W]``) or a
+    :func:`stack_plans` batch of B shape-identical plans (leaves
+    ``[B, L, W]``). Each level runs through
+    :func:`repro_torch.core.algorithms.level_step_batched`: the B cohorts'
+    lanes flattened cohort-major into one launch per kernel stage. Children
+    merge into their parents in slot order, one add per slot for all
+    cohorts at once (each cohort owns its own inbox rows), never with
+    ``index_add_``. Every cohort's result is what :func:`execute` gives on
+    its own plan and inputs. ``global_mask=None`` is zeros ``[B, d]``, so
+    the TC algorithms always take the cohort form of the kernels. The
+    result's leaves carry the cohort axis first.
+    """
+    b, k, d = grads.shape
+    dev, dt = grads.device, grads.dtype
+    if plan.num_clients != k:
+        raise ValueError(f"plan has {plan.num_clients} clients, grads {k}")
+    stacked = np.ndim(plan.node_id) == 3
+    if stacked and plan.node_id.shape[0] != b:
+        raise ValueError(f"stacked plan has {plan.node_id.shape[0]} "
+                         f"cohorts, grads {b}")
+    if global_mask is None:
+        global_mask = torch.zeros((b, d), dtype=dt, device=dev)
+    if participate is None:
+        participate = torch.ones((b, k), dtype=dt, device=dev)
+    participate = participate * torch.as_tensor(plan.alive, dtype=dt,
+                                                device=dev)
+    lvl = level_step_batched(cfg)
+
+    # one zero dummy row (index K) per cohort backs the padding slots
+    zrow = torch.zeros((b, 1, d), dtype=dt, device=dev)
+    g_ext = torch.cat([grads, zrow], dim=1)
+    e_ext = torch.cat([e, zrow], dim=1)
+    w_ext = torch.cat([weights, weights.new_zeros((b, 1))], dim=1)
+    p_ext = torch.cat([participate, participate.new_zeros((b, 1))], dim=1)
+    q_ext = None
+    if plan.q_budget is not None:
+        qb = torch.as_tensor(np.asarray(plan.q_budget), dtype=torch.int32,
+                             device=dev)
+        q_ext = torch.cat([torch.broadcast_to(qb, (b, k)),
+                           torch.zeros((b, 1), dtype=torch.int32,
+                                       device=dev)], dim=1)
+
+    cohort = torch.arange(b, device=dev)[:, None]
+
+    def take_rows(x, ids):
+        # ids [W] (shared plan) or [B, W] (stacked): per-cohort row gather
+        return x[:, ids] if ids.dim() == 1 else x[cohort, ids]
+
+    r_sinks = plan.num_sinks
+    inbox = torch.zeros((b, k + r_sinks + 1, d), dtype=dt, device=dev)
+    node_id = torch.as_tensor(np.asarray(plan.node_id, np.int64), device=dev)
+    slot_mask = torch.as_tensor(plan.slot_mask, dtype=torch.float32,
+                                device=dev)
+    real = np.asarray(plan.slot_mask) > 0
+    parent = np.asarray(plan.parent_row)
+    e_lvl, st_lvl = [], []
+    for li in range(plan.shape[-2]):
+        ids = node_id[:, li] if stacked else node_id[li]
+        mask = (slot_mask[:, li] if stacked
+                else torch.broadcast_to(slot_mask[li], (b, ids.shape[-1])))
+        gamma_out, e_new, stats = lvl(
+            take_rows(g_ext, ids), take_rows(inbox, ids),
+            take_rows(e_ext, ids), take_rows(w_ext, ids),
+            take_rows(p_ext, ids), global_mask,
+            None if q_ext is None else take_rows(q_ext, ids), mask)
+        if stacked:
+            # a slot real in any cohort: the others add their zero (padding)
+            # output into the trash row
+            rows = torch.as_tensor(parent[:, li].astype(np.int64),
+                                   device=dev)
+            for wi in np.flatnonzero(real[:, li].any(axis=0)):
+                inbox[cohort[:, 0], rows[:, wi]] += gamma_out[:, wi]
+        else:
+            for wi in np.flatnonzero(real[li]):
+                inbox[:, int(parent[li, wi])] += gamma_out[:, wi]
+        e_lvl.append(e_new)
+        st_lvl.append(stats)
+
+    # level outputs [L, B, W, ...] in schedule order → [B, L·W, ...] →
+    # each cohort's client index order
+    pos = torch.as_tensor(np.asarray(plan.flat_pos, np.int64), device=dev)
+
+    def reorder(levels):
+        x = torch.stack(levels, dim=1)
+        flat = x.reshape((b, -1) + x.shape[3:])
+        return flat[:, pos] if pos.dim() == 1 else flat[cohort, pos]
+
+    stats = HopStats(*(reorder(leaf) for leaf in zip(*st_lvl)))
+    agg = inbox[:, k] if r_sinks == 1 else inbox[:, k:k + r_sinks]
+    return RoundResult(aggregate=agg, e_new=reorder(e_lvl), stats=stats)

@@ -230,7 +230,7 @@ def _lane_inf(w: int, device) -> Tensor:
     return torch.full((w,), math.inf, dtype=torch.float32, device=device)
 
 
-def _tau_operand(cfg: AggConfig, g, e, gam, w, p, gm=None, *,
+def _tau_operand(cfg: AggConfig, g, e, gam, w, p, gm=None, cohorts=0, *,
                  include_gamma: bool = False) -> sp.TauOperand:
     """The level's sparsifier operand as a :class:`~repro_torch.core.
     sparsify.TauOperand` over the raw node inputs.
@@ -241,21 +241,25 @@ def _tau_operand(cfg: AggConfig, g, e, gam, w, p, gm=None, *,
     and dynamic-budget sparsifiers, which sort it) and ``max_abs()`` use
     the same float expression (:func:`repro_torch.kernels.ref.
     fused_operand`), so every path selects what the kernels' τ test would.
+    A cohort-shared ``[B, d]`` mask (``cohorts=B``) goes to the kernels as
+    it is.
     """
     mode = cfg.kernel_mode
 
     def materialize():
         return kref.fused_operand(g, e, gam, w, p, gm,
-                                  include_gamma=include_gamma)
+                                  include_gamma=include_gamma,
+                                  gmask_cohorts=cohorts)
 
     def count(taus):
         return kops.count_ge_fused_level(g, e, gam, w, p, taus, gm,
                                          include_gamma=include_gamma,
-                                         mode=mode)
+                                         gmask_cohorts=cohorts, mode=mode)
 
     def hist(tables):
         return kops.hist_topq_level(g, e, gam, w, p, tables, gm,
-                                    include_gamma=include_gamma, mode=mode)
+                                    include_gamma=include_gamma,
+                                    gmask_cohorts=cohorts, mode=mode)
 
     return sp.TauOperand(count=count,
                          max_abs=lambda: sp._max_abs(materialize().abs()),
@@ -294,15 +298,19 @@ def _stats_no_gmask(cfg, d, nnz, e_new, err=None) -> HopStats:
                     err_sq=_lane_err_sq(e_new) if err is None else err)
 
 
-def _stats_gmask(cfg, d, gm, nnz, nnz_off, e_new, err=None) -> HopStats:
-    nz_g = (gm > 0).sum(dim=-1, dtype=torch.int32)
+def _stats_gmask(cfg, d, gm, nnz, nnz_off, e_new, cohorts=0,
+                 err=None) -> HopStats:
+    # one count per mask row ([d] → one, [W, d] → per lane, [B, d] → per
+    # cohort, repeated to its cohort-major lanes)
+    nz_rows = (gm > 0).sum(dim=-1, keepdim=True, dtype=torch.int32)
+    nz_g = kref.expand_gmask(nz_rows, nnz.shape[0], cohorts)[..., 0]
     nz_g = torch.broadcast_to(nz_g, nnz.shape)
     return HopStats(nnz_out=nnz, nnz_global=nz_g, nnz_local=nnz_off,
                     bits=_bits(cfg, d, nz_g, nnz_off),
                     err_sq=_lane_err_sq(e_new) if err is None else err)
 
 
-def _fused_level_sia(cfg, g, gam, e, w, p, gm, qb, valid):
+def _fused_level_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
     op = _tau_operand(cfg, g, e, None, w, p)
     mask, tau = _lane_sparsifier_state(cfg, op, cfg.q, p, qb)
     we = cfg.err_sq_mode == "kernel"
@@ -315,7 +323,7 @@ def _fused_level_sia(cfg, g, gam, e, w, p, gm, qb, valid):
                                         out[3] if we else None)
 
 
-def _fused_level_re_sia(cfg, g, gam, e, w, p, gm, qb, valid):
+def _fused_level_re_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
     op = _tau_operand(cfg, g, e, None, w, p)
     m_in = sp.support(gam)
     if qb is None and cfg.topq_impl == "threshold":
@@ -335,30 +343,34 @@ def _fused_level_re_sia(cfg, g, gam, e, w, p, gm, qb, valid):
                                         out[3] if we else None)
 
 
-def _fused_level_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid):
-    op = _tau_operand(cfg, g, e, None, w, p, gm)
+def _fused_level_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
+    # the mask algebra takes a cohort-shared mask per lane, the kernels
+    # take it compact
+    gme = kref.expand_gmask(gm, g.shape[0], cohorts)
+    op = _tau_operand(cfg, g, e, None, w, p, gm, cohorts)
     m_k, tau = _lane_sparsifier_state(cfg, op, cfg.q_local,
                                       torch.ones_like(p), qb)
-    m_in = torch.clamp(sp.support(gam) - gm, 0, 1)
+    m_in = torch.clamp(sp.support(gam) - gme, 0, 1)
     if m_k is None:
         # threshold Top-Q: materialize the local mask to union it with the
         # global and incoming masks, as the unfused topq_mask_fn does
         x = op.materialize()
         m_k = (x.abs() >= _col(tau)).to(x.dtype)
         tau = _lane_inf(g.shape[0], g.device)
-    mask = sp.mask_union(torch.broadcast_to(gm, m_k.shape), m_k,
+    mask = sp.mask_union(torch.broadcast_to(gme, m_k.shape), m_k,
                          m_in) * _col(p)
     we = cfg.err_sq_mode == "kernel"
     out = kops.sparsify_ef_level(g, e, mask, w, tau, valid, with_err=we,
                                  mode=cfg.kernel_mode)
     gbar, e_new = out[0], out[1]
     gout, nnz, nnz_off = kops.chain_accum_level(gam, gbar, valid, gm,
+                                                gmask_cohorts=cohorts,
                                                 mode=cfg.kernel_mode)
     return gout, e_new, _stats_gmask(cfg, g.shape[-1], gm, nnz, nnz_off,
-                                     e_new, out[3] if we else None)
+                                     e_new, cohorts, out[3] if we else None)
 
 
-def _fused_level_cl_sia(cfg, g, gam, e, w, p, gm, qb, valid):
+def _fused_level_cl_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
     op = _tau_operand(cfg, g, e, gam, w, p, include_gamma=True)
     mask, tau = _lane_sparsifier_state(cfg, op, cfg.q, torch.ones_like(p),
                                        qb)
@@ -370,16 +382,17 @@ def _fused_level_cl_sia(cfg, g, gam, e, w, p, gm, qb, valid):
                                         out[4] if we else None)
 
 
-def _fused_level_cl_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid):
-    op = _tau_operand(cfg, g, e, gam, w, p, gm, include_gamma=True)
+def _fused_level_cl_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
+    op = _tau_operand(cfg, g, e, gam, w, p, gm, cohorts, include_gamma=True)
     mask, tau = _lane_sparsifier_state(cfg, op, cfg.q_local,
                                        torch.ones_like(p), qb)
     we = cfg.err_sq_mode == "kernel"
     out = kops.cl_fuse_level(g, e, gam, w, tau, p, valid, gmask=gm,
-                             mask_in=mask, with_err=we, mode=cfg.kernel_mode)
+                             mask_in=mask, gmask_cohorts=cohorts,
+                             with_err=we, mode=cfg.kernel_mode)
     gout, e_new, nnz, nnz_off = out[:4]
     return gout, e_new, _stats_gmask(cfg, g.shape[-1], gm, nnz, nnz_off,
-                                     e_new, out[4] if we else None)
+                                     e_new, cohorts, out[4] if we else None)
 
 
 _FUSED_LEVEL = {
@@ -401,16 +414,17 @@ def _mask_lanes(ok: Tensor, stats: HopStats) -> HopStats:
 
 
 def _run_fused_level(cfg, g, gamma_in, e, weight, participate, global_mask,
-                     q_budget, valid):
+                     q_budget, valid, cohorts=0):
     w_lanes = g.shape[0]
-    # a lane-shared [d] TCS mask stays 1-D all the way into the kernels
+    # a lane-shared [d] TCS mask stays 1-D all the way into the kernels, a
+    # cohort-shared [B, d] one (cohorts=B, lanes cohort-major) [B, d]
     gm = _f32(global_mask)
     qb = None if q_budget is None else q_budget.to(torch.int32)
     v = (torch.ones((w_lanes,), dtype=torch.float32, device=g.device)
          if valid is None else _f32(valid))
     gout, e_new, stats = _FUSED_LEVEL[cfg.kind](
         cfg, _f32(g), _f32(gamma_in), _f32(e), _f32(weight),
-        _f32(participate), gm, qb, v)
+        _f32(participate), gm, qb, v, cohorts)
     # padding lanes count nothing: the kernels zero their outputs and
     # counts, but the global-mask word count is lane-agnostic
     return gout, e_new, _mask_lanes(v > 0, stats)
@@ -622,5 +636,50 @@ def level_step(cfg: AggConfig):
             e_new = torch.where(_col(ok), e_new, torch.zeros_like(e_new))
             stats = _mask_lanes(ok, stats)
         return gamma_out, e_new, stats
+
+    return run
+
+
+def level_step_batched(cfg: AggConfig):
+    """The whole-level node step over B cohorts::
+
+        fn(g [B,W,d], gamma_in [B,W,d], e [B,W,d], weight [B,W],
+           participate [B,W],
+           global_mask ([B,d] cohort-shared or [B,W,d] per-lane),
+           q_budget ([B,W]|None), valid ([B,W]|None))
+          -> (gamma_out [B,W,d], e_new [B,W,d], HopStats [B,W])
+
+    The cohorts flatten cohort-major to ``B·W`` lanes (cohort b owns lanes
+    ``b·W .. (b+1)·W − 1``) and run as one :func:`level_step`: on the
+    fused path one launch per kernel stage for all cohorts, with the
+    ``[B, d]`` masks passed compact (``gmask_cohorts=B``). The unfused
+    path repeats them to ``[B·W, d]``. Every lane's math is its own row's,
+    so each cohort gets what a :func:`level_step` of its own computes.
+    """
+    run1 = level_step(cfg)
+
+    def run(g, gamma_in, e, weight, participate, global_mask,
+            q_budget=None, valid=None):
+        b, w, d = g.shape
+        lanes = b * w
+
+        def fl(x):
+            return None if x is None else x.reshape((lanes,) + x.shape[2:])
+
+        cohort_gm = global_mask.dim() == 2                  # [B, d]
+        args = (fl(g), fl(gamma_in), fl(e), fl(weight), fl(participate))
+        if cohort_gm and fused_node_steps(cfg, weight, g, e, gamma_in):
+            gout, e_new, stats = _run_fused_level(
+                cfg, *args, _f32(global_mask), fl(q_budget), fl(valid),
+                cohorts=b)
+        else:
+            gm = (kref.expand_gmask(global_mask, lanes, b) if cohort_gm
+                  else fl(global_mask))
+            gout, e_new, stats = run1(*args, gm, fl(q_budget), fl(valid))
+
+        def unfl(x):
+            return x.reshape((b, w) + x.shape[1:])
+
+        return unfl(gout), unfl(e_new), HopStats(*map(unfl, stats))
 
     return run

@@ -20,6 +20,12 @@ Minibatch draws come from a CPU ``torch.Generator`` seeded by
 :meth:`Simulator.run`, or are passed in by the caller
 (:meth:`Simulator.round_fn`'s ``batch_idx``), so a test can replay
 another implementation's draws.
+
+:meth:`Simulator.run_batched` trains B independent cohorts (one seed
+each) over the same constellation: each round takes every cohort's
+gradients as its own round would, then aggregates all B cohorts with one
+level step per level (:func:`repro_torch.agg.plan.execute_batched`).
+Cohort i of a batched run is ``run(seed=seeds[i])`` bit for bit.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.agg.plan import AggPlan, Topology, compile_plan, execute
+from repro_torch.agg.plan import (AggPlan, Topology, compile_plan, execute,
+                                  execute_batched)
 from repro_torch.agg.schedule import TopologySchedule
 from repro_torch.configs.paper_mnist import PaperConfig
 from repro_torch.core import tcs as tcs_mod
@@ -38,6 +45,7 @@ from repro_torch.core.algorithms import AggConfig, AggKind
 from repro_torch.data.federated import FederatedData, client_minibatch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.topology import FailureSchedule, TreeTopology
+from repro_torch.topo.routing import NestedTopology
 # re-exported: this module held them before repro_torch.runtime.fault
 from repro_torch.runtime.fault import (banked_mass,  # noqa: F401
                                        dead_banked_mass)
@@ -252,46 +260,10 @@ class Simulator:
         Nothing is read back from the device until the last round has been
         issued.
         """
-        topo = self.tree_topology
-        if topology is not None and (
-                topo is not None or failure_schedule is not None
-                or order_fn is not None or topology_schedule is not None):
-            raise ValueError("topology is a fixed topology, taken alone: "
-                             "not with tree_topology, failure_schedule, "
-                             "order_fn or topology_schedule")
-        if failure_schedule is not None and topo is None:
-            raise ValueError("failure_schedule needs tree_topology (chain "
-                             "failures go through participate_fn + order_fn)")
-        if order_fn is not None and (topo is not None
-                                     or topology_schedule is not None):
-            raise ValueError("order_fn is a chain-mode knob; trees, nested "
-                             "plans and schedules carry their own topology")
-        if topology_schedule is not None and topo is not None:
-            raise ValueError("pass either tree_topology/nested_topology or "
-                             "topology_schedule, not both")
+        plan_for = self._plan_source(failure_schedule, order_fn,
+                                     topology_schedule, topology)
         gen = torch.Generator().manual_seed(seed)
         state = self.init()
-        plans: dict = {}
-
-        def cached(key, build: Callable[[], Topology]) -> AggPlan:
-            if key not in plans:
-                plans[key] = compile_plan(build(), num_clients=self.k)
-            return plans[key]
-
-        def plan_for(r: int, state: SimState) -> AggPlan:
-            if topology_schedule is not None:
-                return topology_schedule.plan_at(r)
-            if topology is not None:
-                return cached(("fixed",), lambda: topology)
-            if topo is not None:
-                dead = (tuple(failure_schedule.dead_at(r))
-                        if failure_schedule is not None else ())
-                return cached(("tree", dead), lambda: topo.tree(dead=dead))
-            if order_fn is not None:
-                order = tuple(int(i) for i in order_fn(r, state))
-                return cached(("order", order), lambda: list(order))
-            return cached(("chain",), lambda: self.k)
-
         logs, accs = [], []
         for r in range(rounds):
             part = None
@@ -314,3 +286,181 @@ class Simulator:
                 "nnz": [float(sum(s.nnz_out.sum() for s in log.stats))
                         for log in logs],
                 "accuracy": [(r, float(a)) for r, a in accs]}
+
+    def _plan_source(self, failure_schedule, order_fn, topology_schedule,
+                     topology) -> Callable[[int, SimState], AggPlan]:
+        """The per-round plan of :meth:`run` and :meth:`run_batched`, after
+        the reference's exclusivity checks; each distinct topology compiles
+        once."""
+        topo = self.tree_topology
+        if topology is not None and (
+                topo is not None or failure_schedule is not None
+                or order_fn is not None or topology_schedule is not None):
+            raise ValueError("topology is a fixed topology, taken alone: "
+                             "not with tree_topology, failure_schedule, "
+                             "order_fn or topology_schedule")
+        if failure_schedule is not None and topo is None:
+            raise ValueError("failure_schedule needs tree_topology (chain "
+                             "failures go through participate_fn + order_fn)")
+        if order_fn is not None and (topo is not None
+                                     or topology_schedule is not None):
+            raise ValueError("order_fn is a chain-mode knob; trees, nested "
+                             "plans and schedules carry their own topology")
+        if topology_schedule is not None and topo is not None:
+            raise ValueError("pass either tree_topology/nested_topology or "
+                             "topology_schedule, not both")
+        plans: dict = {}
+
+        def cached(key, build: Callable[[], Topology]) -> AggPlan:
+            if key not in plans:
+                plans[key] = compile_plan(build(), num_clients=self.k)
+            return plans[key]
+
+        def plan_for(r: int, state: SimState) -> AggPlan:
+            if topology_schedule is not None:
+                return topology_schedule.plan_at(r)
+            if topology is not None:
+                return cached(("fixed",), lambda: topology)
+            if topo is not None:
+                dead = (tuple(failure_schedule.dead_at(r))
+                        if failure_schedule is not None else ())
+                return cached(("tree", dead), lambda: topo.tree(dead=dead))
+            if order_fn is not None:
+                order = tuple(int(i) for i in order_fn(r, state))
+                return cached(("order", order), lambda: list(order))
+            return cached(("chain",), lambda: self.k)
+
+        return plan_for
+
+    # -- batched multi-tenant rounds ----------------------------------------
+
+    def init_batched(self, seeds) -> SimState:
+        """The state of ``len(seeds)`` cohorts: every leaf but the round
+        counter stacked on a leading cohort axis. (The model starts at zero
+        whatever the seed; the seeds seed each cohort's minibatch draws in
+        :meth:`run_batched`.)"""
+        states = [self.init() for _ in seeds]
+        return SimState(round=0,
+                        flat_w=torch.stack([s.flat_w for s in states]),
+                        ef=torch.stack([s.ef for s in states]),
+                        tcs_prev=torch.stack([s.tcs_prev for s in states]))
+
+    def round_fn_batched(self, state: SimState, plan: AggPlan,
+                         participate: Optional[Tensor] = None, *,
+                         batch_idx: Optional[Tensor] = None,
+                         generators=None):
+        """One round of B cohorts → ``(state, RoundLog)`` with leaves
+        ``[B, ...]``.
+
+        ``batch_idx`` ([B, K, batch]) replays given minibatch draws;
+        otherwise cohort i draws from ``generators[i]``. Each cohort's
+        gradients are taken as its own round takes them (a batch of
+        cohorts could sum the matrix products in another order); the
+        aggregation runs all cohorts at once. ``plan`` is shared or
+        stacked (:func:`repro_torch.agg.plan.stack_plans`);
+        ``participate`` is ``[B, K]``.
+        """
+        grads = []
+        for i in range(state.flat_w.shape[0]):
+            bx, by = client_minibatch(
+                self.fed, self.pc.batch_size,
+                None if generators is None else generators[i],
+                idx=None if batch_idx is None else batch_idx[i])
+            grads.append(self.client_grads(state.flat_w[i], bx, by))
+        return self.aggregate_step_batched(state, plan, torch.stack(grads),
+                                           participate)
+
+    def aggregate_step_batched(self, state: SimState, plan: AggPlan,
+                               grads: Tensor,
+                               participate: Optional[Tensor] = None):
+        """:meth:`aggregate_step` for B cohorts: ``grads`` [B, K, d] →
+        ``(state, RoundLog)`` with leaves ``[B, ...]``."""
+        pc, cfg = self.pc, self.agg
+        b, k = grads.shape[0], self.k
+        global_mask = None
+        tcs_prev = state.tcs_prev
+        if cfg.kind in (AggKind.TC_SIA, AggKind.CL_TC_SIA):
+            global_mask = torch.stack([
+                tcs_mod.global_mask(tcs_mod.TCSState(prev), w, cfg.q_global)
+                for prev, w in zip(tcs_prev, state.flat_w)])
+            tcs_prev = state.flat_w
+        weights = self.weights.expand(b, k)
+        res = execute_batched(cfg, plan, grads, state.ef, weights,
+                              global_mask=global_mask,
+                              participate=participate)
+        alive = torch.as_tensor(plan.alive, dtype=torch.float32,
+                                device=self.device).expand(b, k)
+        part = alive if participate is None else participate * alive
+        d_total = torch.clamp((weights * part).sum(dim=1), min=1e-9)
+        flat_new = state.flat_w + res.aggregate / d_total[:, None]
+        new_state = SimState(round=state.round + 1, flat_w=flat_new,
+                             ef=res.e_new, tcs_prev=tcs_prev)
+        xs = self.fed.x.reshape(-1, pc.input_dim)
+        ys = self.fed.y.reshape(-1)
+        log = RoundLog(
+            loss=torch.stack([lr_loss(unflatten_lr(w, pc), xs, ys)
+                              for w in flat_new]),
+            stats=(res.stats,), participation=part,
+            ef_mass=banked_mass(res.e_new), stage_ef_mass=(),
+            ef_dead_mass=dead_banked_mass(res.e_new, part))
+        return new_state, log
+
+    def run_batched(self, rounds: int, *, seeds, eval_every: int = 10,
+                    test_x: Optional[Tensor] = None,
+                    test_y: Optional[Tensor] = None,
+                    participate_fn: Optional[Callable] = None,
+                    failure_schedule: Optional[FailureSchedule] = None,
+                    order_fn: Optional[Callable] = None,
+                    topology_schedule: Optional[TopologySchedule] = None,
+                    topology: Optional[Topology] = None,
+                    collector=None) -> dict:
+        """Train ``len(seeds)`` independent cohorts → per-cohort curves:
+        ``{"state", "loss" [rounds][B], "bits" [rounds][B], "nnz"
+        [rounds][B], "accuracy" [(round, [B])]}``.
+
+        Cohort i draws its minibatches from a generator seeded by
+        ``seeds[i]``, as ``run(seed=seeds[i])`` does, and gets that run's
+        curves bit for bit. All cohorts share the constellation: the
+        per-round topology sources are :meth:`run`'s, with its exclusivity
+        errors, and ``participate_fn(r, state)`` may give one ``[K]`` mask
+        for every cohort or a ``[B, K]`` one. Plans are flat: a nested
+        topology raises ``ValueError``. Trace collection is not ported
+        yet (``collector`` raises).
+        """
+        if collector is not None:
+            raise NotImplementedError("run_batched(collector=) is not "
+                                      "ported yet — ROADMAP A11")
+        if isinstance(topology, NestedTopology):
+            raise ValueError("batched rounds run flat plans; nested "
+                             "topologies aggregate per cohort")
+        plan_for = self._plan_source(failure_schedule, order_fn,
+                                     topology_schedule, topology)
+        seeds = [int(s) for s in seeds]
+        b = len(seeds)
+        gens = [torch.Generator().manual_seed(s) for s in seeds]
+        state = self.init_batched(seeds)
+        logs, accs = [], []
+        for r in range(rounds):
+            part = None
+            if participate_fn is not None:
+                part = torch.as_tensor(participate_fn(r, state),
+                                       dtype=torch.float32,
+                                       device=self.device)
+                if part.dim() == 1:        # one mask for every cohort
+                    part = part.expand(b, self.k)
+            state, log = self.round_fn_batched(state, plan_for(r, state),
+                                               part, generators=gens)
+            logs.append(log)
+            if test_x is not None and (r % eval_every == 0
+                                       or r == rounds - 1):
+                tx, ty = test_x.to(self.device), test_y.to(self.device)
+                accs.append((r, torch.stack([
+                    lr_accuracy(unflatten_lr(w, self.pc), tx, ty)
+                    for w in state.flat_w])))
+        rows = lambda f: [[float(v) for v in f(log).tolist()]  # noqa: E731
+                          for log in logs]
+        return {"state": state,
+                "loss": rows(lambda log: log.loss),
+                "bits": rows(lambda log: log.stats[0].bits.sum(dim=-1)),
+                "nnz": rows(lambda log: log.stats[0].nnz_out.sum(dim=-1)),
+                "accuracy": [(r, a.tolist()) for r, a in accs]}

@@ -14,8 +14,11 @@
 //   * a lane's row starts at w*d floats, which is 16-byte aligned only when
 //     w*d % 4 == 0, so each tile runs a scalar head up to the next 16-byte
 //     boundary, float4 units through the middle and a scalar tail;
-//   * a lane-shared [d] global mask has another alignment than the rows and
-//     is read with scalar loads (every lane reads it; it stays in L2);
+//   * the global mask is B rows over W cohort-major lanes (B = 1 for a
+//     lane-shared [d] mask, B cohorts for a cohort-shared [B, d] mask, B = W
+//     for a per-lane [W, d] mask); the W / B lanes of row b read it alike
+//     and it is never broadcast to [W, d]. A row takes float4 loads where
+//     it has the lane row's alignment, scalar loads elsewhere (tile.cuh);
 //   * support counts are reduced per block and added with integer atomics:
 //     integer sums are exact in any order;
 //   * lanes with valid == 0 write zeros and count nothing.
@@ -100,7 +103,7 @@ cl_fuse_level_kernel(const float* __restrict__ g, const float* __restrict__ e,
                      const float* __restrict__ tau,
                      const float* __restrict__ part,
                      const float* __restrict__ valid,
-                     const float* __restrict__ gm,
+                     const float* __restrict__ gm, int gm_lpc,
                      const float* __restrict__ mask, float* __restrict__ gout,
                      float* __restrict__ enew, int* __restrict__ nnz,
                      int* __restrict__ nnz_off, float* __restrict__ tile_err,
@@ -109,6 +112,7 @@ cl_fuse_level_kernel(const float* __restrict__ g, const float* __restrict__ e,
   __shared__ float err_s[ERR ? kTile : 1];
   const int w = blockIdx.y;
   const TileGeom t = tile_geom(d);
+  const long long gm_row = gmask_row(w, gm_lpc, d);
   if (!(valid[w] > 0.f)) {
     zero_tile(t, gout, enew);
     if (ERR && threadIdx.x == 0) tile_err[(long long)w * gridDim.x + blockIdx.x] = 0.f;
@@ -129,7 +133,7 @@ cl_fuse_level_kernel(const float* __restrict__ g, const float* __restrict__ e,
     ld(g, i, un.cnt, vg);
     ld(e, i, un.cnt, ve);
     ld(gin, i, un.cnt, vi);
-    if (GM != kGmNone) load_gmask(gm, GM, t, un, vm);
+    if (GM != kGmNone) load_gmask(gm, gm_row, t, un, vm);
     if (MASK) ld(mask, i, un.cnt, vk);
     for (int k = 0; k < un.cnt; ++k) {
       const float gt = __fmaf_rn(wt, vg[k], ve[k]);
@@ -231,12 +235,13 @@ __global__ void __launch_bounds__(kThreads)
 chain_accum_level_kernel(const float* __restrict__ gin,
                          const float* __restrict__ gbar,
                          const float* __restrict__ valid,
-                         const float* __restrict__ gm,
+                         const float* __restrict__ gm, int gm_lpc,
                          float* __restrict__ gout, int* __restrict__ nnz,
                          int* __restrict__ nnz_off, long long d) {
   __shared__ int cnt_s[2];
   const int w = blockIdx.y;
   const TileGeom t = tile_geom(d);
+  const long long gm_row = gmask_row(w, gm_lpc, d);
   if (!(valid[w] > 0.f)) {
     zero_tile(t, gout, nullptr);
     return;
@@ -250,7 +255,7 @@ chain_accum_level_kernel(const float* __restrict__ gin,
     float vi[4], vb[4], vm[4], og[4];
     ld(gin, i, un.cnt, vi);
     ld(gbar, i, un.cnt, vb);
-    if (GM != kGmNone) load_gmask(gm, GM, t, un, vm);
+    if (GM != kGmNone) load_gmask(gm, gm_row, t, un, vm);
     for (int k = 0; k < un.cnt; ++k) {
       const float ga = __fadd_rn(vi[k], vb[k]);
       og[k] = ga;
@@ -305,7 +310,7 @@ int level_tiles(long long d) { return (int)level_grid(d, 1).x; }
 int cl_fuse_level_launch(const float* g, const float* e, const float* gin,
                          const float* weight, const float* tau,
                          const float* part, const float* valid,
-                         const float* gm, int gm_kind, const float* mask,
+                         const float* gm, int gm_lpc, const float* mask,
                          float* gout, float* enew, int* nnz, int* nnz_off,
                          float* tile_err, float* err, int w_lanes,
                          long long d, void* stream_ptr) {
@@ -316,16 +321,14 @@ int cl_fuse_level_launch(const float* g, const float* e, const float* gin,
   const bool has_mask = mask != nullptr, with_err = err != nullptr;
 #define CL_LAUNCH(GMK, MK, ER)                                              \
   cl_fuse_level_kernel<GMK, MK, ER><<<grid, kThreads, 0, stream>>>(         \
-      g, e, gin, weight, tau, part, valid, gm, mask, gout, enew, nnz,      \
-      nnz_off, tile_err, d)
+      g, e, gin, weight, tau, part, valid, gm, gm_lpc, mask, gout, enew,   \
+      nnz, nnz_off, tile_err, d)
 #define CL_ERR(GMK, MK) \
   if (with_err) CL_LAUNCH(GMK, MK, true); else CL_LAUNCH(GMK, MK, false)
 #define CL_MASK(GMK) \
   if (has_mask) { CL_ERR(GMK, true); } else { CL_ERR(GMK, false); }
-  if (gm_kind == kGmShared) {
-    CL_MASK(kGmShared);
-  } else if (gm_kind == kGmLane) {
-    CL_MASK(kGmLane);
+  if (gm != nullptr) {
+    CL_MASK(kGmRows);
   } else {
     CL_MASK(kGmNone);
   }
@@ -363,23 +366,22 @@ int sparsify_ef_level_launch(const float* g, const float* e,
 
 int chain_accum_level_launch(const float* gin, const float* gbar,
                              const float* valid, const float* gm,
-                             int gm_kind, float* gout, int* nnz,
+                             int gm_lpc, float* gout, int* nnz,
                              int* nnz_off, int w_lanes, long long d,
                              void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaMemsetAsync(nnz, 0, sizeof(int) * w_lanes, stream);
   cudaMemsetAsync(nnz_off, 0, sizeof(int) * w_lanes, stream);
   const dim3 grid = level_grid(d, w_lanes);
-  if (gm_kind == kGmShared) {
-    chain_accum_level_kernel<kGmShared><<<grid, kThreads, 0, stream>>>(
-        gin, gbar, valid, gm, gout, nnz, nnz_off, d);
-  } else if (gm_kind == kGmLane) {
-    chain_accum_level_kernel<kGmLane><<<grid, kThreads, 0, stream>>>(
-        gin, gbar, valid, gm, gout, nnz, nnz_off, d);
+#define CA_LAUNCH(GMK)                                                      \
+  chain_accum_level_kernel<GMK><<<grid, kThreads, 0, stream>>>(            \
+      gin, gbar, valid, gm, gm_lpc, gout, nnz, nnz_off, d)
+  if (gm != nullptr) {
+    CA_LAUNCH(kGmRows);
   } else {
-    chain_accum_level_kernel<kGmNone><<<grid, kThreads, 0, stream>>>(
-        gin, gbar, valid, gm, gout, nnz, nnz_off, d);
+    CA_LAUNCH(kGmNone);
   }
+#undef CA_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -81,7 +81,9 @@
 //
 // The operand is rebuilt with the float ops of cl_fuse_level (and of the
 // jitted reference): s = fma(w, g, e); s = fma(p, s, gamma_in) with
-// gamma_in; s = (1 - m) * s with a global mask; never --use_fast_math.
+// gamma_in; s = (1 - m) * s with a global mask; never --use_fast_math. The
+// mask is B rows of d, lane w reading row w / gm_lpc (lane-shared [d],
+// cohort-shared [B, d] or per-lane [W, d]; tile.cuh's gmask_row).
 // Nothing is padded, so no pad count is subtracted and D2[w, 0, 0] holds
 // only real elements (the Pallas kernel's holds its zero padding too).
 
@@ -102,22 +104,24 @@ struct Operand {
   const float* g;
   const float* e;
   const float* gin;   // null without gamma_in
-  const float* gm;    // null, [d] or [W, d]
+  const float* gm;    // null, [d], [W, d] or [B, d]
   const float* w;
   const float* p;
+  int gm_lpc;         // lanes per mask row: W / B of a [B, d] mask
 };
 
 // |operand| of one unit (cnt elements) of a tile.
 template <int GM, bool GAMMA>
 __device__ __forceinline__ void load_mag(const Operand& op, float wt,
-                                         float pw, const TileGeom& t,
-                                         const Unit& un, float mag[4]) {
+                                         float pw, long long gm_row,
+                                         const TileGeom& t, const Unit& un,
+                                         float mag[4]) {
   const long long i = t.row + t.t0 + un.local;
   float vg[4], ve[4], vi[4], vm[4];
   ld(op.g, i, un.cnt, vg);
   ld(op.e, i, un.cnt, ve);
   if (GAMMA) ld(op.gin, i, un.cnt, vi);
-  if (GM != kGmNone) load_gmask(op.gm, GM, t, un, vm);
+  if (GM != kGmNone) load_gmask(op.gm, gm_row, t, un, vm);
   for (int k = 0; k < un.cnt; ++k) {
     float s = __fmaf_rn(wt, vg[k], ve[k]);
     if (GAMMA) s = __fmaf_rn(pw, s, vi[k]);
@@ -152,12 +156,13 @@ count_rank_kernel(Operand op, const float* __restrict__ taus, int nb_taus,
   __syncthreads();
   const float wt = op.w[w];
   const float pw = GAMMA ? op.p[w] : 0.f;
+  const long long gm_row = gmask_row(w, op.gm_lpc, d);
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const TileGeom t = tile_geom_at(d, tile, w);
     for (int u = threadIdx.x; u < t.nunits; u += blockDim.x) {
       const Unit un = unit_at(t, u);
       float mag[4];
-      load_mag<GM, GAMMA>(op, wt, pw, t, un, mag);
+      load_mag<GM, GAMMA>(op, wt, pw, gm_row, t, un, mag);
       for (int k = 0; k < un.cnt; ++k) {
         const int r = rank_of(mag[k], s_sorted, B);
         if (r) atomicAdd(&s_hist[r], 1);
@@ -399,12 +404,13 @@ __device__ __forceinline__ void hist_elements(
   const int w = blockIdx.y, nb = branch + 1;
   const float wt = op.w[w];
   const float pw = GAMMA ? op.p[w] : 0.f;
+  const long long gm_row = gmask_row(w, op.gm_lpc, d);
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const TileGeom t = tile_geom_at(d, tile, w);
     for (int u = threadIdx.x; u < t.nunits; u += blockDim.x) {
       const Unit un = unit_at(t, u);
       float mag[4];
-      load_mag<GM, GAMMA>(op, wt, pw, t, un, mag);
+      load_mag<GM, GAMMA>(op, wt, pw, gm_row, t, un, mag);
       for (int k = 0; k < un.cnt; ++k) {
         const float m = mag[k];
         int d1, d2;
@@ -627,44 +633,40 @@ int count_ge_level_launch(const void* x, int dtype, const float* taus,
 int count_ge_fused_level_launch(const float* g, const float* e,
                                 const float* gin, const float* weight,
                                 const float* part, const float* gm,
-                                int gm_kind, const float* taus, int* ranks,
-                                int* counts, int w_lanes, int nb_taus,
-                                long long d, void* stream_ptr) {
-  const Operand op{g, e, gin, gm, weight, part};
+                                int gm_lpc, const float* taus,
+                                int* ranks, int* counts, int w_lanes,
+                                int nb_taus, long long d, void* stream_ptr) {
+  const Operand op{g, e, gin, gm, weight, part, gm_lpc};
   cudaStream_t s = (cudaStream_t)stream_ptr;
 #define COUNT(GMK, GA)                                                     \
   return count_launch<GMK, GA>(op, taus, ranks, counts, w_lanes, nb_taus, \
                                d, s)
   if (gin != nullptr) {
-    if (gm_kind == kGmShared) COUNT(kGmShared, true);
-    if (gm_kind == kGmLane) COUNT(kGmLane, true);
+    if (gm != nullptr) COUNT(kGmRows, true);
     COUNT(kGmNone, true);
   }
-  if (gm_kind == kGmShared) COUNT(kGmShared, false);
-  if (gm_kind == kGmLane) COUNT(kGmLane, false);
+  if (gm != nullptr) COUNT(kGmRows, false);
   COUNT(kGmNone, false);
 #undef COUNT
 }
 
 int hist_topq_level_launch(const float* g, const float* e, const float* gin,
                            const float* weight, const float* part,
-                           const float* gm, int gm_kind, const float* tau1,
-                           const float* new_lo, const float* w2,
-                           const float* top_shift, int* d2, int* f,
-                           int w_lanes, int branch, long long d,
+                           const float* gm, int gm_lpc,
+                           const float* tau1, const float* new_lo,
+                           const float* w2, const float* top_shift, int* d2,
+                           int* f, int w_lanes, int branch, long long d,
                            void* stream_ptr) {
-  const Operand op{g, e, gin, gm, weight, part};
+  const Operand op{g, e, gin, gm, weight, part, gm_lpc};
   cudaStream_t s = (cudaStream_t)stream_ptr;
 #define HIST(GMK, GA)                                                      \
   return hist_launch<GMK, GA>(op, tau1, new_lo, w2, top_shift, d2, f,     \
                               w_lanes, branch, d, s)
   if (gin != nullptr) {
-    if (gm_kind == kGmShared) HIST(kGmShared, true);
-    if (gm_kind == kGmLane) HIST(kGmLane, true);
+    if (gm != nullptr) HIST(kGmRows, true);
     HIST(kGmNone, true);
   }
-  if (gm_kind == kGmShared) HIST(kGmShared, false);
-  if (gm_kind == kGmLane) HIST(kGmLane, false);
+  if (gm != nullptr) HIST(kGmRows, false);
   HIST(kGmNone, false);
 #undef HIST
 }

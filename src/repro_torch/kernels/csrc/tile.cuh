@@ -6,8 +6,8 @@
 // tail of a row is masked in place. A lane's row starts at w*d floats, which
 // is 16-byte aligned only when w*d % 4 == 0, so a tile runs a scalar head up
 // to the next 16-byte boundary, float4 units through the middle and a scalar
-// tail. A lane-shared [d] global mask has another alignment than the rows
-// and is read with scalar loads.
+// tail. A global mask row takes the same float4 loads where it has the lane
+// row's alignment, and scalar loads where it has not.
 
 #pragma once
 
@@ -20,7 +20,10 @@ constexpr int kLanes = 1024;
 constexpr int kTile = kSublanes * kLanes;   // elements per block
 constexpr int kThreads = 256;
 
-enum GmaskKind { kGmNone = 0, kGmShared = 1, kGmLane = 2 };
+// The global mask: none, or B rows of d over W cohort-major lanes, lane w
+// reading row w / (W / B). A lane-shared [d] mask is B = 1, a cohort-shared
+// [B, d] mask B cohorts, a per-lane [W, d] mask B = W.
+enum GmaskKind { kGmNone = 0, kGmRows = 1 };
 
 // One unit of a tile: either a float4 (4 elements, 16-byte aligned) or a
 // scalar element in the unaligned head or the tail.
@@ -84,7 +87,8 @@ __device__ __forceinline__ void ld(const float* __restrict__ p, long long i,
   }
 }
 
-// Scalar loads with no alignment assumption (the lane-shared gmask).
+// Scalar loads with no alignment assumption (gmask rows at another
+// alignment than the lane's row).
 __device__ __forceinline__ void ld_any(const float* __restrict__ p,
                                        long long i, int cnt, float v[4]) {
   for (int k = 0; k < cnt; ++k) v[k] = __ldg(p + i + k);
@@ -99,13 +103,26 @@ __device__ __forceinline__ void st(float* __restrict__ p, long long i,
   }
 }
 
+// Flat offset of lane `lane`'s mask row, (lane / lanes_per_cohort) * d.
+// Computed once per block.
+__device__ __forceinline__ long long gmask_row(int lane, int lanes_per_cohort,
+                                               long long d) {
+  return (long long)(lane / lanes_per_cohort) * d;
+}
+
+// The mask values of one unit. A row at the lane row's offset mod 4 floats
+// (every row of a per-lane mask; a shared row only for some lanes) shares
+// the unit's 16-byte alignment and takes float4 loads, any other row
+// scalar loads. The branch is the same for every thread of a block.
 __device__ __forceinline__ void load_gmask(const float* __restrict__ gm,
-                                           int gm_kind, const TileGeom& t,
-                                           const Unit& u, float v[4]) {
-  if (gm_kind == kGmShared) {
-    ld_any(gm, t.t0 + u.local, u.cnt, v);
+                                           long long gm_row,
+                                           const TileGeom& t, const Unit& u,
+                                           float v[4]) {
+  const long long i = gm_row + t.t0 + u.local;
+  if (((gm_row - t.row) & 3) == 0) {
+    ld(gm, i, u.cnt, v);
   } else {
-    ld(gm, t.row + t.t0 + u.local, u.cnt, v);
+    ld_any(gm, i, u.cnt, v);
   }
 }
 

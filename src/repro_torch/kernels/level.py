@@ -53,6 +53,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref
+
 Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -61,8 +63,6 @@ SOURCES = (CSRC / "level.cu", CSRC / "tau_search.cu", CSRC / "chain_accum.cu",
 HEADERS = (CSRC / "tile.cuh", CSRC / "rank.cuh", CSRC / "row.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-
-_GM_NONE, _GM_SHARED, _GM_LANE = 0, 1, 2
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -133,15 +133,16 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         tail = [i, ll, p]                      # w_lanes, d, stream
-        lib.cl_fuse_level_launch.argtypes = [p] * 8 + [i] + [p] * 7 + tail
+        gm = [p, i]                            # gmask, lanes per mask row
+        lib.cl_fuse_level_launch.argtypes = [p] * 7 + gm + [p] * 7 + tail
         lib.sparsify_ef_level_launch.argtypes = [p] * 11 + tail
-        lib.chain_accum_level_launch.argtypes = [p] * 4 + [i] + [p] * 3 + tail
+        lib.chain_accum_level_launch.argtypes = [p] * 3 + gm + [p] * 3 + tail
         lib.level_tiles.argtypes = [ll]
         lib.count_ge_level_launch.argtypes = [p, i] + [p] * 3 + [i, i, ll, p]
         lib.count_ge_fused_level_launch.argtypes = (
-            [p] * 6 + [i] + [p] * 3 + [i, i, ll, p])
+            [p] * 5 + gm + [p] * 3 + [i, i, ll, p])
         lib.hist_topq_level_launch.argtypes = (
-            [p] * 6 + [i] + [p] * 6 + [i, i, ll, p])
+            [p] * 5 + gm + [p] * 6 + [i, i, ll, p])
         lib.hist_shared_max_branch.argtypes = []
         f = ctypes.c_float
         scalars = [p, f, p, f]                 # (pointer or null, value) × 2
@@ -206,14 +207,19 @@ def _lanes(g: Tensor) -> tuple:
 
 
 def _gmask(gmask: Optional[Tensor], w_lanes: int, d: int,
-           dev: torch.device) -> tuple:
-    """→ (tensor, kind): lane-shared [d] masks are read with scalar loads,
-    per-lane [W, d] masks like the other rows."""
+           dev: torch.device, gmask_cohorts: int = 0) -> tuple:
+    """→ (mask rows, lanes per row): lane w reads row w // lanes per row
+    (lanes cohort-major). A lane-shared [d] mask is one row for all W
+    lanes, a cohort-shared [B, d] mask (``gmask_cohorts=B``) one row per
+    W / B lanes, a per-lane [W, d] mask one row per lane."""
     if gmask is None:
-        return None, _GM_NONE
+        return None, 1
     if gmask.dim() == 1:
-        return _check("gmask", gmask, (d,), dev), _GM_SHARED
-    return _rows("gmask", gmask, (w_lanes, d), dev), _GM_LANE
+        return _rows("gmask", gmask, (d,), dev), w_lanes
+    if gmask_cohorts:
+        lpc = ref.lanes_per_cohort(gmask, w_lanes, gmask_cohorts)
+        return _rows("gmask", gmask, (gmask_cohorts, d), dev), lpc
+    return _rows("gmask", gmask, (w_lanes, d), dev), 1
 
 
 def _raise_on(rc: int, name: str):
@@ -242,11 +248,13 @@ def _ptr(t: Optional[Tensor]):
 # ---------------------------------------------------------------------------
 
 def cl_fuse_level_cuda(g, e, gamma_in, weight, tau, participate, valid,
-                       gmask=None, mask_in=None, *, with_err: bool = False):
+                       gmask=None, mask_in=None, *, gmask_cohorts: int = 0,
+                       with_err: bool = False):
     """CUDA :func:`repro_torch.kernels.ref.ref_cl_fuse_level`.
 
     g, e, gamma_in, mask_in: [W, d]; weight, tau, participate, valid: [W];
-    gmask: None, lane-shared [d] or per-lane [W, d]; all float32.
+    gmask: None, lane-shared [d], per-lane [W, d] or, with
+    ``gmask_cohorts=B``, cohort-shared [B, d]; all float32.
     → (γ_out, e′, nnz, nnz_off) (+ pinned ‖e′‖² with ``with_err``).
     """
     w_lanes, d, dev = _lanes(g)
@@ -257,7 +265,7 @@ def cl_fuse_level_cuda(g, e, gamma_in, weight, tau, participate, valid,
            _check("weight", weight, lane, dev), _check("tau", tau, lane, dev),
            _check("participate", participate, lane, dev),
            _check("valid", valid, lane, dev)]
-    gm, gm_kind = _gmask(gmask, w_lanes, d, dev)
+    gm, lpc = _gmask(gmask, w_lanes, d, dev, gmask_cohorts)
     mask = None if mask_in is None else _rows("mask_in", mask_in, rows, dev)
     gout = torch.empty(rows, dtype=torch.float32, device=dev)
     enew = torch.empty(rows, dtype=torch.float32, device=dev)
@@ -266,7 +274,7 @@ def cl_fuse_level_cuda(g, e, gamma_in, weight, tau, participate, valid,
     tile_err, err = _err_scratch(with_err, lib, w_lanes, d, dev)
     with torch.cuda.device(dev):
         rc = lib.cl_fuse_level_launch(
-            *map(_ptr, ins), _ptr(gm), gm_kind, _ptr(mask), _ptr(gout),
+            *map(_ptr, ins), _ptr(gm), lpc, _ptr(mask), _ptr(gout),
             _ptr(enew), _ptr(nnz), _ptr(nnz_off), _ptr(tile_err), _ptr(err),
             w_lanes, d, _stream(dev))
     _raise_on(rc, "cl_fuse_level")
@@ -303,10 +311,12 @@ def sparsify_ef_level_cuda(g, e, mask_in, weight, tau, valid, *,
     return out + (err,) if with_err else out
 
 
-def chain_accum_level_cuda(gamma_in, gbar, valid, gmask=None):
+def chain_accum_level_cuda(gamma_in, gbar, valid, gmask=None, *,
+                           gmask_cohorts: int = 0):
     """CUDA :func:`repro_torch.kernels.ref.ref_chain_accum_level`.
 
-    gamma_in, gbar: [W, d]; valid: [W]; gmask: None, [d] or [W, d].
+    gamma_in, gbar: [W, d]; valid: [W]; gmask: None, [d], [W, d] or, with
+    ``gmask_cohorts=B``, [B, d].
     → (γ_out, nnz, nnz_off).
     """
     w_lanes, d, dev = _lanes(gamma_in)
@@ -314,13 +324,13 @@ def chain_accum_level_cuda(gamma_in, gbar, valid, gmask=None):
     rows, lane = (w_lanes, d), (w_lanes,)
     ins = [_rows("gamma_in", gamma_in, rows, dev),
            _rows("gbar", gbar, rows, dev), _check("valid", valid, lane, dev)]
-    gm, gm_kind = _gmask(gmask, w_lanes, d, dev)
+    gm, lpc = _gmask(gmask, w_lanes, d, dev, gmask_cohorts)
     gout = torch.empty(rows, dtype=torch.float32, device=dev)
     nnz = torch.empty(lane, dtype=torch.int32, device=dev)
     nnz_off = torch.empty(lane, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.chain_accum_level_launch(
-            *map(_ptr, ins), _ptr(gm), gm_kind, _ptr(gout), _ptr(nnz),
+            *map(_ptr, ins), _ptr(gm), lpc, _ptr(gout), _ptr(nnz),
             _ptr(nnz_off), w_lanes, d, _stream(dev))
     _raise_on(rc, "chain_accum_level")
     chain_accum_level_cuda.launches += 1
@@ -350,7 +360,7 @@ def _taus(name: str, taus: Tensor, w_lanes: int, dev, limit: int) -> Tensor:
 
 
 def _fused_operand_args(g, e, gamma_in, weight, participate, gmask,
-                        include_gamma: bool):
+                        include_gamma: bool, gmask_cohorts: int):
     w_lanes, d, dev = _lanes(g)
     rows, lane = (w_lanes, d), (w_lanes,)
     ins = [_rows("g", g, rows, dev), _rows("e", e, rows, dev),
@@ -358,8 +368,8 @@ def _fused_operand_args(g, e, gamma_in, weight, participate, gmask,
            else None,
            _check("weight", weight, lane, dev),
            _check("participate", participate, lane, dev)]
-    gm, gm_kind = _gmask(gmask, w_lanes, d, dev)
-    return w_lanes, d, dev, ins + [gm], gm_kind
+    gm, lpc = _gmask(gmask, w_lanes, d, dev, gmask_cohorts)
+    return w_lanes, d, dev, ins + [gm], lpc
 
 
 def count_ge_level_cuda(x, taus):
@@ -390,16 +400,19 @@ def count_ge_level_cuda(x, taus):
 
 
 def count_ge_fused_level_cuda(g, e, gamma_in, weight, participate, taus,
-                              gmask=None, *, include_gamma: bool = False):
+                              gmask=None, *, include_gamma: bool = False,
+                              gmask_cohorts: int = 0):
     """CUDA :func:`repro_torch.kernels.ref.ref_count_ge_fused_level`.
 
     g, e, gamma_in (read only with ``include_gamma``): [W, d]; weight,
-    participate: [W]; taus: [W, B]; gmask: None, lane-shared [d] or
-    per-lane [W, d]; all float32. → counts [W, B] int32 of the operand
-    ``(1−m)·(p·(w·g + e) + γ_in)`` (factors dropped per the flags).
+    participate: [W]; taus: [W, B]; gmask: None, lane-shared [d], per-lane
+    [W, d] or, with ``gmask_cohorts``, cohort-shared [cohorts, d]; all
+    float32. → counts [W, B] int32 of the operand ``(1−m)·(p·(w·g + e) +
+    γ_in)`` (factors dropped per the flags).
     """
-    w_lanes, d, dev, ins, gm_kind = _fused_operand_args(
-        g, e, gamma_in, weight, participate, gmask, include_gamma)
+    w_lanes, d, dev, ins, lpc = _fused_operand_args(
+        g, e, gamma_in, weight, participate, gmask, include_gamma,
+        gmask_cohorts)
     lib = _load()
     taus = _taus("taus", taus, w_lanes, dev, MAX_TAUS)
     n = taus.shape[1]
@@ -407,7 +420,7 @@ def count_ge_fused_level_cuda(g, e, gamma_in, weight, participate, taus,
     counts = torch.empty((w_lanes, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.count_ge_fused_level_launch(
-            *map(_ptr, ins), gm_kind, _ptr(taus), _ptr(ranks),
+            *map(_ptr, ins), lpc, _ptr(taus), _ptr(ranks),
             _ptr(counts), w_lanes, n, d, _stream(dev))
     _raise_on(rc, "count_ge_fused_level")
     count_ge_fused_level_cuda.launches += 1
@@ -415,15 +428,17 @@ def count_ge_fused_level_cuda(g, e, gamma_in, weight, participate, taus,
 
 
 def hist_topq_level_cuda(g, e, gamma_in, weight, participate, tables,
-                         gmask=None, *, include_gamma: bool = False):
+                         gmask=None, *, include_gamma: bool = False,
+                         gmask_cohorts: int = 0):
     """CUDA :func:`repro_torch.kernels.ref.ref_hist_topq_level`.
 
     Operand arguments as :func:`count_ge_fused_level_cuda`; ``tables =
     (tau1 [W, b], new_lo, w2, top_shift [W, b+1])`` float32, b ≤
     MAX_BRANCH. → ``(D2 [W, b+1, b+1], F [W, b+1])`` int32.
     """
-    w_lanes, d, dev, ins, gm_kind = _fused_operand_args(
-        g, e, gamma_in, weight, participate, gmask, include_gamma)
+    w_lanes, d, dev, ins, lpc = _fused_operand_args(
+        g, e, gamma_in, weight, participate, gmask, include_gamma,
+        gmask_cohorts)
     lib = _load()
     tau1, new_lo, w2, top_shift = tables
     tau1 = _taus("tau1", tau1, w_lanes, dev, MAX_BRANCH)
@@ -435,7 +450,7 @@ def hist_topq_level_cuda(g, e, gamma_in, weight, participate, tables,
     f = torch.empty((w_lanes, nb), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.hist_topq_level_launch(
-            *map(_ptr, ins), gm_kind, _ptr(tau1), *map(_ptr, rest),
+            *map(_ptr, ins), lpc, _ptr(tau1), *map(_ptr, rest),
             _ptr(d2), _ptr(f), w_lanes, branch, d, _stream(dev))
     _raise_on(rc, "hist_topq_level")
     hist_topq_level_cuda.launches += 1

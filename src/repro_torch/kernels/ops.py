@@ -119,24 +119,29 @@ def sparsify_ef_level(g, e, mask_in, weight, tau, valid, *,
 
 def chain_accum_level(gamma_in, gbar, valid, gmask=None, *,
                       gmask_cohorts: int = 0, mode: Mode = "auto"):
-    """IA combine with fused (total, off-global-mask) support counts."""
-    ref._no_cohorts(gmask_cohorts)
+    """IA combine with fused (total, off-global-mask) support counts;
+    ``gmask`` lane-shared [d], per-lane [W, d] or, with
+    ``gmask_cohorts=B``, cohort-shared [B, d] over cohort-major lanes."""
     if _kernel(mode, gamma_in):
-        return level.chain_accum_level_cuda(gamma_in, gbar, valid, gmask)
-    return ref.ref_chain_accum_level(gamma_in, gbar, valid, gmask)
+        return level.chain_accum_level_cuda(gamma_in, gbar, valid, gmask,
+                                            gmask_cohorts=gmask_cohorts)
+    return ref.ref_chain_accum_level(gamma_in, gbar, valid, gmask,
+                                     gmask_cohorts=gmask_cohorts)
 
 
 def cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
                   gmask=None, mask_in=None, *, gmask_cohorts: int = 0,
                   with_err: bool = False, mode: Mode = "auto"):
     """The complete CL node step (Algorithms 3/5, stragglers included)."""
-    ref._no_cohorts(gmask_cohorts)
     if _kernel(mode, g):
         return level.cl_fuse_level_cuda(g, e, gamma_in, weight, tau,
                                         participate, valid, gmask, mask_in,
+                                        gmask_cohorts=gmask_cohorts,
                                         with_err=with_err)
     return ref.ref_cl_fuse_level(g, e, gamma_in, weight, tau, participate,
-                                 valid, gmask, mask_in, with_err=with_err)
+                                 valid, gmask, mask_in,
+                                 gmask_cohorts=gmask_cohorts,
+                                 with_err=with_err)
 
 
 def count_ge_level(x, taus, *, mode: Mode = "auto"):
@@ -152,14 +157,14 @@ def count_ge_fused_level(g, e, gamma_in, weight, participate, taus,
                          gmask_cohorts: int = 0, mode: Mode = "auto"):
     """Per-lane candidate counts of the fused bisection operand
     ``(1−m)·(p·(w·g + e) + γ_in)``; [W, d] inputs, taus [W, B] → [W, B]."""
-    ref._no_cohorts(gmask_cohorts)
     if _kernel(mode, g):
         return level.count_ge_fused_level_cuda(
             g, e, gamma_in, weight, participate, taus, gmask,
-            include_gamma=include_gamma)
+            include_gamma=include_gamma, gmask_cohorts=gmask_cohorts)
     return ref.ref_count_ge_fused_level(g, e, gamma_in, weight, participate,
                                         taus, gmask,
-                                        include_gamma=include_gamma)
+                                        include_gamma=include_gamma,
+                                        gmask_cohorts=gmask_cohorts)
 
 
 def hist_topq_level(g, e, gamma_in, weight, participate, tables, gmask=None,
@@ -168,11 +173,11 @@ def hist_topq_level(g, e, gamma_in, weight, participate, tables, gmask=None,
     """Joint digit histogram of the fused operand (``tau_impl="hist"``);
     ``tables`` per :func:`repro_torch.core.sparsify._hist_tables` →
     ``(D2 [W, b+1, b+1], F [W, b+1])`` int32."""
-    ref._no_cohorts(gmask_cohorts)
     if _kernel(mode, g):
         return level.hist_topq_level_cuda(
             g, e, gamma_in, weight, participate, tables, gmask,
-            include_gamma=include_gamma)
+            include_gamma=include_gamma, gmask_cohorts=gmask_cohorts)
     return ref.ref_hist_topq_level(g, e, gamma_in, weight, participate,
                                    tables, gmask,
-                                   include_gamma=include_gamma)
+                                   include_gamma=include_gamma,
+                                   gmask_cohorts=gmask_cohorts)

@@ -36,11 +36,29 @@ LANES = 1024
 BLOCK = SUBLANES * LANES
 
 
-def _no_cohorts(gmask_cohorts: int):
-    if gmask_cohorts:
-        raise NotImplementedError(
-            "cohort-shared [B, d] global masks (gmask_cohorts) are not "
-            "ported yet — ROADMAP A10")
+def lanes_per_cohort(gmask: Tensor, lanes: int, gmask_cohorts: int) -> int:
+    """→ lanes per cohort of a cohort-shared ``[B, d]`` mask
+    (``gmask_cohorts=B``) over ``lanes`` cohort-major lanes: lane w reads
+    row w // (lanes / B). ``ValueError`` (the reference's) unless the mask
+    has B rows and B divides the lanes."""
+    if gmask.shape[0] != gmask_cohorts or lanes % gmask_cohorts:
+        raise ValueError(
+            f"cohort gmask {tuple(gmask.shape)} incompatible with "
+            f"{lanes} lanes / {gmask_cohorts} cohorts")
+    return lanes // gmask_cohorts
+
+
+def expand_gmask(gmask: Optional[Tensor], lanes: int, gmask_cohorts: int):
+    """A cohort-shared ``[B, d]`` gmask (``gmask_cohorts=B``) → per-lane
+    ``[lanes, d]``, cohort-major (any trailing shape: ``[B, 1]`` per-cohort
+    counts repeat alike). Values are only repeated, so each lane computes
+    what the sequential call with its cohort's ``[d]`` mask computes. Other
+    masks (none, lane-shared ``[d]``, per-lane without ``gmask_cohorts``)
+    pass through."""
+    if gmask is None or not gmask_cohorts or gmask.dim() != 2:
+        return gmask
+    return gmask.repeat_interleave(
+        lanes_per_cohort(gmask, lanes, gmask_cohorts), dim=0)
 
 
 def _apply_valid(valid: Tensor, *arrays):
@@ -115,10 +133,11 @@ def ref_chain_accum_level(gamma_in, gbar, valid, gmask=None, *,
                           gmask_cohorts: int = 0):
     """γ_out = γ_in + ḡ with the total and off-global-mask support counts.
 
-    ``gmask`` is lane-shared ``[d]`` or per-lane ``[W, d]``; without it
+    ``gmask`` is lane-shared ``[d]``, per-lane ``[W, d]`` or, with
+    ``gmask_cohorts=B``, cohort-shared ``[B, d]``; without it
     ``nnz_off == nnz``. Returns (γ_out, nnz [W] i32, nnz_off [W] i32).
     """
-    _no_cohorts(gmask_cohorts)
+    gmask = expand_gmask(gmask, gamma_in.shape[0], gmask_cohorts)
     gamma = gamma_in.to(torch.float32) + gbar.to(torch.float32)
     gamma = _apply_valid(valid, gamma)
     nz = gamma != 0
@@ -136,8 +155,9 @@ def ref_cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
     Λ = keep ? Λ̃ : 0; e′ = Λ̃ − Λ; γ = m·s + Λ (Alg 3: γ = Λ); a lane with
     p = 0 forwards (γ_in, g̃). Returns (γ_out, e′, nnz [W] i32,
     nnz_off [W] i32), plus the pinned-order ‖e′‖² when ``with_err``.
+    ``gmask`` takes the forms of :func:`ref_chain_accum_level`.
     """
-    _no_cohorts(gmask_cohorts)
+    gmask = expand_gmask(gmask, g.shape[0], gmask_cohorts)
     w = weight[:, None].to(torch.float32)
     p = participate[:, None].to(torch.float32)
     gt = torch.addcmul(e.to(torch.float32), w, g.to(torch.float32))
@@ -171,9 +191,10 @@ def fused_operand(g, e, gamma_in, weight, participate, gmask=None, *,
     * CL-TC-SIA:     ``(1−m)·(p·(w·g + e) + γ_in)``
 
     The same float expressions as the kernels, so the exact Top-Q masks
-    computed from it select what the kernels' τ test would.
+    computed from it select what the kernels' τ test would. ``gmask`` takes
+    the forms of :func:`ref_chain_accum_level`.
     """
-    _no_cohorts(gmask_cohorts)
+    gmask = expand_gmask(gmask, g.shape[0], gmask_cohorts)
     s = torch.addcmul(e.to(torch.float32), weight[:, None].to(torch.float32),
                       g.to(torch.float32))
     if include_gamma:

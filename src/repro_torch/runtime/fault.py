@@ -81,7 +81,8 @@ def dead_banked_mass(ef: Tensor, participation: Tensor) -> Tensor:
 
     ``participation`` is the effective [K] mask (participate ∧ alive). A
     client at 0 still *holds* its bank — the mass is only lost if it never
-    returns — so this is the round's exposure bound.
+    returns — so this is the round's exposure bound. Leading axes (cohorts:
+    ``ef`` [B, K, d], ``participation`` [B, K]) give one value each.
     """
     dead = 1.0 - torch.clamp(participation, 0.0, 1.0)
-    return (dead * banked_mass(ef)).sum()
+    return (dead * banked_mass(ef)).sum(dim=-1)

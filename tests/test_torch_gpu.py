@@ -16,7 +16,10 @@ scalars as numbers and as tensors on the card, on views that do not start
 on a 16-byte boundary, with taus in any order, on the bucket edges of
 ``count_ge``'s rank table, through the ``ops`` entries under ``"always"``,
 and against the W = 1 level kernels where the two compute the same
-function.
+function. The four kernels that take a global mask are held the same way
+in its cohort-shared ``[B, d]`` form (``gmask_cohorts=B``), with cohort
+rows that do not start on a 16-byte boundary (b·d % 4 ≠ 0), straggler and
+``valid == 0`` lanes, and a ``ValueError`` where B does not divide W.
 """
 
 import math
@@ -336,6 +339,138 @@ def test_tau_search_ops_launch_on_cuda(cuda):
     ops.hist_topq_level(*args, tables, mode="ref")
     grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
     assert grown == [0, 0, 0, 2, 2, 2]
+
+
+# ---------------------------------------------------------------------------
+# the cohort-shared [B, d] global mask
+# ---------------------------------------------------------------------------
+
+# (W, d, B): cohort rows at b·d with d % 4 = 2, 1, 3 and 0
+COHORT_SHAPES = [(6, 7850, 3), (4, 2 * 8192 + 77, 2), (8, 3, 4),
+                 (4, 8192, 2), (6, 7850, 6)]
+
+
+def _cohort_inputs(w, d, b, cuda, seed):
+    x = _inputs(w, d, seed=seed)
+    x["gmc"] = (np.random.default_rng(seed + 1).random((b, d)) < 0.1
+                ).astype(np.float32)
+    return {k: _both(v, cuda) for k, v in x.items()}
+
+
+@pytest.mark.parametrize("w,d,b", COHORT_SHAPES)
+@pytest.mark.parametrize("with_err", [False, True])
+def test_cl_fuse_level_kernel_cohort_gmask(cuda, w, d, b, with_err):
+    c = _cohort_inputs(w, d, b, cuda, seed=11)
+    pick = lambda i: [c[k][i] for k in ("g", "e", "gin", "weight", "tau",
+                                        "part", "valid", "gmc", "mask")]
+    want = ref.ref_cl_fuse_level(*pick(0), gmask_cohorts=b,
+                                 with_err=with_err)
+    n0 = level.cl_fuse_level_cuda.launches
+    got = level.cl_fuse_level_cuda(*pick(1), gmask_cohorts=b,
+                                   with_err=with_err)
+    torch.cuda.synchronize()
+    assert level.cl_fuse_level_cuda.launches == n0 + 1
+    for u, v in zip(want, got):
+        _same(u, v)
+
+
+@pytest.mark.parametrize("w,d,b", COHORT_SHAPES)
+def test_chain_accum_level_kernel_cohort_gmask(cuda, w, d, b):
+    c = _cohort_inputs(w, d, b, cuda, seed=12)
+    args = lambda i: (c["gin"][i], c["g"][i], c["valid"][i], c["gmc"][i])
+    want = ref.ref_chain_accum_level(*args(0), gmask_cohorts=b)
+    got = level.chain_accum_level_cuda(*args(1), gmask_cohorts=b)
+    torch.cuda.synchronize()
+    for u, v in zip(want, got):
+        _same(u, v)
+
+
+@pytest.mark.parametrize("b", [0, 2])
+def test_gmask_view_off_a_16_byte_boundary(cuda, b):
+    # a lane-shared [d] (b = 0) or cohort-shared [b, d] mask that starts 4
+    # bytes into its buffer: the kernels take float4 loads from mask rows
+    # with the lane row's alignment, so the wrapper copies such a view
+    w, d = 4, 7850
+    rows = max(b, 1)
+    flat = (np.random.default_rng(14).random(rows * d + 1) < 0.1
+            ).astype(np.float32)
+    gm = [t[1:].view(rows, d) if b else t[1:]
+          for t in _both(flat, cuda)]
+    assert gm[1].data_ptr() % 16
+    c = {k: _both(v, cuda) for k, v in _inputs(w, d, seed=13).items()}
+    args = lambda i: (c["gin"][i], c["g"][i], c["valid"][i], gm[i])
+    kw = dict(gmask_cohorts=b) if b else {}
+    want = ref.ref_chain_accum_level(*args(0), **kw)
+    got = level.chain_accum_level_cuda(*args(1), **kw)
+    torch.cuda.synchronize()
+    for u, v in zip(want, got):
+        _same(u, v)
+
+
+@pytest.mark.parametrize("w,d,b", COHORT_SHAPES)
+@pytest.mark.parametrize("include_gamma", [False, True])
+@pytest.mark.parametrize("branch", [64, 256])
+def test_tau_search_kernels_cohort_gmask(cuda, w, d, b, include_gamma,
+                                         branch):
+    c = _cohort_inputs(w, d, b, cuda, seed=13)
+    kw = dict(include_gamma=include_gamma, gmask_cohorts=b)
+    op = ref.fused_operand(*_operand(None, 0, c), c["gmc"][0], **kw)
+    tables = _tables(op, branch)
+    want = ref.ref_count_ge_fused_level(*_operand(None, 0, c), tables[0],
+                                        c["gmc"][0], **kw)
+    got = level.count_ge_fused_level_cuda(*_operand(None, 1, c),
+                                          tables[0].to(cuda), c["gmc"][1],
+                                          **kw)
+    torch.cuda.synchronize()
+    _same(want, got)
+    want = ref.ref_hist_topq_level(*_operand(None, 0, c), tables,
+                                   c["gmc"][0], **kw)
+    got = level.hist_topq_level_cuda(*_operand(None, 1, c),
+                                     tuple(t.to(cuda) for t in tables),
+                                     c["gmc"][1], **kw)
+    torch.cuda.synchronize()
+    for u, v in zip(want, got):
+        _same(u, v)
+
+
+def test_cohort_gmask_rejects_cohorts_that_do_not_divide_the_lanes(cuda):
+    c = _cohort_inputs(6, 100, 4, cuda, seed=14)
+    lanes = (c["gin"][1], c["g"][1], c["valid"][1])
+    with pytest.raises(ValueError, match="incompatible"):
+        level.chain_accum_level_cuda(*lanes, c["gmc"][1], gmask_cohorts=4)
+    with pytest.raises(ValueError, match="incompatible"):
+        level.chain_accum_level_cuda(*lanes, c["gmc"][1][:3],
+                                     gmask_cohorts=2)
+    tables = _tables(ref.fused_operand(*_operand(None, 1, c)), 16)
+    for fn, arg in ((level.count_ge_fused_level_cuda, tables[0]),
+                    (level.hist_topq_level_cuda, tables)):
+        with pytest.raises(ValueError, match="incompatible"):
+            fn(*_operand(None, 1, c), arg, c["gmc"][1], gmask_cohorts=4)
+    n0 = level.cl_fuse_level_cuda.launches
+    with pytest.raises(ValueError, match="incompatible"):
+        level.cl_fuse_level_cuda(
+            *(c[k][1] for k in ("g", "e", "gin", "weight", "tau", "part",
+                                "valid")), c["gmc"][1], gmask_cohorts=4)
+    assert level.cl_fuse_level_cuda.launches == n0
+
+
+def test_ops_cohort_gmask_launch_on_cuda(cuda):
+    c = _cohort_inputs(4, 1000, 2, cuda, seed=15)
+    args = _operand(None, 1, c)
+    tables = _tables(ref.fused_operand(*args), 16)
+    n0 = [k.launches for k in level.KERNELS]
+    for mode in ("auto", "always"):
+        ops.chain_accum_level(c["gin"][1], c["g"][1], c["valid"][1],
+                              c["gmc"][1], gmask_cohorts=2, mode=mode)
+        ops.cl_fuse_level(*(c[k][1] for k in ("g", "e", "gin", "weight",
+                                              "tau", "part", "valid")),
+                          c["gmc"][1], gmask_cohorts=2, mode=mode)
+        ops.count_ge_fused_level(*args, tables[0], c["gmc"][1],
+                                 gmask_cohorts=2, mode=mode)
+        ops.hist_topq_level(*args, tables, c["gmc"][1], gmask_cohorts=2,
+                            mode=mode)
+    grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
+    assert grown == [2, 0, 2, 2, 2, 0]
 
 
 # ---------------------------------------------------------------------------

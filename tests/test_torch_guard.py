@@ -146,6 +146,38 @@ def test_kernel_entries_follow_the_tensors_device():
             level.chain_accum_level_cuda(g, g, v)
 
 
+def test_batched_entry_points_follow_the_device_and_never_fall_back():
+    """The batched round runs on the simulator's device (the card unless
+    it was built with ``device="cpu"``, which a machine without a card
+    needs); ``execute_batched`` and the scheduler run on their tensors'
+    device, and ``kernel_mode="always"`` on CPU tensors raises rather
+    than take the plain versions; the cohort-form kernels refuse CPU
+    tensors."""
+    from repro_torch.agg import (CohortRound, RoundScheduler, compile_plan,
+                                 execute_batched)
+    before = [k.launches for k in level.KERNELS]
+    sim = Simulator(PAPER, AggConfig(kind="cl_tc_sia"), _fed(), device="cpu")
+    out = sim.run_batched(1, seeds=[0, 1])
+    assert out["state"].ef.device.type == "cpu"
+    assert out["state"].ef.shape == (2, 3, PAPER.d)
+    g = torch.ones(2, 3, 10)
+    w = torch.ones(2, 3)
+    plan = compile_plan(3)
+    res = execute_batched(AggConfig(kind="tc_sia"), plan, g, g, w)
+    assert res.aggregate.device.type == "cpu"
+    sched = RoundScheduler(AggConfig(kind="tc_sia"))
+    got = sched.submit([CohortRound(0, plan, g[0], g[0], w[0])])
+    assert got[0].aggregate.device.type == "cpu"
+    assert [k.launches for k in level.KERNELS] == before
+    with pytest.raises(RuntimeError, match="always"):
+        execute_batched(AggConfig(kind="tc_sia", kernel_mode="always"),
+                        plan, g, g, w)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="CUDA"):
+            level.chain_accum_level_cuda(g[0], g[0], w[0], torch.zeros(1, 10),
+                                         gmask_cohorts=1)
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -4,11 +4,12 @@ Each plain version (``repro_torch.kernels.ref``) is held bit for bit
 (tolerance: none) against the Pallas kernel it stands for, run in interpret
 mode on the CPU, and against ``repro.kernels.ref`` under ``jax.jit``, over
 every variant the chip smoke sweeps: global mask none / lane-shared [d] /
-per-lane [W, d], mask_in on and off, the pinned ‖e′‖² on and off, a
+per-lane [W, d] / cohort-shared [B, d] (``gmask_cohorts=2``: two cohorts of
+two cohort-major lanes), mask_in on and off, the pinned ‖e′‖² on and off, a
 ``valid == 0`` lane, a ``p == 0`` lane and a τ = +inf lane, at a ragged
 d = 2·8192 + 77 (two full 8×1024 tiles and a partial one). The τ-search
 counts and the digit histogram are held the same way, over γ_in on and
-off and the three global-mask forms; the Pallas kernels pad each row with
+off and the four global-mask forms; the Pallas kernels pad each row with
 zeros to whole tiles, and their histogram counts that padding in the bin
 ``D2[w, 0, 0]`` (which the bisection never reads), so that one bin is left
 out of the comparison with them and only there.
@@ -30,6 +31,7 @@ from repro_torch.kernels import ref as tref
 torch.set_num_threads(1)
 
 W, D = 4, 2 * 8192 + 77
+COHORTS = 2          # the cohort-shared mask: lanes 0-1 and 2-3
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +47,8 @@ def x():
         valid=np.array([1, 1, 1, 0], np.float32),
         gm=(rng.random(D) < 0.1).astype(np.float32),
         gmw=(rng.random((W, D)) < 0.1).astype(np.float32),
-        mask=(rng.random((W, D)) < 0.05).astype(np.float32))
+        mask=(rng.random((W, D)) < 0.05).astype(np.float32),
+        gmc=(rng.random((COHORTS, D)) < 0.1).astype(np.float32))
 
 
 def _same(a, b):
@@ -60,7 +63,11 @@ def _t(a):
     return None if a is None else torch.from_numpy(np.array(a))
 
 
-GMASKS = [None, "gm", "gmw"]
+GMASKS = [None, "gm", "gmw", "gmc"]
+
+
+def _cohorts(gm):
+    return COHORTS if gm == "gmc" else 0
 
 
 @pytest.mark.parametrize("gm", GMASKS)
@@ -72,14 +79,15 @@ def test_cl_fuse_level_plain_matches_pallas_and_ref(x, gm, with_mask,
     mask = x["mask"] if with_mask else None
     args = (x["g"], x["e"], x["gin"], x["weight"], x["tau"], x["part"],
             x["valid"])
+    c = _cohorts(gm)
     pallas = jlevel.cl_fuse_level_pallas(
         *args, None if gmask is None else jnp.asarray(gmask),
-        None if mask is None else jnp.asarray(mask), with_err=with_err,
-        interpret=True)
+        None if mask is None else jnp.asarray(mask), gmask_cohorts=c,
+        with_err=with_err, interpret=True)
     jitted = jax.jit(lambda *a: jref.ref_cl_fuse_level(
-        *a, with_err=with_err))(*args, gmask, mask)
+        *a, gmask_cohorts=c, with_err=with_err))(*args, gmask, mask)
     got = tref.ref_cl_fuse_level(*map(_t, args), _t(gmask), _t(mask),
-                                 with_err=with_err)
+                                 gmask_cohorts=c, with_err=with_err)
     assert len(got) == len(pallas) == 4 + with_err
     for p, j, t in zip(pallas, jitted, got):
         _same(p, t)
@@ -110,13 +118,16 @@ def test_sparsify_ef_level_plain_matches_pallas_and_ref(x, with_mask,
 @pytest.mark.parametrize("gm", GMASKS)
 def test_chain_accum_level_plain_matches_pallas_and_ref(x, gm):
     gmask = x[gm] if gm else None
+    c = _cohorts(gm)
     pallas = jlevel.chain_accum_level_pallas(
         x["gin"], x["g"], x["valid"],
-        None if gmask is None else jnp.asarray(gmask), interpret=True)
-    jitted = jax.jit(jref.ref_chain_accum_level)(x["gin"], x["g"],
-                                                 x["valid"], gmask)
+        None if gmask is None else jnp.asarray(gmask), gmask_cohorts=c,
+        interpret=True)
+    jitted = jax.jit(lambda *a: jref.ref_chain_accum_level(
+        *a, gmask_cohorts=c))(x["gin"], x["g"], x["valid"], gmask)
     got = tref.ref_chain_accum_level(_t(x["gin"]), _t(x["g"]),
-                                     _t(x["valid"]), _t(gmask))
+                                     _t(x["valid"]), _t(gmask),
+                                     gmask_cohorts=c)
     for p, j, t in zip(pallas, jitted, got):
         _same(p, t)
         _same(j, t)
@@ -126,12 +137,13 @@ def test_chain_accum_level_plain_matches_pallas_and_ref(x, gm):
 @pytest.mark.parametrize("include_gamma", [False, True])
 def test_fused_operand_matches_ref(x, gm, include_gamma):
     gmask = x[gm] if gm else None
+    c = _cohorts(gm)
     want = jax.jit(lambda *a: jref.fused_operand(
-        *a, include_gamma=include_gamma))(x["g"], x["e"], x["gin"],
-                                          x["weight"], x["part"], gmask)
+        *a, include_gamma=include_gamma, gmask_cohorts=c))(
+            x["g"], x["e"], x["gin"], x["weight"], x["part"], gmask)
     got = tref.fused_operand(_t(x["g"]), _t(x["e"]), _t(x["gin"]),
                              _t(x["weight"]), _t(x["part"]), _t(gmask),
-                             include_gamma=include_gamma)
+                             include_gamma=include_gamma, gmask_cohorts=c)
     _same(want, got)
 
 
@@ -164,10 +176,26 @@ def test_ops_run_plain_versions_on_cpu_tensors(x):
         tops.resolve("sometimes", torch.device("cpu"))
 
 
-def test_cohort_gmask_is_not_ported(x):
+def test_cohort_gmask_runs_the_plain_versions(x):
+    """The ``ops`` entries take a cohort-shared mask on CPU tensors
+    through the plain versions: each cohort's lanes get what the
+    lane-shared call with that cohort's [d] row gives, and a mask whose
+    cohorts do not divide the lanes raises the reference's ValueError."""
+    before = [k.launches for k in tlevel.KERNELS]
     args = [_t(x[k]) for k in ("gin", "g", "valid")]
-    with pytest.raises(NotImplementedError, match="A10"):
-        tops.chain_accum_level(*args, _t(x["gm"][None]), gmask_cohorts=1)
+    gmc = _t(x["gmc"])
+    got = tops.chain_accum_level(*args, gmc, gmask_cohorts=COHORTS)
+    lanes = W // COHORTS
+    for b in range(COHORTS):
+        rows = slice(b * lanes, (b + 1) * lanes)
+        want = tops.chain_accum_level(*(a[rows] for a in args), gmc[b])
+        for u, v in zip(want, got):
+            assert torch.equal(u, v[rows])
+    with pytest.raises(ValueError, match="incompatible"):
+        tops.chain_accum_level(*args, _t(x["gmw"][:3]), gmask_cohorts=3)
+    with pytest.raises(ValueError, match="incompatible"):
+        tops.chain_accum_level(*args, gmc, gmask_cohorts=1)
+    assert [k.launches for k in tlevel.KERNELS] == before
 
 
 # ---------------------------------------------------------------------------
@@ -195,19 +223,22 @@ def _without_pad_bin(d2):
 def test_count_ge_fused_level_plain_matches_pallas_and_ref(x, gm,
                                                            include_gamma):
     gmask = x[gm] if gm else None
+    c = _cohorts(gm)
     args = _operand_args(x)
     op = tref.fused_operand(*map(_t, args), _t(gmask),
-                            include_gamma=include_gamma)
+                            include_gamma=include_gamma, gmask_cohorts=c)
     taus = _tables(op, 64)[0].numpy()            # nondecreasing per lane
     taus[:, :3] = 0.0                            # counts every real element
     got = tref.ref_count_ge_fused_level(*map(_t, args), _t(taus),
                                         _t(gmask),
-                                        include_gamma=include_gamma)
+                                        include_gamma=include_gamma,
+                                        gmask_cohorts=c)
     jitted = jax.jit(lambda *a: jref.ref_count_ge_fused_level(
-        *a, include_gamma=include_gamma))(*args, taus, gmask)
+        *a, include_gamma=include_gamma, gmask_cohorts=c))(*args, taus,
+                                                           gmask)
     pallas = jlevel.count_ge_fused_level_pallas(
         *args, taus, None if gmask is None else jnp.asarray(gmask),
-        include_gamma=include_gamma, interpret=True)
+        include_gamma=include_gamma, gmask_cohorts=c, interpret=True)
     _same(jitted, got)
     _same(pallas, got)
     assert (got[:, 0].numpy() == D).all()
@@ -230,18 +261,20 @@ def test_count_ge_level_plain_matches_pallas_and_ref(x):
 @pytest.mark.parametrize("include_gamma", [False, True])
 def test_hist_topq_level_plain_matches_pallas_and_ref(x, gm, include_gamma):
     gmask = x[gm] if gm else None
+    c = _cohorts(gm)
     args = _operand_args(x)
     op = tref.fused_operand(*map(_t, args), _t(gmask),
-                            include_gamma=include_gamma)
+                            include_gamma=include_gamma, gmask_cohorts=c)
     tables = _tables(op, 64)
     got = tref.ref_hist_topq_level(*map(_t, args), tables, _t(gmask),
-                                   include_gamma=include_gamma)
+                                   include_gamma=include_gamma,
+                                   gmask_cohorts=c)
     jt = tuple(t.numpy() for t in tables)
     jitted = jax.jit(lambda *a: jref.ref_hist_topq_level(
-        *a, include_gamma=include_gamma))(*args, jt, gmask)
+        *a, include_gamma=include_gamma, gmask_cohorts=c))(*args, jt, gmask)
     pallas = jlevel.hist_topq_level_pallas(
         *args, jt, None if gmask is None else jnp.asarray(gmask),
-        include_gamma=include_gamma, interpret=True)
+        include_gamma=include_gamma, gmask_cohorts=c, interpret=True)
     for j, t in zip(jitted, got):
         _same(j, t)
     _same(_without_pad_bin(pallas[0]),
@@ -302,7 +335,15 @@ def test_tau_search_ops_run_plain_versions_on_cpu_tensors(x, mode):
         tops.count_ge_fused_level(*args, tables[0], gm, mode="always")
     with pytest.raises(RuntimeError, match="always"):
         tops.count_ge_level(args[0], tables[0], mode="always")
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the cohort-shared [B, d] form: one [d] row per cohort of W / B lanes
+    gmc = _t(x["gmc"])
+    assert torch.equal(
+        tops.count_ge_fused_level(*args, tables[0], gmc,
+                                  gmask_cohorts=COHORTS, mode=mode),
+        tref.ref_count_ge_fused_level(
+            *args, tables[0], gmc.repeat_interleave(W // COHORTS, dim=0)))
+    assert torch.equal(
         tops.count_ge_fused_level(*args, tables[0], gm[None],
-                                  gmask_cohorts=1, mode=mode)
+                                  gmask_cohorts=1, mode=mode),
+        tref.ref_count_ge_fused_level(*args, tables[0], gm))
     assert [k.launches for k in tlevel.KERNELS] == before

@@ -26,6 +26,7 @@ from repro.core import chain as jchain
 from repro.core import sparsify as jsp
 from repro.core.algorithms import AggConfig as JCfg
 from repro.kernels import ops as jops
+from repro.kernels import level as jlevel
 from repro.kernels import ref as jref
 from repro.topo.tree import PS, AggTree
 from repro_torch import convert
@@ -138,6 +139,48 @@ def test_default_scan_shortcut_matches_counting_scan():
         _same(want.numpy(), got, f"q={q} shape={xx.shape}")
         j, _ = _search_both(xx, q)
         _same(j, got, f"reference q={q} shape={xx.shape}")
+
+
+def test_fused_count_cohort_gmask_parity():
+    """Cohort-shared [B, d] global masks (the lanes of a multi-tenant
+    batched round, cohort-major) through the fused count and the histogram:
+    the port's plain versions equal the jitted reference and its Pallas
+    kernels in interpret mode. The Pallas histogram counts its lane padding
+    in the never-read bin D2[·, 0, 0], which is zeroed on both sides."""
+    b, lanes, d = 2, 3, 1000
+    w_l = b * lanes
+    x = _inputs(k=w_l, d=d, seed=5)
+    rng = np.random.default_rng(6)
+    g, e = x["g"], x["e"]
+    gin = np.zeros_like(g)
+    wv = p = np.ones((w_l,), np.float32)
+    gm = (rng.random((b, d)) < 0.1).astype(np.float32)
+    taus = np.sort(rng.random((w_l, 16)).astype(np.float32), axis=-1)
+    args = (g, e, gin, wv, p)
+    got = tops.count_ge_fused_level(*map(_t, args), _t(taus), _t(gm),
+                                    gmask_cohorts=b)
+    _same(jax.jit(functools.partial(jref.ref_count_ge_fused_level,
+                                    gmask_cohorts=b))(*args, taus, gm), got)
+    _same(jlevel.count_ge_fused_level_pallas(*args, taus, gm,
+                                             gmask_cohorts=b,
+                                             interpret=True), got)
+
+    op = tref.fused_operand(*map(_t, args), _t(gm), gmask_cohorts=b)
+    hi = op.abs().amax(-1) * np.float32(1 + 1e-6)
+    tables = tsp._hist_tables(torch.zeros_like(hi),
+                              torch.clamp(hi, min=1e-30), 64)
+    d2, f = tops.hist_topq_level(*map(_t, args), tables, _t(gm),
+                                 gmask_cohorts=b)
+    jt = tuple(t.numpy() for t in tables)
+    for want in (jax.jit(functools.partial(jref.ref_hist_topq_level,
+                                           gmask_cohorts=b))(*args, jt, gm),
+                 jlevel.hist_topq_level_pallas(*args, jt, gm,
+                                               gmask_cohorts=b,
+                                               interpret=True)):
+        d2_w, d2_g = np.array(want[0]), d2.numpy().copy()
+        d2_w[:, 0, 0] = d2_g[:, 0, 0] = 0
+        np.testing.assert_array_equal(d2_w, d2_g)
+        _same(want[1], f)
 
 
 def _assert_hist_matches_scan(x, q, branch, rounds):
