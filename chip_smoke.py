@@ -90,7 +90,26 @@ Phases (any failure exits non-zero and prints no result):
    tree and a K = 4 chain meeting no more input signatures than buckets;
    then one batched round against B sequential rounds at B = 1, 2, 4, 8
    (host clock), and torch.profiler's device ops and busy time of a
-   batched round.
+   batched round;
+8. nested plans, the trace collector and scenarios — the level kernels
+   (table rows 1-5) at an upper stage's shapes (W = 1, 2, 4 lanes at
+   d = 7850, ``g`` a view of sink rows inside the inbox) bit for bit
+   against their plain versions; then the paper simulator (K = 28,
+   d = 7850) with ``nested_topology``: CL-SIA on ``pod_ring_nested(4, 7)``
+   and CL-TC-SIA and SIA on ``cluster_routed(walker_delta(4, 7,
+   gateways=(1, 15)), 4)`` for 20 rounds, TC-SIA under threshold scan and
+   hist for 3, each under a ``TraceCollector``: level-kernel launches held
+   to Σ over rounds of Σ_s L_s, each stage's bits equal to its staged
+   closed form (CL) or under its staged bound (SIA, TC-SIA) every round,
+   the loss falling; a clustered Walker scenario (a relay crash and a
+   ground-link flap, 20 rounds) recorded under a collector, its trace
+   valid and exact against the report's closed-form check, one input
+   signature, and a replay from the trace giving the same round records;
+   three nested rounds on the card fed the CPU's gradients equal to the
+   CPU's bit for bit, stage EF tiers included; ms per round with the
+   collector off, flushing every round and every 32 rounds, and of the
+   flat Walker tree round, timed in five turns (medians); torch.profiler's
+   device ops and busy time of a nested round.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -1726,6 +1745,380 @@ def batched_path(level, data) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: nested (staged) plans, the trace collector and scenarios
+# ---------------------------------------------------------------------------
+
+NESTED_ROUNDS = 20
+NESTED_SHORT = 3                  # the threshold runs
+STAGE_WS = (1, 2, 4)              # an upper stage's lanes: the pod heads
+NESTED_CMP_ROUNDS = 3
+TIMING_TURNS = 5                  # turns of the collector/flat timing
+PHASE8_DIR = Path(__file__).resolve().parent / "build" / "phase8"
+
+
+def check_stage_kernels(level, ref, sp, d: int = 7850):
+    """Rows 1–5 at an upper stage's shapes (W = 1, 2, 4 lanes), ``g`` the
+    sink rows k..k+W−1 of a larger inbox, every variant bit for bit
+    against the plain version on the CPU."""
+    cuda_fns = {"cl_fuse_level": level.cl_fuse_level_cuda,
+                "sparsify_ef_level": level.sparsify_ef_level_cuda,
+                "chain_accum_level": level.chain_accum_level_cuda,
+                "count_ge_fused_level": level.count_ge_fused_level_cuda,
+                "hist_topq_level": level.hist_topq_level_cuda}
+    plain_fns = {"cl_fuse_level": ref.ref_cl_fuse_level,
+                 "sparsify_ef_level": ref.ref_sparsify_ef_level,
+                 "chain_accum_level": ref.ref_chain_accum_level,
+                 "count_ge_fused_level": ref.ref_count_ge_fused_level,
+                 "hist_topq_level": ref.ref_hist_topq_level}
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    n = 0
+    for w in STAGE_WS:
+        x = make_inputs(w, d, SEED + 80 + w)
+        k = 28 + w                     # the sink rows of a stage's inbox
+        inbox = np.zeros((k + w + 1, d), np.float32)
+        inbox[k:k + w] = x["g"]
+        cpu = {key: torch.from_numpy(v) for key, v in x.items()}
+        cpu["g"] = torch.from_numpy(inbox)[k:k + w]
+        gpu = {key: v.to(dev) for key, v in cpu.items()}
+        gpu["g"] = torch.from_numpy(inbox).to(dev)[k:k + w]
+        for name, opt in variants():
+            got = call(cuda_fns, name, gpu, opt)
+            torch.cuda.synchronize()
+            want = call(plain_fns, name, cpu, opt)
+            if not all(bitwise_equal(a, b) for a, b in zip(want, got)):
+                raise SystemExit(f"FAIL {name} {opt} at the stage shape "
+                                 f"W={w} d={d}: kernel differs from its "
+                                 f"plain version")
+            n += 1
+        for name, opt in tau_variants(False):
+            if name == "count_ge_level" or opt.get("edges") \
+                    or opt.get("specials"):
+                continue
+            tables = tau_tables(sp, ref, cpu, opt, opt.get("branch", BRANCH))
+            aux = {"tables": tables}
+            aux_gpu = {"tables": tuple(u.to(dev) for u in tables)}
+            got = call_tau(cuda_fns, name, gpu, opt, aux_gpu)
+            torch.cuda.synchronize()
+            want = call_tau(plain_fns, name, cpu, opt, aux)
+            if not all(bitwise_equal(a, b) for a, b in zip(want, got)):
+                raise SystemExit(f"FAIL {name} {opt} at the stage shape "
+                                 f"W={w} d={d}: kernel differs from its "
+                                 f"plain version")
+            n += 1
+    log(f"[nested] rows 1-5 at the upper stages' shapes W = {STAGE_WS}, "
+        f"d = {d}, g a view of sink rows inside the inbox: {n} variants "
+        f"bit for bit equal to the plain CPU versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def nested_runs(pc, k):
+    """(label, AggConfig keywords, Simulator keywords, rounds, the nested
+    plan, level-kernel launches per level) of phase 8."""
+    from repro_torch.agg import compile_nested, pod_ring_nested
+    from repro_torch.core.algorithms import AggKind
+    from repro_torch.topo import cluster_routed, walker_delta
+
+    exact = dict(q=pc.q, q_global=pc.q_global, q_local=pc.q_local)
+    thr = dict(exact, topq_impl="threshold", hist_branch=BRANCH)
+    pods = pod_ring_nested(4, 7)
+    walker = compile_nested(cluster_routed(walker_delta(**WALKER), 4),
+                            num_clients=k)
+    tc = dict(sparsify_ef_level=1, chain_accum_level=1)
+    return [
+        ("cl_sia pods", dict(kind=AggKind.CL_SIA, **exact), pods,
+         NESTED_ROUNDS, dict(cl_fuse_level=1)),
+        ("cl_tc_sia walker", dict(kind=AggKind.CL_TC_SIA, **exact), walker,
+         NESTED_ROUNDS, dict(cl_fuse_level=1)),
+        ("sia walker", dict(kind=AggKind.SIA, **exact), walker,
+         NESTED_ROUNDS, tc),
+        ("tc_sia scan walker",
+         dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["scan"]), walker,
+         NESTED_SHORT,
+         dict(tc, count_ge_fused_level=THRESHOLD["scan"]["hist_rounds"])),
+        ("tc_sia hist walker",
+         dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["hist"]), walker,
+         NESTED_SHORT, dict(tc, hist_topq_level=1)),
+    ]
+
+
+def stage_bits_ok(kind, plan_meta, stage_bits, pc) -> tuple:
+    """(within?, closed form or bound per stage) for one round's per-stage
+    bits: CL-SIA equals its staged closed form over each stage's live
+    units; CL-TC-SIA stays within its closed form (the TCS mask holds
+    fewer than Q_G nonzeros while the model barely moves, as in round 0);
+    SIA and TC-SIA stay under the staged Prop-2 bound of each stage's
+    recorded subtree sizes (2 % slack: it bounds the expected count, as the
+    report's check reads it)."""
+    from repro_torch.core import comm_cost as cc
+    from repro_torch.core.algorithms import AggKind
+    from repro_torch.obs.record import subtree_sizes_from_parent
+
+    alive = [int(round(sum(st["alive"]))) for st in plan_meta["stages"]]
+    if kind == AggKind.CL_SIA:
+        want = cc.nested_cl_sia_bits(alive, pc.d, pc.q)
+        return list(stage_bits) == list(want), want
+    if kind == AggKind.CL_TC_SIA:
+        want = cc.nested_cl_tc_sia_bits(alive, pc.d, pc.q_global, pc.q_local)
+        return all(b <= w for b, w in zip(stage_bits, want)), want
+    sizes = [subtree_sizes_from_parent(st["parent"])
+             for st in plan_meta["stages"]]
+    qg, ql = ((pc.q_global, pc.q_local) if kind == AggKind.TC_SIA
+              else (0, pc.q))
+    want = cc.nested_tc_sia_bits_bound(sizes, pc.d, qg, ql)
+    return all(b <= 1.02 * w for b, w in zip(stage_bits, want)), want
+
+
+def nested_card_matches_cpu(sim_card, sim_cpu, plan, label: str):
+    """Nested rounds, both simulators fed the CPU's gradients: model, EF
+    rows, every stage EF tier and every stage's bits and counts bit for
+    bit, the loss to rtol 1e-4."""
+    from repro_torch.data.federated import client_minibatch
+
+    gen = torch.Generator().manual_seed(SEED)
+    s_cpu, s_card = sim_cpu.init(), sim_card.init()
+    worst = 0.0
+    for r in range(NESTED_CMP_ROUNDS):
+        bx, by = client_minibatch(sim_cpu.fed, sim_cpu.pc.batch_size, gen)
+        grads = sim_cpu.client_grads(s_cpu.flat_w, bx, by)
+        s_cpu, l_cpu = sim_cpu.aggregate_step(s_cpu, plan, grads)
+        s_card, l_card = sim_card.aggregate_step(s_card, plan, grads.cuda())
+        pairs = [(s_cpu.flat_w, s_card.flat_w), (s_cpu.ef, s_card.ef)]
+        pairs += list(zip(s_cpu.stage_ef, s_card.stage_ef))
+        pairs += [(getattr(a, f), getattr(b, f))
+                  for a, b in zip(l_cpu.stats, l_card.stats)
+                  for f in ("bits", "nnz_out", "nnz_global", "nnz_local")]
+        same = (len(s_cpu.stage_ef) == len(s_card.stage_ef) > 0
+                and all(bitwise_equal(u, v) for u, v in pairs))
+        rel = abs(float(l_card.loss) - float(l_cpu.loss)) / abs(
+            float(l_cpu.loss))
+        worst = max(worst, rel)
+        if not same or rel > 1e-4:
+            raise SystemExit(f"FAIL {label} nested round {r}: card and CPU "
+                             f"differ (state/tiers/bits equal: {same}, loss "
+                             f"rel {rel:.2e})")
+    log(f"[nested] {label}: {NESTED_CMP_ROUNDS} rounds over "
+        f"{plan.shape} on the card vs the CPU with the same gradients: "
+        f"model, EF rows, {len(s_card.stage_ef)} stage EF tier(s), every "
+        f"stage's bits and counts bit for bit; loss max rel diff "
+        f"{worst:.2e}")
+
+
+def walker_scenario(pc):
+    """The clustered Walker shell under a relay crash and a link flap:
+    the relay is a client with children in its cluster's routed tree, the
+    flap the PS's ground link to gateway 1."""
+    from repro_torch.scenario import Crash, LinkFlap, Scenario, TopologySpec
+    from repro_torch.topo import cluster_routed, walker_delta
+    from repro_torch.topo.tree import PS
+
+    nt = cluster_routed(walker_delta(**WALKER), 4)
+    relay = next(members[p] for members, tree in zip(nt.clusters, nt.intra)
+                 for p in tree.parent if p != PS)
+    return Scenario(
+        name="walker-clusters-crash-flap", rounds=NESTED_ROUNDS, seed=SEED,
+        topology=TopologySpec(
+            kind="walker_delta", clients=pc.num_clients, clusters=4,
+            params={"num_planes": WALKER["num_planes"],
+                    "sats_per_plane": WALKER["sats_per_plane"],
+                    "gateways": list(WALKER["gateways"])}),
+        agg={"kind": "cl_sia", "q": pc.q},
+        crashes=(Crash(node=int(relay), round=6, recover=12),),
+        link_flaps=(LinkFlap(link=(0, WALKER["gateways"][0]), start=9,
+                             down=5),))
+
+
+def scenario_run(pc, fed, spec, path: Path):
+    """One run of ``spec`` on the card under a TraceCollector → (curves,
+    round records, simulator)."""
+    from repro_torch.fed import Simulator
+    from repro_torch.obs import TraceCollector, iter_trace
+
+    sim = Simulator(pc, spec.agg_config(), fed, device="cuda")
+    with TraceCollector(str(path)) as col:
+        out = sim.run(spec.rounds, scenario=spec, collector=col,
+                      flush_every=8)
+    recs = [r for r in iter_trace(str(path)) if r["kind"] == "round"]
+    return out, recs, sim
+
+
+def nested_path(level, ref, sp, data) -> dict:
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.fed import Simulator
+    from repro_torch.fed.topology import TreeTopology
+    from repro_torch.obs import TraceCollector, iter_trace, validate_trace
+    from repro_torch.obs.report import closed_form_check, load_trace
+    from repro_torch.scenario import compile_scenario, scenario_from_trace
+    from repro_torch.topo import walker_delta
+
+    pc, fed, test = data
+    k = pc.num_clients
+    t_phase = time.perf_counter()
+    check_stage_kernels(level, ref, sp)
+    PHASE8_DIR.mkdir(parents=True, exist_ok=True)
+    runs = nested_runs(pc, k)
+    sims = {label: Simulator(pc, AggConfig(**cfg), fed, device="cuda",
+                             nested_topology=plan)
+            for label, cfg, plan, _, _ in runs}
+    spec = walker_scenario(pc)
+    compiled = compile_scenario(spec)
+    t0 = time.perf_counter()
+    for label, _, _, _, _ in runs:
+        sims[label].run(2, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"[nested] plans: "
+        + ", ".join(f"{label} {plan.shape}" for label, _, plan, _, _ in runs)
+        + f"; warm-up {time.perf_counter() - t0:.1f} s")
+
+    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS]
+    level.reset_launch_counts()
+    torch.cuda.synchronize()
+    stage_logs = {}
+    for label, cfg, plan, rounds, per_level in runs:
+        before = [fn.launches for fn in level.KERNELS]
+        path = PHASE8_DIR / f"{label.replace(' ', '_')}.jsonl"
+        t0 = time.perf_counter()
+        with TraceCollector(str(path)) as col:
+            out = sims[label].run(rounds, seed=SEED, test_x=test.x,
+                                  test_y=test.y, eval_every=rounds,
+                                  collector=col)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / rounds
+        grown = {n: fn.launches - b for n, fn, b in
+                 zip(names, level.KERNELS, before)}
+        levels = rounds * sum(st.shape[0] for st in plan.stages)
+        want = {n: levels * per_level.get(n, 0) for n in names}
+        if grown != want:
+            raise SystemExit(f"FAIL nested {label}: level-kernel launches "
+                             f"{grown}, predicted {want} (Σ over rounds of "
+                             f"Σ_s L_s)")
+        recs = [r for r in iter_trace(str(path)) if r["kind"] == "round"]
+        worst = []
+        for rec in recs:
+            bits = [sum(st["bits"]) for st in rec["stages"]]
+            ok, bound = stage_bits_ok(cfg["kind"], rec["plan"], bits, pc)
+            if not ok:
+                raise SystemExit(f"FAIL nested {label} round "
+                                 f"{rec['round']}: per-stage bits {bits}, "
+                                 f"closed form / bound {bound}")
+            worst.append([b / w for b, w in zip(bits, bound)])
+        loss = out["loss"]
+        if not (all(math.isfinite(v) for v in loss)
+                and loss[-1] < loss[0]):
+            raise SystemExit(f"FAIL nested {label}: loss did not fall "
+                             f"({loss[0]} -> {loss[-1]})")
+        stage_logs[label] = recs
+        log(f"[nested] {label:18s}: loss {loss[0]:.4f} -> {loss[-1]:.4f}, "
+            f"acc {out['accuracy'][-1][1]:.3f}, bits per stage "
+            f"{[sum(st['bits']) for st in recs[-1]['stages']]} (closed form "
+            f"/ bound share max {np.max(worst, axis=0).round(4).tolist()}), "
+            f"{ms:.2f} ms/round with the collector (flush every 32); "
+            f"launches { {n: v for n, v in grown.items() if v} } = "
+            f"{levels // rounds} levels per round")
+
+    # the scenario: a relay crash and a ground-link flap on the clustered
+    # Walker shell, recorded, checked and replayed from its own trace
+    before = [fn.launches for fn in level.KERNELS]
+    trace = PHASE8_DIR / "scenario.jsonl"
+    out, recs, sim = scenario_run(pc, fed, spec, trace)
+    torch.cuda.synchronize()
+    grown = {n: fn.launches - b for n, fn, b in
+             zip(names, level.KERNELS, before)}
+    levels = sum(st.shape[0] for r in range(spec.rounds)
+                 for st in compiled.schedule.plan_at(r).stages)
+    if grown != {n: levels if n == "cl_fuse_level" else 0 for n in names}:
+        raise SystemExit(f"FAIL nested scenario: launches {grown}, "
+                         f"predicted {levels} cl_fuse_level")
+    launches = {n: fn.launches for n, fn in zip(names, level.KERNELS)}
+    res = validate_trace(str(trace))
+    meta, rounds, _ = load_trace(str(trace))
+    check = closed_form_check(meta, rounds)
+    full = sum(1 for r in rounds if all(p > 0 for p in r["participation"]))
+    if (res["errors"] or check is None or check["rounds_checked"]
+            != spec.rounds or check["matches"] != full
+            or check["worst_abs_gap_bits"] != 0.0):
+        raise SystemExit(f"FAIL nested scenario trace: validation "
+                         f"{res['errors'][:3]}, closed-form check {check} "
+                         f"({full} full-participation rounds)")
+    if sim.trace_counter.count != 1:
+        raise SystemExit(f"FAIL nested scenario: "
+                         f"{sim.trace_counter.count} input signatures")
+    replay_spec, _ = scenario_from_trace(str(trace))
+    _, replay, _ = scenario_run(pc, fed, replay_spec,
+                                PHASE8_DIR / "replay.jsonl")
+    fields = lambda r: ([st["bits"] for st in r["stages"]],  # noqa: E731
+                        [st["nnz"] for st in r["stages"]], r["loss"],
+                        r["participation"])
+    if [fields(r) for r in recs] != [fields(r) for r in replay]:
+        raise SystemExit("FAIL nested scenario: the replay from the trace "
+                         "gave other round records")
+    stubs = sorted({r["round"] for r in recs
+                    if min(r["plan"]["stages"][1]["alive"]) == 0})
+    log(f"[nested] scenario {spec.name}: {len(compiled.events)} events "
+        f"({', '.join(e['name'] for e in compiled.events)}), "
+        f"{len(compiled.schedule.plans)} plans of shape "
+        f"{compiled.schedule.shape}, stub-cluster rounds {stubs}; trace "
+        f"valid ({ {k_: v for k_, v in res.items() if k_ != 'errors'} }), "
+        f"closed form exact in {check['rounds_checked']} rounds (worst gap "
+        f"{check['worst_abs_gap_bits']}), {check['matches']} with full "
+        f"participation; 1 input signature; the replay from the trace "
+        f"gives the same bits, nnz, loss and participation in every round; "
+        f"launches {levels} cl_fuse_level (Σ_r Σ_s L_s)")
+
+    for label in ("cl_sia pods", "sia walker", "tc_sia scan walker"):
+        cfg, plan = next((c, p) for lb, c, p, _, _ in runs if lb == label)
+        nested_card_matches_cpu(
+            sims[label], Simulator(pc, AggConfig(**cfg), fed, device="cpu",
+                                   nested_topology=plan), plan, label)
+
+    # ms per round: the collector off, flushing every round and every 32
+    # rounds, and the flat Walker tree round, in turns (host speed drifts
+    # within a run), each order reversed on the next turn; medians
+    sim = sims["cl_sia pods"]
+    flat = Simulator(pc, AggConfig(**runs[0][1]), fed, device="cuda",
+                     tree_topology=TreeTopology(walker_delta(**WALKER),
+                                                "widest"))
+    flat.run(1, seed=SEED)
+
+    def with_collector(cadence):
+        path = PHASE8_DIR / f"flush_{cadence}.jsonl"
+        with TraceCollector(str(path)) as col:
+            sim.run(NESTED_ROUNDS, seed=SEED, collector=col,
+                    flush_every=cadence)
+
+    cases = {"collector off": lambda: sim.run(NESTED_ROUNDS, seed=SEED),
+             "flush every round": lambda: with_collector(1),
+             "flush every 32": lambda: with_collector(32),
+             "flat Walker tree": lambda: flat.run(NESTED_ROUNDS, seed=SEED)}
+    times = {name: [] for name in cases}
+    for turn in range(TIMING_TURNS):
+        order = list(cases) if turn % 2 == 0 else list(cases)[::-1]
+        for name in order:
+            t0 = time.perf_counter()
+            cases[name]()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0)
+                               / NESTED_ROUNDS)
+    med = {name: float(np.median(v)) for name, v in times.items()}
+    log(f"[nested] cl_sia pods ms per round (host clock, synchronized, "
+        f"{NESTED_ROUNDS} rounds, median of {TIMING_TURNS} turns [min, "
+        f"max]): " + "; ".join(
+            f"{name} {med[name]:.2f} [{min(v):.2f}, {max(v):.2f}]"
+            for name, v in times.items())
+        + f"; flush 32 / off {med['flush every 32'] / med['collector off']:.3f}"
+        f", flush 1 / off {med['flush every round'] / med['collector off']:.3f}"
+        f", nested / flat tree "
+        f"{med['collector off'] / med['flat Walker tree']:.3f}")
+    profile_calls("nested cl_sia pods", lambda: sim.run(3, seed=SEED), 3)
+    profile_calls("nested cl_tc_sia walker",
+                  lambda: sims["cl_tc_sia walker"].run(3, seed=SEED), 3)
+    profile_calls("flat cl_sia walker tree", lambda: flat.run(3, seed=SEED),
+                  3)
+    log(f"[nested] phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -1804,6 +2197,8 @@ def main() -> int:
     for name, n in tree_path(level, data).items():
         launches[name] += n
     for name, n in batched_path(level, data).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in nested_path(level, ref, sp, data).items():
         launches[name] = launches.get(name, 0) + n
 
     csrc = "src/repro_torch/kernels/csrc/"

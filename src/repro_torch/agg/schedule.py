@@ -1,4 +1,4 @@
-"""Time-varying topologies: a schedule of plans sharing one ``(L, W)``
+"""Time-varying topologies: a schedule of plans sharing one shape
 (port of :mod:`repro.agg.schedule`).
 
 LEO constellations re-route continuously — the chain the PS sees this round
@@ -8,10 +8,9 @@ up/down events) into :class:`repro_torch.agg.plan.AggPlan`s padded to a
 common ``(L, W)``, so every round of the schedule runs the level step at
 one lane count W and one number of levels L, whatever the route. Padding
 slots run the zero dummy row (``valid == 0`` lanes) and are never added.
-
-Nested plans (a staged ``NestedTopology``) come with the nested plan
-compiler, which the port does not have yet (ROADMAP A9); a schedule of them
-raises ``NotImplementedError``.
+Nested topologies (:class:`~repro_torch.agg.nested.NestedPlan`, a routed
+``NestedTopology``) pad to one per-stage signature instead; flat and
+nested topologies do not mix in one schedule.
 """
 
 from __future__ import annotations
@@ -19,26 +18,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterable, Optional, Sequence
 
-import numpy as np
-
+from repro_torch.agg.nested import (NestedPlan, compile_nested,
+                                    nested_common_shape)
 from repro_torch.agg.plan import AggPlan, as_tree, compile_plan
 from repro_torch.topo.graph import ConstellationGraph
 from repro_torch.topo.routing import route_tree
 
 
-_NESTED = ("nested plans are not ported yet (ROADMAP A9: agg/nested.py); "
-           "schedule flat topologies")
-
-
 def common_shape(plans: Iterable[AggPlan]) -> tuple:
-    """Elementwise-max ``(L, W)`` over a set of flat plans (nested plans'
-    per-stage signatures raise until ROADMAP A9)."""
+    """Elementwise-max ``(L, W)`` over a set of plans (flat), or the
+    elementwise-max per-stage shape signature (nested plans)."""
     plans = list(plans)
     shapes = [p.shape for p in plans]
     if not shapes:
         raise ValueError("no plans")
     if isinstance(shapes[0][0], tuple):        # NestedPlan signatures
-        raise NotImplementedError(_NESTED)
+        return nested_common_shape(plans)
     return (max(s[0] for s in shapes), max(s[1] for s in shapes))
 
 
@@ -53,12 +48,13 @@ class TopologySchedule:
     few distinct routes stores each route once.
     """
 
-    plans: tuple                  # tuple[AggPlan, ...], one shape
+    plans: tuple                  # tuple[AggPlan | NestedPlan, ...], one shape
     round_index: tuple            # per-round index into ``plans``
     cyclic: bool = True
-    # optional raw topologies aligned with ``plans`` (AggTree or None) —
-    # the link model :meth:`raw_at` hands out for crit-path timelines; ()
-    # when the constructor had nothing to keep
+    # optional raw topologies aligned with ``plans`` (AggTree /
+    # NestedTopology / None) — the link model :meth:`raw_at` hands the trace
+    # collector for crit-path timelines; () when the constructor had
+    # nothing to keep
     raws: tuple = ()
 
     def __post_init__(self):
@@ -84,7 +80,8 @@ class TopologySchedule:
 
     @property
     def shape(self) -> tuple:
-        """The shared ``(L, W)`` of every plan of the schedule."""
+        """The shared ``(L, W)`` (or per-stage signature) of every plan of
+        the schedule."""
         return self.plans[0].shape
 
     @property
@@ -104,8 +101,8 @@ class TopologySchedule:
 
     def raw_at(self, r: int):
         """Round r's raw topology (an :class:`~repro_torch.topo.tree.AggTree`
-        carrying the link model), if the constructor kept it; None
-        otherwise."""
+        carrying the link model, or a ``NestedTopology``), if the
+        constructor kept it; None otherwise."""
         return self.raws[self._index_at(r)] if self.raws else None
 
     # -- constructors -------------------------------------------------------
@@ -117,16 +114,30 @@ class TopologySchedule:
                         round_index: Optional[Sequence] = None,
                         cyclic: bool = True) -> "TopologySchedule":
         """One plan per topology (graph, tree, chain order, int K, or
-        anything :func:`~repro_torch.agg.plan.compile_plan` takes), padded
-        to the common shape. ``round_index`` maps rounds onto the topology
-        list (default: one round each)."""
+        anything :func:`~repro_torch.agg.plan.compile_plan` takes — or a
+        nested topology: a :class:`~repro_torch.agg.nested.NestedPlan` or
+        a routed ``NestedTopology``), padded to the common (per-stage)
+        shape. Flat and nested topologies cannot mix in one schedule.
+        ``round_index`` maps rounds onto the topology list (default: one
+        round each)."""
         if q_budgets is None:
             q_budgets = [None] * len(topologies)
-        if any(hasattr(t, "nested_stages") for t in topologies):
-            raise NotImplementedError(_NESTED)
-        plans = [compile_plan(t, num_clients=num_clients, q_budget=qb)
-                 for t, qb in zip(topologies, q_budgets)]
-        raws = tuple(as_tree(t, num_clients) for t in topologies)
+
+        def build(t, qb):
+            if isinstance(t, NestedPlan) or hasattr(t, "nested_stages"):
+                raw = t if hasattr(t, "nested_stages") else None
+                return compile_nested(t, num_clients=num_clients,
+                                      q_budget=qb), raw
+            return (compile_plan(t, num_clients=num_clients, q_budget=qb),
+                    as_tree(t, num_clients))
+
+        built = [build(t, qb) for t, qb in zip(topologies, q_budgets)]
+        plans = [p for p, _ in built]
+        raws = tuple(raw for _, raw in built)
+        nested = [isinstance(p, NestedPlan) for p in plans]
+        if any(nested) and not all(nested):
+            raise ValueError("cannot mix flat and nested topologies in one "
+                             "schedule")
         shape = common_shape(plans)
         return cls(plans=tuple(p.pad(shape) for p in plans),
                    round_index=(tuple(range(len(plans)))

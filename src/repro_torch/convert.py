@@ -30,14 +30,17 @@ def lr_params(params: Mapping, device: DeviceLike = None) -> dict:
 
 
 def sim_state(state, device: DeviceLike = None) -> SimState:
-    """A simulator state with ``round``, ``flat_w``, ``ef`` and
-    ``tcs_prev`` attributes → :class:`~repro_torch.fed.simulator.SimState`
-    (the reference's random key has no counterpart: the port's minibatch
-    draws come from a ``torch.Generator`` or are passed in)."""
+    """A simulator state with ``round``, ``flat_w``, ``ef``, ``tcs_prev``
+    and (optionally) ``stage_ef`` attributes →
+    :class:`~repro_torch.fed.simulator.SimState` (the reference's random
+    key has no counterpart: the port's minibatch draws come from a
+    ``torch.Generator`` or are passed in)."""
     dev = resolve_device(device)
     return SimState(round=int(np.asarray(state.round)),
                     flat_w=_t(state.flat_w, dev), ef=_t(state.ef, dev),
-                    tcs_prev=_t(state.tcs_prev, dev))
+                    tcs_prev=_t(state.tcs_prev, dev),
+                    stage_ef=tuple(_t(e, dev)
+                                   for e in getattr(state, "stage_ef", ())))
 
 
 def agg_plan(plan) -> AggPlan:

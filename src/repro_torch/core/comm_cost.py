@@ -1,5 +1,5 @@
 """Communication-cost models (paper §V) — host-side closed forms (port of
-:mod:`repro.core.comm_cost`: the flat and tree forms).
+:mod:`repro.core.comm_cost`: the flat, tree and staged forms).
 
 These are the analytical curves the paper plots in Fig. 2; the simulator's
 measured per-hop ``HopStats.bits`` must match them (tests assert it for the
@@ -165,6 +165,76 @@ def sia_bits_worst_case_tree(subtree_sizes, d: int, q: int,
     ‖γ_k‖₀ ≤ min(d, s_k·Q)."""
     total_nnz = sum(min(d, int(s) * q) for s in subtree_sizes)
     return total_nnz * (omega + idx_bits(d))
+
+
+# ---------------------------------------------------------------------------
+# Staged (nested/hierarchical) closed forms — repro_torch.agg.nested plans.
+# Stage 0 aggregates inside clusters over the cheap local links (pod ICI /
+# intra-plane ISLs); later stages relay per-cluster partials over the
+# scarce links (pod-seam DCI / inter-cluster ISLs / ground). Each stage is
+# the paper's algorithm one level up, so each stage gets the §V form with
+# that stage's unit count / subtree sizes. The wire SPLIT is the point:
+# the flat (pod, data) ring crosses the pod seam K_p·K_d times per round,
+# the staged schedule only K_p times (stage 1's hop count).
+# ---------------------------------------------------------------------------
+
+def nested_cl_sia_bits(stage_unit_counts, d: int, q: int,
+                       omega: int = 32) -> tuple:
+    """Alg 3 staged: stage s carries up to Q (value+index) per unit
+    uplink → ``K_s·Q·(ω+⌈log₂d⌉)`` per stage. Returns per-stage bits,
+    stage 0 (intra/ICI) first, last entry = the scarce-link (DCI) wire.
+    Exact while every hop's γ̃ holds ≥ Q nonzeros (dense inputs, Q ≤ the
+    previous stage's delivered support); an upper bound otherwise —
+    stage s ≥ 1 inputs were already Top-Q'd by stage s−1, so an upper
+    stage whose input support is thin can undershoot.
+    Σ over stages on a chain×chain equals the flat chain form with
+    K = K_p·K_d + K_p (the extra K_p relays are the price of the split)."""
+    return tuple(int(k) * q * (omega + idx_bits(d))
+                 for k in stage_unit_counts)
+
+
+def nested_cl_tc_sia_bits(stage_unit_counts, d: int, q_global: int,
+                          q_local: int, omega: int = 32) -> tuple:
+    """Alg 5 staged: per stage ``K_s·ω·Q_G + K_s·Q_L·(ω+⌈log₂d⌉)``."""
+    return tuple(int(k) * omega * q_global
+                 + int(k) * q_local * (omega + idx_bits(d))
+                 for k in stage_unit_counts)
+
+
+def nested_tc_sia_bits_bound(stage_subtree_sizes, d: int, q_global: int,
+                             q_local: int, omega: int = 32) -> tuple:
+    """Per-stage Prop-2 bound for the staged Alg 4 (and Alg 1/2 with
+    Q_G = 0): stage s's units union Top-Q_L supports down that stage's
+    subtrees, so :func:`expected_lambda_nnz_bound_tree` applies per stage
+    with that stage's subtree sizes. (Across stages the supports are
+    treated as independent Q_L draws — each stage re-sparsifies its
+    fresh input to Q_L per hop, the same independence Prop. 2 assumes
+    along one chain.)"""
+    return tuple(
+        float(len(sizes)) * omega * q_global
+        + (omega + idx_bits(d)) * expected_lambda_nnz_bound_tree(
+            sizes, d, q_global, q_local)
+        for sizes in stage_subtree_sizes)
+
+
+def nested_wire_split(stage_bits) -> tuple:
+    """(local_bits, scarce_bits): every stage but the last rides the cheap
+    intra-cluster links; the last stage is the scarce relay tier."""
+    bits = [float(b) for b in stage_bits]
+    return sum(bits[:-1]), bits[-1]
+
+
+def dci_wire_flat_vs_nested(k_pod: int, k_data: int, d: int, q: int,
+                            omega: int = 32) -> tuple:
+    """Scarce-link (pod-seam DCI) §V bits per round, flat ring vs staged.
+
+    Flat ring over (pod, data): the chain crosses the pod seam on every
+    wrap-around → K_p·K_d seam payloads per round. Staged: only stage 1
+    rides DCI → K_p payloads. With the CL payload ``Q·(ω+⌈log₂d⌉)`` this
+    is exactly ``repro.core.hierarchical.dci_bytes_flat_vs_hier``
+    instantiated with the §V packet size (asserted in tests)."""
+    payload = q * (omega + idx_bits(d))
+    return float(k_pod * k_data * payload), float(k_pod * payload)
 
 
 # ---------------------------------------------------------------------------

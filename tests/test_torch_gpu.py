@@ -709,3 +709,116 @@ def test_threshold_search_1d_counts_on_the_card(cuda, q):
     got = sp.threshold_for_topq(x.to(cuda), q, count_fn=ops.count_ge)
     assert topq_threshold.count_ge_cuda.launches == n0 + 3
     _same_t(want, got)
+
+
+# ---------------------------------------------------------------------------
+# nested plans: the level kernels at the upper stages' shapes
+# ---------------------------------------------------------------------------
+
+# an upper stage of a nested plan runs W = 1–4 lanes (the cluster heads),
+# its rows the previous stage's sink rows gathered from the inbox buffer
+STAGE_SHAPES = [(w, d) for d in (7850, 2 ** 23 + 125) for w in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("w,d", STAGE_SHAPES)
+def test_level_kernels_at_upper_stage_shapes(cuda, w, d):
+    """Rows 1–5 of the kernel table on W = 1, 2, 4 lanes, ``g`` a view of
+    sink rows k..k+W−1 inside a larger inbox (off a 16-byte boundary
+    where k·d is not a multiple of 4), bit for bit against the plain
+    versions on the CPU; the level kernels take float32 rows only and
+    refuse bfloat16."""
+    x = _inputs(w, d, seed=20 + w)
+    c = {k: _both(v, cuda) for k, v in x.items()}
+    k = 5
+    inbox = np.zeros((k + w + 1, d), np.float32)
+    inbox[k:k + w] = x["g"]
+    ib = _both(inbox, cuda)
+    c["g"] = (ib[0][k:k + w], ib[1][k:k + w])
+    pick = lambda i, keys: [c[n][i] for n in keys]  # noqa: E731
+    fuse = ("g", "e", "gin", "weight", "tau", "part", "valid")
+    calls = {
+        "cl_fuse_level": (
+            lambda fn, i: fn(*pick(i, fuse), c["gm"][i], c["mask"][i],
+                             with_err=True),
+            ref.ref_cl_fuse_level, level.cl_fuse_level_cuda),
+        "sparsify_ef_level": (
+            lambda fn, i: fn(c["g"][i], c["e"][i], c["mask"][i],
+                             c["weight"][i], c["tau"][i], c["valid"][i],
+                             with_err=True),
+            ref.ref_sparsify_ef_level, level.sparsify_ef_level_cuda),
+        "chain_accum_level": (
+            lambda fn, i: fn(c["gin"][i], c["g"][i], c["valid"][i],
+                             c["gm"][i]),
+            ref.ref_chain_accum_level, level.chain_accum_level_cuda),
+    }
+    for name, (call, plain, kernel) in calls.items():
+        n0 = kernel.launches
+        got = call(kernel, 1)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 1, name
+        for a, b in zip(call(plain, 0), got):
+            _same(a, b)
+    op = ref.fused_operand(*_operand(x, 0, c), c["gm"][0],
+                           include_gamma=True)
+    tables = _tables(op, 64)
+    _same(ref.ref_count_ge_fused_level(*_operand(x, 0, c), tables[0],
+                                       c["gm"][0], include_gamma=True),
+          level.count_ge_fused_level_cuda(*_operand(x, 1, c),
+                                          tables[0].to(cuda), c["gm"][1],
+                                          include_gamma=True))
+    want = ref.ref_hist_topq_level(*_operand(x, 0, c), tables, c["gm"][0],
+                                   include_gamma=True)
+    got = level.hist_topq_level_cuda(*_operand(x, 1, c),
+                                     tuple(t.to(cuda) for t in tables),
+                                     c["gm"][1], include_gamma=True)
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        _same(a, b)
+    bf = c["g"][1].to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        level.chain_accum_level_cuda(bf, bf, c["valid"][1])
+
+
+@pytest.mark.parametrize("impl", ["exact", "scan", "hist"])
+@pytest.mark.parametrize("kind", ["sia", "re_sia", "cl_sia", "tc_sia",
+                                  "cl_tc_sia"])
+def test_nested_round_on_the_card_equals_the_cpu(cuda, kind, impl):
+    """One round of ``pod_ring_nested(4, 7)`` (K = 28, d = 7850; stage 1 a
+    chain of 4 pod heads, W = 1) on the card and on the CPU, same inputs:
+    aggregate, client EF, the stage EF tier and both stages' counts and
+    bits bit for bit."""
+    from repro_torch.agg import execute_nested, pod_ring_nested
+    from repro_torch.core.algorithms import AggConfig
+    kw = {"exact": {}, "scan": dict(topq_impl="threshold", tau_impl="scan",
+                                    hist_rounds=3),
+          "hist": dict(topq_impl="threshold", tau_impl="hist",
+                       hist_rounds=2)}[impl]
+    cfg = AggConfig(kind=kind, q=78, **kw)
+    nested = pod_ring_nested(4, 7)
+    k, d = 28, 7850
+    rng = np.random.default_rng(7)
+    t = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32) * np.float32(scale))
+    g, e, stage_e = t(k, d, scale=0.01), t(k, d, scale=1e-3), t(4, d,
+                                                              scale=1e-3)
+    part = torch.ones((k,))
+    part[3] = 0.0
+    gm = None
+    if kind in ("tc_sia", "cl_tc_sia"):
+        gm = (torch.from_numpy(rng.random(d)) < 0.01).to(torch.float32)
+    args = lambda dev: dict(  # noqa: E731
+        grads=g.to(dev), e=e.to(dev), weights=torch.ones((k,), device=dev),
+        stage_e=(stage_e.to(dev),), participate=part.to(dev),
+        global_mask=None if gm is None else gm.to(dev))
+    want = execute_nested(cfg, nested, **args("cpu"))
+    before = [fn.launches for fn in level.KERNELS]
+    got = execute_nested(cfg, nested, **args(cuda))
+    torch.cuda.synchronize()
+    assert sum(fn.launches for fn in level.KERNELS) > sum(before)
+    for a, b in [(want.aggregate, got.aggregate), (want.e_new, got.e_new),
+                 (want.stage_e_new[0], got.stage_e_new[0])]:
+        _same(a, b)
+    for ws, gs in zip((want.stats,) + want.stage_stats,
+                      (got.stats,) + got.stage_stats):
+        for f in ("nnz_out", "nnz_global", "nnz_local", "bits"):
+            _same(getattr(ws, f), getattr(gs, f))

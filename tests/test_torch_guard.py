@@ -186,3 +186,37 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                           cwd=tmp_path, env=dict(os.environ))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_nested_scenario_and_trace_entry_points_follow_the_device(tmp_path):
+    """The nested executor, the scenario driver and the trace smoke driver
+    run on the card unless asked for the CPU, and raise without one; the
+    nested plan itself stays numpy on the host."""
+    from repro_torch.agg import pod_ring_nested, zero_stage_ef
+    from repro_torch.obs import smoke
+    from repro_torch.scenario import preset
+    from repro_torch.scenario import run as scenario_run
+    nested = pod_ring_nested(2, 2)
+    assert isinstance(nested.client_alive(), np.ndarray)
+    assert zero_stage_ef(nested, 5, "cpu")[0].device.type == "cpu"
+    sim = Simulator(PAPER, AggConfig(), _fed(4), nested_topology=nested,
+                    device="cpu")
+    assert [e.device.type for e in sim.init().stage_ef] == ["cpu"]
+    with pytest.raises(ValueError, match="A12"):
+        smoke.main(["--device", "--out", str(tmp_path)])
+    with pytest.raises(ValueError, match="A12"):
+        scenario_run.run_scenario(preset("relay-cascade"), backend="device",
+                                  device="cpu")
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zero_stage_ef(nested, 5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nested.client_alive("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulator(PAPER, AggConfig(), _fed(4), nested_topology=nested)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenario_run.run_scenario(preset("relay-cascade"),
+                                  out=str(tmp_path / "t.jsonl"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        smoke.main(["--out", str(tmp_path), "--rounds", "1"])

@@ -238,9 +238,12 @@ def test_schedule_guards():
         TopologySchedule(plans=(compile_plan(3),), round_index=(1,))
     with pytest.raises(ValueError, match="no plans"):
         common_shape([])
+    # nested plans are ported: a schedule of them pads to one signature,
+    # and flat and nested topologies do not mix (the reference's error)
     nested = tr.cluster_routed(tg.grid_graph(3, 4), 2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TopologySchedule.from_topologies([nested])
+    assert len(TopologySchedule.from_topologies([nested, nested])) == 2
+    with pytest.raises(ValueError, match="mix"):
+        TopologySchedule.from_topologies([nested, 12])
 
 
 def test_as_tree_branches_match_reference():
