@@ -109,7 +109,30 @@ Phases (any failure exits non-zero and prints no result):
    CPU's bit for bit, stage EF tiers included; ms per round with the
    collector off, flushing every round and every 32 rounds, and of the
    flat Walker tree round, timed in five turns (medians); torch.profiler's
-   device ops and busy time of a nested round.
+   device ops and busy time of a nested round;
+9. the client-per-rank device backend — a mesh of K = 28 ranks all on
+   ``cuda:0`` (one card; with two or more cards the ranks also go
+   round-robin over them and must give the same run): ``execute_sharded``
+   on the card against host ``execute`` on the card and against
+   ``execute_sharded`` on a CPU mesh, bit for bit (aggregate, EF rows,
+   nnz_*, bits; ``err_sq`` under the pinned in-kernel order and on W = 1
+   plans, else to rtol 1e-6), for the six kinds on the chain, a permuted
+   chain, ``star_tree(28)`` and phase 6's Walker tree with stragglers,
+   both wires on the CL kinds and bf16 gradients; then
+   ``Simulator(backend="device")`` beside ``backend="host"`` on the card,
+   bit for bit over whole runs (model, EF, stage EF tiers, τ, bits, nnz,
+   loss): CL-SIA on the chain and CL-TC-SIA on the Walker tree through its
+   relay failure (5 rounds), TC-SIA threshold scan and hist (3 rounds),
+   CL-SIA on ``pod_ring_nested(4, 7)`` (5 rounds) and ``run_batched`` with
+   4 seeds on the Walker tree, level-kernel launches held to the plans'
+   real slots; three device rounds on the card mesh fed the CPU's
+   gradients equal to the CPU mesh's; phase 8's Walker scenario on the
+   device backend, its trace valid and equal to the host trace's records
+   (per-hop ``err_sq`` to rtol 1e-6); ``obs.smoke --device --mesh
+   cuda:0``; then ms per round of the device backend beside the host
+   backend on the chain, the star, the Walker tree and the pod ring, in
+   five alternating turns (medians and ranges), and torch.profiler's device
+   ops and busy time of a device round.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -117,6 +140,7 @@ The last lines are a JSON object of per-kernel numbers, the card's
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1301,10 +1325,11 @@ TREE_CMP_ROUNDS = {"failure": (1, 2, 3), "links": (2, 3, 4),
                    "budgets": (0, 1, 2)}
 
 
-def tree_card_matches_cpu(sim_card, sim_cpu, plans, label: str):
+def tree_card_matches_cpu(sim_card, sim_cpu, plans, label: str,
+                          tag: str = "tree"):
     """Rounds over ``plans`` (a re-route among them), both simulators fed
-    the CPU run's gradients: model, EF rows, bits and nnz bit for bit,
-    the loss to rtol 1e-4."""
+    the CPU run's gradients: model, EF rows (and stage EF tiers), every
+    stage's bits and nnz bit for bit, the loss to rtol 1e-4."""
     from repro_torch.data.federated import client_minibatch
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1315,10 +1340,10 @@ def tree_card_matches_cpu(sim_card, sim_cpu, plans, label: str):
         grads = sim_cpu.client_grads(s_cpu.flat_w, bx, by)
         s_cpu, l_cpu = sim_cpu.aggregate_step(s_cpu, plan, grads)
         s_card, l_card = sim_card.aggregate_step(s_card, plan, grads.cuda())
-        same = all(bitwise_equal(u, v) for u, v in (
-            (s_cpu.flat_w, s_card.flat_w), (s_cpu.ef, s_card.ef),
-            (l_cpu.stats[0].bits, l_card.stats[0].bits),
-            (l_cpu.stats[0].nnz_out, l_card.stats[0].nnz_out)))
+        same = states_equal(s_cpu, s_card) and all(
+            bitwise_equal(u.bits, v.bits)
+            and bitwise_equal(u.nnz_out, v.nnz_out)
+            for u, v in zip(l_cpu.stats, l_card.stats))
         rel = abs(float(l_card.loss) - float(l_cpu.loss)) / abs(
             float(l_cpu.loss))
         worst = max(worst, rel)
@@ -1326,10 +1351,18 @@ def tree_card_matches_cpu(sim_card, sim_cpu, plans, label: str):
             raise SystemExit(f"FAIL {label} round {r} (plan {plan.shape}): "
                              f"card and CPU differ (state/bits equal: "
                              f"{same}, loss rel {rel:.2e})")
-    log(f"[tree] {label}: {len(plans)} rounds over plans "
+    log(f"[{tag}] {label}: {len(plans)} rounds over plans "
         f"{[p.shape for p in plans]} on the card vs the CPU with the same "
-        f"gradients: model, EF rows, bits and nnz bit for bit; loss max rel "
-        f"diff {worst:.2e}")
+        f"gradients: model, EF rows, stage EF tiers, bits and nnz bit for "
+        f"bit; loss max rel diff {worst:.2e}")
+
+
+def states_equal(a, b) -> bool:
+    """Model, EF rows and stage EF tiers bit for bit."""
+    return (bitwise_equal(a.flat_w, b.flat_w) and bitwise_equal(a.ef, b.ef)
+            and len(a.stage_ef) == len(b.stage_ef)
+            and all(bitwise_equal(u, v)
+                    for u, v in zip(a.stage_ef, b.stage_ef)))
 
 
 def padded_equals_unpadded(sim, pairs, label: str):
@@ -1929,13 +1962,14 @@ def walker_scenario(pc):
                              down=5),))
 
 
-def scenario_run(pc, fed, spec, path: Path):
+def scenario_run(pc, fed, spec, path: Path, **sim_kw):
     """One run of ``spec`` on the card under a TraceCollector → (curves,
-    round records, simulator)."""
+    round records, simulator); ``sim_kw`` go to the Simulator (the device
+    backend's ``backend``, ``mesh``)."""
     from repro_torch.fed import Simulator
     from repro_torch.obs import TraceCollector, iter_trace
 
-    sim = Simulator(pc, spec.agg_config(), fed, device="cuda")
+    sim = Simulator(pc, spec.agg_config(), fed, device="cuda", **sim_kw)
     with TraceCollector(str(path)) as col:
         out = sim.run(spec.rounds, scenario=spec, collector=col,
                       flush_every=8)
@@ -2119,6 +2153,465 @@ def nested_path(level, ref, sp, data) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the client-per-rank device backend
+# ---------------------------------------------------------------------------
+
+DEVICE_ROUNDS = 5                 # the exact runs, device vs host backend
+DEVICE_SHORT = 3                  # threshold runs and card-vs-CPU rounds
+DEVICE_SEEDS = tuple(SEED + i for i in range(4))   # run_batched, B = 4
+DEVICE_TURNS = 5                  # alternating turns of the timing
+DEVICE_TIMED_ROUNDS = 5
+PHASE9_DIR = Path(__file__).resolve().parent / "build" / "phase9"
+
+
+def sharded_cases(pc, k):
+    """(label, AggConfig keywords, port topology, participate or None,
+    wire, gradient dtype) of the ``execute_sharded`` checks."""
+    from repro_torch.core.algorithms import AggKind
+    from repro_torch.fed.topology import TreeTopology
+    from repro_torch.topo import star_tree, walker_delta
+
+    kw = dict(q=pc.q, q_global=pc.q_global, q_local=pc.q_local)
+    rng = np.random.default_rng(SEED + 90)
+    perm = rng.permutation(k)
+    part = (rng.random(k) < 0.8).astype(np.float32)
+    topos = {"chain": k, "permuted chain": perm, "star": star_tree(k),
+             "walker": TreeTopology(walker_delta(**WALKER), "widest").tree()}
+    cases = []
+    for kind in (AggKind.SIA, AggKind.RE_SIA, AggKind.CL_SIA,
+                 AggKind.TC_SIA, AggKind.CL_TC_SIA, AggKind.DENSE_IA):
+        # the fused kinds with the pinned in-kernel ‖e′‖² (lane-layout
+        # invariant: every HopStats field bit for bit on any plan)
+        err = ({} if kind == AggKind.DENSE_IA
+               else dict(err_sq_mode="kernel"))
+        for name, topo in topos.items():
+            cases.append((f"{kind.value} {name}", dict(kind=kind, **kw,
+                                                       **err),
+                          topo, part, "auto", torch.float32))
+        if kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
+            for name in ("chain", "walker"):
+                for wire in ("compact", "dense"):
+                    cases.append((f"{kind.value} {name} {wire} wire",
+                                  dict(kind=kind, **kw, **err), topos[name],
+                                  None, wire, torch.float32))
+    for kind in (AggKind.SIA, AggKind.CL_SIA, AggKind.DENSE_IA):
+        cases.append((f"{kind.value} walker bf16", dict(kind=kind, **kw),
+                      topos["walker"], part, "auto", torch.bfloat16))
+    cases.append(("cl_sia star jnp err_sq", dict(kind=AggKind.CL_SIA, **kw),
+                  topos["star"], part, "auto", torch.float32))
+    return cases
+
+
+def err_sq_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.cpu().double(), b.cpu().double()
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def round_results_equal(want, got, exact_err: bool) -> tuple:
+    """(equal, err_sq max rel diff): aggregate, EF rows, nnz_* and bits
+    bit for bit; ``err_sq`` too when ``exact_err``, else to rtol 1e-6 (a
+    torch row sum, whose order on the card depends on the row count)."""
+    same = all(bitwise_equal(u, v) for u, v in (
+        (want.aggregate, got.aggregate), (want.e_new, got.e_new),
+        (want.stats.nnz_out, got.stats.nnz_out),
+        (want.stats.nnz_global, got.stats.nnz_global),
+        (want.stats.nnz_local, got.stats.nnz_local),
+        (want.stats.bits, got.stats.bits)))
+    rel = err_sq_rel(got.stats.err_sq, want.stats.err_sq)
+    ok = (bitwise_equal(want.stats.err_sq, got.stats.err_sq) if exact_err
+          else rel <= 1e-6)
+    return same and ok, rel
+
+
+def check_sharded(mesh, cpu_mesh, pc) -> None:
+    """``execute_sharded`` on the card against host ``execute`` on the card
+    and against ``execute_sharded`` on the CPU mesh (plain versions), on
+    the same numpy inputs."""
+    from repro_torch.agg import compile_plan, execute
+    from repro_torch.agg.device import _wire_format, execute_sharded
+    from repro_torch.core.algorithms import AggConfig
+
+    k, d = pc.num_clients, pc.d
+    rng = np.random.default_rng(SEED + 91)
+    g = rng.standard_normal((k, d), dtype=np.float32) * np.float32(0.01)
+    e = rng.standard_normal((k, d), dtype=np.float32) * np.float32(1e-3)
+    w = rng.uniform(0.5, 2.0, k).astype(np.float32)
+    gm = np.zeros((d,), np.float32)
+    gm[rng.choice(d, pc.q_global, replace=False)] = 1.0
+    t0 = time.perf_counter()
+    worst = {"host": 0.0, "cpu": 0.0}
+    wires = {}
+    crossed = 0
+    for label, kw, topo, part, wire, dtype in sharded_cases(pc, k):
+        cfg = AggConfig(**kw)
+        plan = compile_plan(topo, num_clients=k)
+        cpu = dict(grads=torch.from_numpy(g).to(dtype),
+                   e=torch.from_numpy(e).to(dtype),
+                   weights=torch.from_numpy(w),
+                   global_mask=torch.from_numpy(gm).to(dtype),
+                   participate=(None if part is None
+                                else torch.from_numpy(part)))
+        card = {n: None if v is None else v.cuda() for n, v in cpu.items()}
+        args = lambda x: (x["grads"], x["e"], x["weights"])  # noqa: E731
+        opt = lambda x: dict(global_mask=x["global_mask"],  # noqa: E731
+                             participate=x["participate"])
+        host = execute(cfg, plan, *args(card), **opt(card))
+        got = execute_sharded(cfg, plan, *args(card), mesh=mesh, wire=wire,
+                              **opt(card))
+        on_cpu = execute_sharded(cfg, plan, *args(cpu), mesh=cpu_mesh,
+                                 wire=wire, **opt(cpu))
+        if {t.device for t in (got.aggregate, got.e_new, *got.stats)} != {
+                card["grads"].device}:
+            raise SystemExit(f"FAIL device {label}: the result is not on "
+                             f"the caller's device")
+        exact = cfg.err_sq_mode == "kernel" or plan.shape[1] == 1
+        ok_host, rel_host = round_results_equal(host, got, exact)
+        ok_cpu, rel_cpu = round_results_equal(on_cpu, got,
+                                              cfg.err_sq_mode == "kernel")
+        if not (ok_host and ok_cpu):
+            raise SystemExit(
+                f"FAIL device execute_sharded {label} (plan {plan.shape}): "
+                f"= host execute on the card {ok_host} (err_sq rel "
+                f"{rel_host:.2e}), = the CPU mesh {ok_cpu} (err_sq rel "
+                f"{rel_cpu:.2e})")
+        worst["host"] = max(worst["host"], rel_host)
+        worst["cpu"] = max(worst["cpu"], rel_cpu)
+        wires[label] = _wire_format(cfg, d, plan, part is not None, wire)
+        if dtype == torch.float32 and wire == "auto" and (
+                label.endswith(" chain") or label.endswith(" walker")):
+            crossed += check_crossing(cfg, plan, cpu, on_cpu, mesh, label)
+    compact = sorted(lb for lb, v in wires.items() if v == "compact")
+    log(f"[device] execute_sharded on the card = host execute on the card "
+        f"and = the CPU mesh's plain path, bit for bit (aggregate, EF rows, "
+        f"nnz_*, bits; err_sq too under err_sq_mode='kernel' and on W = 1 "
+        f"plans, else max rel {worst['host']:.2e} / {worst['cpu']:.2e} "
+        f"against host / CPU) over {len(wires)} cases: 6 kinds x chain, "
+        f"permuted chain, star_tree(28), the widest-path Walker tree, with "
+        f"stragglers; both wires on the CL kinds; bf16 gradients. Compact "
+        f"wire taken in {len(compact)} of them. Across the card and the CPU "
+        f"(the card mesh under a CPU caller, ranks alternating CPU / card "
+        f"under a CPU and a card caller; execute_sharded and "
+        f"execute_sharded_batched, B = 2): {crossed} rounds on the chain, "
+        f"permuted chain and Walker cases = the CPU, bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def check_crossing(cfg, plan, cpu, on_cpu, mesh, label) -> int:
+    """``execute_sharded`` and ``execute_sharded_batched`` on meshes whose
+    payloads, rows and stats cross between the card and the CPU, against
+    the CPU mesh's round and host ``execute_batched`` on the CPU: each copy
+    from the card has landed before the CPU reads it. Returns the rounds
+    checked."""
+    from repro_torch.agg import execute_batched
+    from repro_torch.agg.device import (client_mesh, execute_sharded,
+                                        execute_sharded_batched)
+
+    k = plan.num_clients
+    mixed = client_mesh(k, devices=["cpu", "cuda:0"] * (k // 2))
+    # cohort 1: the clients' rows in reverse
+    two = {n: None if v is None else torch.stack([v, v.flip(0)])
+           for n, v in cpu.items() if n != "global_mask"}
+    two["global_mask"] = torch.stack([cpu["global_mask"]] * 2)
+    want_b = execute_batched(cfg, plan, two["grads"], two["e"],
+                             two["weights"], global_mask=two["global_mask"],
+                             participate=two["participate"])
+    exact = cfg.err_sq_mode == "kernel"
+    n = 0
+    for name, m, dev in (("card mesh, cpu caller", mesh, "cpu"),
+                         ("mixed mesh, cpu caller", mixed, "cpu"),
+                         ("mixed mesh, card caller", mixed, "cuda")):
+        on = lambda x: None if x is None else x.to(dev)  # noqa: E731
+        got = execute_sharded(cfg, plan, on(cpu["grads"]), on(cpu["e"]),
+                              on(cpu["weights"]),
+                              global_mask=on(cpu["global_mask"]),
+                              participate=on(cpu["participate"]), mesh=m)
+        got_b = execute_sharded_batched(
+            cfg, plan, on(two["grads"]), on(two["e"]), on(two["weights"]),
+            global_mask=on(two["global_mask"]),
+            participate=on(two["participate"]), mesh=m)
+        ok, rel = round_results_equal(on_cpu, got, exact)
+        ok_b, rel_b = round_results_equal(want_b, got_b, exact)
+        if not (ok and ok_b):
+            raise SystemExit(
+                f"FAIL device execute_sharded {label}, {name}: = the CPU "
+                f"{ok} (err_sq rel {rel:.2e}), batched = host "
+                f"execute_batched on the CPU {ok_b} (err_sq rel {rel_b:.2e})")
+        n += 2
+    return n
+
+
+def device_runs(pc, k):
+    """(label, AggConfig keywords, Simulator keywords, run keywords, rounds,
+    the flat or nested plan of round r, level-kernel launches per real
+    slot) of phase 9's device-backend runs."""
+    from repro_torch.agg import compile_plan, pod_ring_nested
+    from repro_torch.core.algorithms import AggKind
+    from repro_torch.fed.topology import FailureSchedule, TreeTopology
+    from repro_torch.topo import walker_delta
+
+    exact = dict(q=pc.q, q_global=pc.q_global, q_local=pc.q_local)
+    thr = dict(exact, topq_impl="threshold", hist_branch=BRANCH)
+    chain = compile_plan(k)
+    topo = TreeTopology(walker_delta(**WALKER), "widest")
+    fails = FailureSchedule(k, FAILURES)
+    pods = pod_ring_nested(4, 7)
+    tc = dict(sparsify_ef_level=1, chain_accum_level=1)
+    return [
+        ("cl_sia chain", dict(kind=AggKind.CL_SIA, **exact), {}, {},
+         DEVICE_ROUNDS, lambda r: chain, dict(cl_fuse_level=1)),
+        ("cl_tc_sia walker", dict(kind=AggKind.CL_TC_SIA, **exact),
+         dict(tree_topology=topo), dict(failure_schedule=fails),
+         DEVICE_ROUNDS, lambda r: topo.plan(dead=tuple(fails.dead_at(r))),
+         dict(cl_fuse_level=1)),
+        ("tc_sia scan chain",
+         dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["scan"]), {}, {},
+         DEVICE_SHORT, lambda r: chain,
+         dict(tc, count_ge_fused_level=THRESHOLD["scan"]["hist_rounds"])),
+        ("tc_sia hist chain",
+         dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["hist"]), {}, {},
+         DEVICE_SHORT, lambda r: chain, dict(tc, hist_topq_level=1)),
+        ("cl_sia pods", dict(kind=AggKind.CL_SIA, **exact),
+         dict(nested_topology=pods), {}, DEVICE_ROUNDS, lambda r: pods,
+         dict(cl_fuse_level=1)),
+    ]
+
+
+def real_slots(plan) -> int:
+    """Real slots of a flat or nested plan: the device backend's rank
+    steps per round."""
+    stages = plan.stages if hasattr(plan, "stages") else (plan,)
+    return int(sum((np.asarray(st.slot_mask) > 0).sum() for st in stages))
+
+
+def device_path(level, data) -> dict:
+    from repro_torch.agg.device import client_mesh
+    from repro_torch.core import sparsify as sp
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.fed import Simulator
+    from repro_torch.fed.topology import TreeTopology
+    from repro_torch.obs import smoke, validate_trace
+    from repro_torch.topo import star_tree, walker_delta
+
+    pc, fed, test = data
+    k = pc.num_clients
+    t_phase = time.perf_counter()
+    PHASE9_DIR.mkdir(parents=True, exist_ok=True)
+    mesh = client_mesh(k, devices=["cuda:0"] * k)
+    cpu_mesh = client_mesh(k, devices=["cpu"] * k)
+    log(f"[device] mesh: {k} ranks, all on {mesh.distinct()[0]} (one card: "
+        f"the ranks share it, a transfer between ranks is no copy); "
+        f"{torch.cuda.device_count()} card(s) visible")
+    check_sharded(mesh, cpu_mesh, pc)
+
+    runs = device_runs(pc, k)
+    host_sims = {lb: Simulator(pc, AggConfig(**cfg), fed, device="cuda",
+                               **skw) for lb, cfg, skw, _, _, _, _ in runs}
+    dev_sims = {lb: Simulator(pc, AggConfig(**cfg), fed, device="cuda",
+                              backend="device", mesh=mesh, **skw)
+                for lb, cfg, skw, _, _, _, _ in runs}
+    t0 = time.perf_counter()
+    for lb, _, _, rkw, _, _, _ in runs:
+        dev_sims[lb].run(1, seed=SEED, **rkw)
+    torch.cuda.synchronize()
+    # launches held to the plans' real slots, counted on the CPU first
+    predicted = {lb: {n: sum(real_slots(plan_of(r)) for r in range(rounds))
+                      * per for n, per in per_slot.items()}
+                 for lb, _, _, _, rounds, plan_of, per_slot in runs}
+    log(f"[device] warm-up {time.perf_counter() - t0:.1f} s; predicted "
+        f"level-kernel launches (real slots of the plans x launches per "
+        f"slot): {predicted}")
+
+    # the device backend's runs, the launch counts read around them only;
+    # the host backend's runs for the comparison come after
+    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS]
+    lb_b = "cl_tc_sia walker"
+    rkw_b, plan_b = next((r[3], r[5]) for r in runs if r[0] == lb_b)
+    predicted["run_batched " + lb_b] = {"cl_fuse_level": sum(
+        real_slots(plan_b(r)) for r in range(DEVICE_ROUNDS))}
+    level.reset_launch_counts()
+    torch.cuda.synchronize()
+    dev_out = {}
+    for lb, _, _, rkw, rounds, _, _ in runs + [("run_batched " + lb_b,
+                                                None, None, rkw_b,
+                                                DEVICE_ROUNDS, None, None)]:
+        before = [fn.launches for fn in level.KERNELS]
+        with TauRecorder(sp) as taus:
+            if lb.startswith("run_batched"):
+                out = dev_sims[lb_b].run_batched(
+                    rounds, seeds=DEVICE_SEEDS, **rkw)
+            else:
+                out = dev_sims[lb].run(rounds, seed=SEED, **rkw)
+        torch.cuda.synchronize()
+        grown = {n: fn.launches - b for n, fn, b in
+                 zip(names, level.KERNELS, before) if fn.launches - b}
+        if grown != predicted[lb]:
+            raise SystemExit(f"FAIL device {lb}: level-kernel launches "
+                             f"{grown}, predicted {predicted[lb]}")
+        dev_out[lb] = (out, list(taus), grown)
+    launches = {n: fn.launches for n, fn in zip(names, level.KERNELS)}
+
+    for lb, _, _, rkw, rounds, _, _ in runs:
+        dev, taus_dev, grown = dev_out[lb]
+        with TauRecorder(sp) as taus_host:
+            host = host_sims[lb].run(rounds, seed=SEED, **rkw)
+        same_tau = len(taus_dev) == len(taus_host) and all(
+            bitwise_equal(a, b) and bitwise_equal(c, e)
+            for (a, c), (b, e) in zip(taus_dev, taus_host))
+        if not (dev["loss"] == host["loss"] and dev["bits"] == host["bits"]
+                and dev["nnz"] == host["nnz"] and same_tau
+                and states_equal(dev["state"], host["state"])):
+            raise SystemExit(f"FAIL device {lb}: the device backend's run "
+                             f"differs from the host backend's on the card "
+                             f"(τ equal: {same_tau})")
+        loss = dev["loss"]
+        if not (all(math.isfinite(v) for v in loss) and loss[-1] < loss[0]):
+            raise SystemExit(f"FAIL device {lb}: loss did not fall "
+                             f"({loss[0]} -> {loss[-1]})")
+        log(f"[device] {lb:17s}: {rounds} rounds, device backend = host "
+            f"backend on the card bit for bit (model, EF, stage EF tiers, "
+            f"{len(taus_dev)} τ searches, bits, nnz, loss); loss "
+            f"{loss[0]:.4f} -> {loss[-1]:.4f}; launches {grown} = real "
+            f"slots x per slot")
+
+    bat_dev, _, grown = dev_out["run_batched " + lb_b]
+    bat_host = host_sims[lb_b].run_batched(DEVICE_ROUNDS, seeds=DEVICE_SEEDS,
+                                           **rkw_b)
+    if not (bat_dev["loss"] == bat_host["loss"]
+            and bat_dev["bits"] == bat_host["bits"]
+            and states_equal(bat_dev["state"], bat_host["state"])):
+        raise SystemExit(f"FAIL device run_batched {lb_b}: the run differs "
+                         f"from the host backend's")
+    log(f"[device] run_batched {lb_b}, B = {len(DEVICE_SEEDS)}: "
+        f"{DEVICE_ROUNDS} rounds, device = host backend bit for bit "
+        f"(model, EF, bits, loss per cohort); launches {grown} = one step "
+        f"per real slot for all {len(DEVICE_SEEDS)} cohorts")
+    log(f"[device] level-kernel launches over the device-backend runs: "
+        f"{ {n: v for n, v in launches.items() if v} }")
+
+    # the card mesh against the CPU mesh, on the CPU run's gradients
+    for lb, cfg, skw, rkw, _, plan_of, _ in runs:
+        if lb in ("cl_sia chain", "cl_tc_sia walker", "cl_sia pods"):
+            tree_card_matches_cpu(
+                dev_sims[lb], Simulator(pc, AggConfig(**cfg), fed,
+                                        device="cpu", backend="device",
+                                        mesh=cpu_mesh, **skw),
+                [plan_of(r) for r in range(1, 1 + DEVICE_SHORT)],
+                f"{lb} (device backend, card mesh vs CPU mesh)", "device")
+    if torch.cuda.device_count() >= 2:
+        n = torch.cuda.device_count()
+        spread = client_mesh(k, devices=[f"cuda:{r % n}" for r in range(k)])
+        lb, cfg, skw, rkw = runs[1][:4]
+        a = Simulator(pc, AggConfig(**cfg), fed, device="cuda",
+                      backend="device", mesh=spread, **skw).run(
+                          DEVICE_ROUNDS, seed=SEED, **rkw)
+        b = dev_sims[lb].run(DEVICE_ROUNDS, seed=SEED, **rkw)
+        if a["loss"] != b["loss"] or not states_equal(a["state"],
+                                                      b["state"]):
+            raise SystemExit(f"FAIL device {lb}: the ranks spread over {n} "
+                             f"cards differ from the one-card mesh")
+        log(f"[device] {lb}: ranks round-robin over {n} cards = one card, "
+            f"bit for bit")
+    else:
+        log("[device] one card: the round-robin spread over cards is not "
+            "run")
+
+    # the clustered Walker scenario of phase 8 on the device backend
+    spec = walker_scenario(pc)
+    traces = [PHASE9_DIR / f"scenario_{b}.jsonl" for b in ("host", "device")]
+    out_h, recs_h, _ = scenario_run(pc, fed, spec, traces[0])
+    out_d, recs_d, sim_d = scenario_run(pc, fed, spec, traces[1],
+                                        backend="device", mesh=mesh)
+    meta = json.loads(traces[1].read_text().splitlines()[0])
+    strip = lambda r: {k_: v for k_, v in r.items()  # noqa: E731
+                       if k_ != "phases"}
+    err_rel = 0.0
+    for a, b in zip(recs_h, recs_d):
+        for sa, sb in zip(a["stages"], b["stages"]):
+            err_rel = max(err_rel, max((abs(u - v) / max(abs(u), 1e-30)
+                                        for u, v in zip(sa["err_sq"],
+                                                        sb["err_sq"])),
+                                       default=0.0))
+            sb["err_sq"] = sa["err_sq"]
+        b["totals"]["err_sq"] = a["totals"]["err_sq"]
+    res = validate_trace(str(traces[1]))
+    same = [strip(r) for r in recs_h] == [strip(r) for r in recs_d]
+    if (res["errors"] or meta.get("backend") != "device"
+            or sim_d.trace_counter.count != 1 or err_rel > 1e-6 or not same
+            or out_h["loss"] != out_d["loss"]):
+        raise SystemExit(f"FAIL device scenario: trace errors "
+                         f"{res['errors'][:3]}, backend {meta.get('backend')}"
+                         f", {sim_d.trace_counter.count} input signatures, "
+                         f"records equal to the host trace's: {same}, "
+                         f"err_sq max rel {err_rel:.2e}")
+    log(f"[device] scenario {spec.name} on the device backend: trace valid "
+        f"({ {k_: v for k_, v in res.items() if k_ != 'errors'} }), 1 input "
+        f"signature, meta backend 'device', its {len(recs_d)} round records "
+        f"= the host trace's (bits, nnz, loss, participation, EF masses, "
+        f"plans, timelines bit for bit; per-hop err_sq, a row sum whose "
+        f"order on the card depends on the level width, max rel "
+        f"{err_rel:.2e})")
+    t0 = time.perf_counter()
+    smoke_log = PHASE9_DIR / "smoke.log"
+    with open(smoke_log, "w") as f, contextlib.redirect_stdout(f):
+        rc = smoke.main(["--device", "--mesh", "cuda:0",
+                         "--out", str(PHASE9_DIR / "smoke")])
+    oks = [ln.split()[1].rstrip(":") for ln in smoke_log.read_text()
+           .splitlines() if ln.startswith("[OK]")]
+    if rc != 0 or len(oks) != 5:
+        raise SystemExit(f"FAIL obs.smoke --device exited {rc} (OK: {oks};"
+                         f" see {smoke_log})")
+    log(f"[device] obs.smoke --device --mesh cuda:0 (defaults: 8 clients, "
+        f"10 rounds): {', '.join(oks)} OK ({time.perf_counter() - t0:.1f} "
+        f"s; output in {smoke_log.relative_to(PHASE9_DIR.parents[1])})")
+
+    # ms per round, device backend beside host backend, in turns
+    cl = AggConfig(**runs[0][1])
+    walker = TreeTopology(walker_delta(**WALKER), "widest")
+    cells = {}
+    for name, skw, rkw in (("chain", {}, {}),
+                           ("star", {}, dict(topology=star_tree(k))),
+                           ("walker", dict(tree_topology=walker), {}),
+                           ("nested", runs[4][2], {})):
+        for backend, bkw in (("host", {}),
+                             ("device", dict(backend="device", mesh=mesh))):
+            sim = Simulator(pc, cl, fed, device="cuda", **skw, **bkw)
+            sim.run(1, seed=SEED, **rkw)
+            cells[(name, backend)] = (sim, rkw)
+    times = {key: [] for key in cells}
+    for turn in range(DEVICE_TURNS):
+        order = list(cells) if turn % 2 == 0 else list(cells)[::-1]
+        for key in order:
+            sim, rkw = cells[key]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(DEVICE_TIMED_ROUNDS, seed=SEED, **rkw)
+            torch.cuda.synchronize()
+            times[key].append(1e3 * (time.perf_counter() - t0)
+                              / DEVICE_TIMED_ROUNDS)
+    med = {key: float(np.median(v)) for key, v in times.items()}
+    log(f"[device] {nvidia_smi()}")
+    log(f"[device] cl_sia ms per round (host clock, synchronized, "
+        f"{DEVICE_TIMED_ROUNDS} rounds, median of {DEVICE_TURNS} turns "
+        f"[min, max]), host backend | device backend | device / host: "
+        + "; ".join(
+            f"{name} {med[(name, 'host')]:.2f} "
+            f"[{min(times[(name, 'host')]):.2f}, "
+            f"{max(times[(name, 'host')]):.2f}] | "
+            f"{med[(name, 'device')]:.2f} "
+            f"[{min(times[(name, 'device')]):.2f}, "
+            f"{max(times[(name, 'device')]):.2f}] | "
+            f"{med[(name, 'device')] / med[(name, 'host')]:.3f}"
+            for name in ("chain", "star", "walker", "nested")))
+    for name, backend in (("chain", "device"), ("star", "device"),
+                          ("star", "host")):
+        sim, rkw = cells[(name, backend)]
+        profile_calls(f"{backend} backend cl_sia {name}",
+                      lambda: sim.run(3, seed=SEED, **rkw), 3)
+    log(f"[device] phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -2199,6 +2692,8 @@ def main() -> int:
     for name, n in batched_path(level, data).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in nested_path(level, ref, sp, data).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in device_path(level, data).items():
         launches[name] = launches.get(name, 0) + n
 
     csrc = "src/repro_torch/kernels/csrc/"

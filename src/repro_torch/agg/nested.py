@@ -23,9 +23,10 @@ router — into a NestedPlan; :func:`execute_nested` runs one round through
 :func:`repro_torch.agg.plan.execute`, one stage after another, on the
 device of the gradients it is given. Plans are numpy on the host, as flat
 plans are. :class:`ClusteredStage` is the per-cluster view of a forest
-stage that the reference's multi-device lowering selects from (ROADMAP
-A12); here :meth:`NestedPlan.client_alive` and :attr:`NestedPlan.shape`
-read it.
+stage that the reference's rotated-segment lowering selects from (ROADMAP
+A12b); here :meth:`NestedPlan.client_alive` and :attr:`NestedPlan.shape`
+read it. The client-per-rank device backend runs nested plans through
+:func:`repro_torch.agg.device.execute_nested_sharded`.
 
 Semantics note: staged CL-SIA applies Top-Q once per stage, so the
 composition is not bit-identical to the flat chain, but both are instances

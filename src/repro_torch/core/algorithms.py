@@ -65,6 +65,10 @@ class AggConfig:
     CUDA tensors; ``"never"`` unfused; ``"ref"`` fused with plain bodies.
     ``err_sq_mode`` is ``"jnp"`` (a row sum of e′², comparable with the
     unfused bodies) or ``"kernel"`` (the pinned in-kernel fold order).
+    ``wire_dtype`` is the dtype of the values on the compact wire of the
+    client-per-rank device backend (:mod:`repro_torch.agg.device`):
+    ``"float32"`` matches ω = 32, ``"bfloat16"`` is the ω = 16
+    quantization knob, taken only under ``wire="compact"``.
 
     ``topq_impl`` is ``"exact"`` (the full-sort Top-Q) or ``"threshold"``
     (branch-and-bisect: ``hist_rounds`` rounds of ``hist_branch``
@@ -83,6 +87,7 @@ class AggConfig:
     hist_rounds: int = 3
     tau_impl: str = "scan"
     err_sq_mode: str = "jnp"
+    wire_dtype: str = "float32"
     kernel_mode: str = "auto"
 
     def __post_init__(self):
@@ -107,6 +112,9 @@ class AggConfig:
         if self.err_sq_mode not in ("jnp", "kernel"):
             raise ValueError(f"unknown err_sq_mode {self.err_sq_mode!r} "
                              f"(expected 'jnp' or 'kernel')")
+        if self.wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown wire_dtype {self.wire_dtype!r} "
+                             f"(expected 'float32' or 'bfloat16')")
         if self.kind not in (AggKind.DENSE_IA, AggKind.ROUTING):
             if self.q < 0:
                 raise ValueError("q must be non-negative for sparsified "

@@ -352,7 +352,7 @@ def threshold_for_topq(x: Optional[Tensor], q: int, *, branch: int = 64,
     if axis_name is not None:
         raise NotImplementedError(
             "axis_name (the multi-device τ search) is not ported yet — "
-            "ROADMAP A12")
+            "ROADMAP A12b")
     if tau_impl not in ("scan", "hist"):
         raise ValueError(f"unknown tau_impl {tau_impl!r}")
     kth = None
@@ -442,7 +442,8 @@ def topq_by_threshold(x: Tensor, q: int, *, branch: int = 64,
 # ---------------------------------------------------------------------------
 
 def compact(x: Tensor, q: int):
-    """Dense ``[d]`` → ``(values [q], indices [q] i32, count i32)``.
+    """Dense ``[..., d]`` → ``(values [..., q], indices [..., q] i32,
+    count [...] i32)``, row by row over any leading axes.
 
     The slots hold the nonzeros of ``x`` in index order (lossless when
     ``x`` has at most q nonzeros); unused slots carry value 0 and the
@@ -450,16 +451,21 @@ def compact(x: Tensor, q: int):
     """
     d = x.shape[-1]
     is_nz = x != 0
-    order = torch.sort((~is_nz).to(torch.int8), stable=True).indices
-    take = order[:q]
-    valid = is_nz[take]
+    order = torch.sort((~is_nz).to(torch.int8), dim=-1, stable=True).indices
+    take = order[..., :q]
+    valid = torch.gather(is_nz, -1, take)
+    picked = torch.gather(x, -1, take)
     idx = torch.where(valid, take, torch.full_like(take, d)).to(torch.int32)
-    vals = torch.where(valid, x[take], torch.zeros_like(x[take]))
-    return vals, idx, is_nz.sum(dtype=torch.int32)
+    vals = torch.where(valid, picked, torch.zeros_like(picked))
+    return vals, idx, is_nz.sum(dim=-1, dtype=torch.int32)
 
 
 def scatter(vals: Tensor, idx: Tensor, d: int) -> Tensor:
-    """Compact ``(values, indices)`` → dense ``[d]``; index d is dropped."""
-    out = torch.zeros((d + 1,), dtype=vals.dtype, device=vals.device)
-    out.index_add_(0, idx.to(torch.int64), vals)
-    return out[:d]
+    """Compact ``(values, indices)`` → dense ``[..., d]``; index d is
+    dropped. The indices of a row are distinct (but for the dropped
+    sentinel), so every kept value lands on a zero and the result does not
+    depend on the order of the adds."""
+    out = torch.zeros(vals.shape[:-1] + (d + 1,), dtype=vals.dtype,
+                      device=vals.device)
+    out.scatter_add_(-1, idx.to(torch.int64), vals)
+    return out[..., :d]

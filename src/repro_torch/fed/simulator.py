@@ -1,5 +1,5 @@
 """Multi-hop FL simulator — the paper's §VI experiment (port of
-:mod:`repro.fed.simulator`, host backend).
+:mod:`repro.fed.simulator`).
 
 K clients train a d = 7850 logistic-regression model on synthetic MNIST.
 Per round:
@@ -18,6 +18,11 @@ Per round:
 
 Rounds run on ``cuda`` unless the simulator is built with another
 ``device``; with no card and no ``device="cpu"`` construction raises.
+``backend="device"`` runs the same rounds through the client-per-rank
+lowering (:mod:`repro_torch.agg.device`: ``execute_sharded``,
+``execute_sharded_batched``, ``execute_nested_sharded``) over a
+:class:`~repro_torch.agg.device.ClientMesh` — one rank per client, every
+rank's rows on its own device, bit for bit the host backend's rounds.
 Minibatch draws come from a CPU ``torch.Generator`` seeded by
 :meth:`Simulator.run`, or are passed in by the caller
 (:meth:`Simulator.round_fn`'s ``batch_idx``), so a test can replay
@@ -54,6 +59,9 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
+from repro_torch.agg.device import (ClientMesh, client_mesh,
+                                    execute_nested_sharded, execute_sharded,
+                                    execute_sharded_batched)
 from repro_torch.agg.nested import (NestedPlan, as_nested, compile_nested,
                                     execute_nested, zero_stage_ef)
 from repro_torch.agg.plan import (AggPlan, Topology, compile_plan, execute,
@@ -181,6 +189,13 @@ class Simulator:
     ``trace_counter`` counts the distinct input signatures the rounds
     meet (state shapes, plan kind and padded shape, participation given
     or not) — the port's counterpart of the reference's jit trace count.
+
+    ``backend`` is ``"host"`` (:func:`~repro_torch.agg.plan.execute` on
+    ``device``) or ``"device"`` (the client-per-rank lowering over
+    ``mesh``; ``mesh=None`` is :func:`~repro_torch.agg.device.client_mesh`
+    over K CUDA devices, which raises with fewer cards — pass
+    ``client_mesh(K, devices=["cuda:0"] * K)`` to put every rank on one).
+    Results come back on ``device`` either way.
     """
 
     pc: PaperConfig
@@ -190,8 +205,12 @@ class Simulator:
     tree_topology: Optional[TreeTopology] = None
     nested_topology: Optional[Any] = None
     device: DeviceLike = None
+    backend: str = "host"
+    mesh: Optional[ClientMesh] = None
 
     def __post_init__(self):
+        if self.backend not in ("host", "device"):
+            raise ValueError(f"unknown backend {self.backend!r}")
         self.device = resolve_device(self.device)
         if (self.tree_topology is not None
                 and self.tree_topology.num_clients != self.fed.num_clients):
@@ -218,6 +237,14 @@ class Simulator:
                 raise ValueError(
                     f"nested topology has {self._nested.num_clients} "
                     f"clients, data has {self.k}")
+        if self.backend == "device":
+            self.mesh = (client_mesh(self.k) if self.mesh is None
+                         else self.mesh)
+            if self.mesh.size != self.k:
+                raise ValueError(f"mesh has {self.mesh.size} ranks, data "
+                                 f"has {self.k} clients")
+        elif self.mesh is not None:
+            raise ValueError("a mesh is taken only with backend='device'")
         self.trace_counter = TraceCounter()
 
     def init(self) -> SimState:
@@ -281,19 +308,24 @@ class Simulator:
             global_mask = tcs_mod.global_mask(
                 tcs_mod.TCSState(tcs_prev), state.flat_w, cfg.q_global)
             tcs_prev = state.flat_w
+        dev_kw = {} if self.backend == "host" else {"mesh": self.mesh}
         if nested:
-            res = execute_nested(cfg, plan, grads, state.ef, self.weights,
-                                 stage_e=state.stage_ef,
-                                 global_mask=global_mask,
-                                 participate=participate)
+            run_nested = (execute_nested if self.backend == "host"
+                          else execute_nested_sharded)
+            res = run_nested(cfg, plan, grads, state.ef, self.weights,
+                             stage_e=state.stage_ef, global_mask=global_mask,
+                             participate=participate, **dev_kw)
             stage_ef = res.stage_e_new
             all_stats = (res.stats,) + res.stage_stats
             # whole-chain aliveness: a stub cluster's clients forward
             # nothing to the PS, so they leave the denominator too
             alive = plan.client_alive(self.device)
         else:
-            res = execute(cfg, plan, grads, state.ef, self.weights,
-                          global_mask=global_mask, participate=participate)
+            run_flat = (execute if self.backend == "host"
+                        else execute_sharded)
+            res = run_flat(cfg, plan, grads, state.ef, self.weights,
+                           global_mask=global_mask, participate=participate,
+                           **dev_kw)
             stage_ef = state.stage_ef
             all_stats = (res.stats,)
             alive = torch.as_tensor(plan.alive, dtype=torch.float32,
@@ -406,7 +438,8 @@ class Simulator:
                 extra = {"scenario": compiled.spec.name,
                          "scenario_spec": compiled.spec.to_dict()}
             collector.configure(
-                cfg=self.agg, d=self.d, num_clients=self.k, backend="host",
+                cfg=self.agg, d=self.d, num_clients=self.k,
+                backend=self.backend,
                 device=str(self.device),
                 topology=self._topology_name(compiled, failure_schedule,
                                              order_fn, topology_schedule,
@@ -604,9 +637,15 @@ class Simulator:
                 for prev, w in zip(tcs_prev, state.flat_w)])
             tcs_prev = state.flat_w
         weights = self.weights.expand(b, k)
-        res = execute_batched(cfg, plan, grads, state.ef, weights,
-                              global_mask=global_mask,
-                              participate=participate)
+        if self.backend == "host":
+            res = execute_batched(cfg, plan, grads, state.ef, weights,
+                                  global_mask=global_mask,
+                                  participate=participate)
+        else:
+            res = execute_sharded_batched(cfg, plan, grads, state.ef,
+                                          weights, mesh=self.mesh,
+                                          global_mask=global_mask,
+                                          participate=participate)
         alive = torch.as_tensor(plan.alive, dtype=torch.float32,
                                 device=self.device).expand(b, k)
         part = alive if participate is None else participate * alive
@@ -654,7 +693,8 @@ class Simulator:
         b = len(seeds)
         if collector is not None:
             collector.configure(
-                cfg=self.agg, d=self.d, num_clients=self.k, backend="host",
+                cfg=self.agg, d=self.d, num_clients=self.k,
+                backend=self.backend,
                 device=str(self.device), cohorts=b,
                 topology=self._topology_name(None, failure_schedule,
                                              order_fn, topology_schedule,

@@ -1,13 +1,15 @@
 """Telemetry smoke driver — ``python -m repro_torch.obs.smoke --out DIR``
-(port of :mod:`repro.obs.smoke`, its host part).
+(port of :mod:`repro.obs.smoke`).
 
 Runs short :class:`~repro_torch.fed.simulator.Simulator` experiments over
 the paths the trace subsystem must cover — flat chain, routed
-constellation tree (link model → critical path), nested two-stage plan —
-writing one JSONL trace + Chrome export per scenario, then validates every
-trace and cross-checks its totals against the returned curves. The rounds
-run on ``--torch-device`` (default ``cuda``). ``--device`` (the
-reference's multi-device backend runs) is ROADMAP A12 and raises.
+constellation tree (link model → critical path), nested two-stage plan,
+and (with ``--device``) the client-per-rank device backend on the flat
+chain and the nested plan — writing one JSONL trace + Chrome export per
+scenario, then validates every trace and cross-checks its totals against
+the returned curves. The rounds run on ``--torch-device`` (default
+``cuda``); the device backend's ranks on the first ``--clients`` CUDA
+devices, or all on ``--mesh DEVICE``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import sys
 import torch
 
 
-def _sims(pc, fed, device):
-    """→ [(name, Simulator)] covering the host paths."""
+def _sims(pc, fed, device, mesh=None):
+    """→ [(name, Simulator)] covering the host paths, and the device
+    backend's when a ``mesh`` is given."""
     import repro_torch.topo.graph as tg
     from repro_torch.core.algorithms import AggConfig, AggKind
     from repro_torch.fed.simulator import Simulator
@@ -34,12 +37,20 @@ def _sims(pc, fed, device):
                         routing="widest")
     nested = cluster_routed(tg.grid_graph(2, k // 2), 2)
     kw = dict(local_lr=pc.lr, device=device)
-    return [
+    out = [
         ("host_chain", Simulator(pc, cfg, fed, **kw)),
         ("host_tree", Simulator(pc, cfg, fed, tree_topology=tree, **kw)),
         ("host_nested", Simulator(pc, cfg, fed, nested_topology=nested,
                                   **kw)),
     ]
+    if mesh is not None:
+        dev = dict(kw, backend="device", mesh=mesh)
+        out += [
+            ("device_chain", Simulator(pc, cfg, fed, **dev)),
+            ("device_nested", Simulator(pc, cfg, fed, nested_topology=nested,
+                                        **dev)),
+        ]
+    return out
 
 
 def main(argv=None) -> int:
@@ -49,14 +60,26 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--device", action="store_true",
-                    help="the multi-device backend runs (not ported: "
-                         "ROADMAP A12)")
+                    help="also run backend='device' scenarios (needs "
+                         "--clients CUDA devices, or --mesh)")
+    ap.add_argument("--mesh", default=None, metavar="DEVICE",
+                    help="--device: put every rank on DEVICE (e.g. cuda:0 "
+                         "or cpu)")
     ap.add_argument("--torch-device", default=None,
                     help="torch device of the rounds (default: cuda)")
     args = ap.parse_args(argv)
+
+    from repro_torch.agg.device import client_mesh
+    mesh = None
     if args.device:
-        raise ValueError("--device runs the multi-device backend, which is "
-                         "not ported (ROADMAP A12)")
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if args.mesh is None and have < args.clients:
+            print(f"--device needs {args.clients} CUDA devices, have {have} "
+                  f"(pass --mesh DEVICE to put every rank on one device)")
+            return 2
+        mesh = client_mesh(args.clients,
+                           None if args.mesh is None
+                           else [args.mesh] * args.clients)
 
     from repro_torch.configs import PAPER
     from repro_torch.data import make_synthetic_mnist, partition_iid
@@ -72,7 +95,7 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
 
     failed = False
-    for name, sim in _sims(pc, fed, args.torch_device):
+    for name, sim in _sims(pc, fed, args.torch_device, mesh):
         path = os.path.join(args.out, f"{name}.jsonl")
         with TraceCollector(path, meta={"scenario": name}) as col:
             out = sim.run(args.rounds, collector=col, flush_every=4)

@@ -12,7 +12,11 @@ JSONL trace whose meta carries the spec and whose ``track="scenario"``
 spans carry the realized event stream. Exits nonzero if the trace fails
 validation or the rounds met more than one input signature.
 
-``--backend`` is ``host`` only: the multi-device backend is ROADMAP A12.
+``--backend device`` runs the rounds through the client-per-rank lowering
+(:mod:`repro_torch.agg.device`) on a mesh of one device per client: the
+first K CUDA devices, or — with ``--mesh DEVICE`` — every rank on one
+device (``--mesh cuda:0`` on one card, ``--mesh cpu`` on the CPU), the
+counterpart of the reference's fake-device XLA flag.
 """
 
 from __future__ import annotations
@@ -48,20 +52,24 @@ def load_spec(ref: str):
 
 
 def _check_backend(backend: str) -> None:
-    if backend != "host":
-        raise ValueError(f"backend {backend!r} is not ported: the "
-                         f"multi-device backend is ROADMAP A12; use "
-                         f"backend='host'")
+    if backend not in ("host", "device"):
+        raise ValueError(f"unknown backend {backend!r} (expected 'host' or "
+                         f"'device')")
 
 
 def run_scenario(spec, *, backend: str = "host", out: str = "trace.jsonl",
-                 flush_every: int = 8, device=None) -> dict:
+                 flush_every: int = 8, device=None, mesh=None) -> dict:
     """Compile + run one scenario on ``device`` (``None`` → ``cuda``); →
     the simulator's curves dict plus the compiled scenario and the input
     signatures the rounds met under ``_scenario``/``_retraces``.
 
+    ``backend="device"`` runs on ``mesh``: a
+    :class:`~repro_torch.agg.device.ClientMesh`, one device name for every
+    rank, or ``None`` for the first K CUDA devices.
+
     The data is the reference driver's shape: synthetic MNIST, 40 samples
     per client, seeds 0 (samples) and 2 (the split)."""
+    from repro_torch.agg.device import ClientMesh, client_mesh
     from repro_torch.configs import PAPER
     from repro_torch.data import make_synthetic_mnist, partition_iid
     from repro_torch.fed.simulator import Simulator
@@ -70,11 +78,15 @@ def run_scenario(spec, *, backend: str = "host", out: str = "trace.jsonl",
 
     _check_backend(backend)
     k = spec.num_clients
+    if backend == "device" and not isinstance(mesh, ClientMesh):
+        mesh = client_mesh(k, None if mesh is None else [mesh] * k)
+    elif backend == "host":
+        mesh = None
     pc = dataclasses.replace(PAPER, num_clients=k)
     train = make_synthetic_mnist(0, k * 40, device=device)
     fed = partition_iid(train, k, torch.Generator().manual_seed(2))
     sim = Simulator(pc, spec.agg_config(), fed, local_lr=pc.lr,
-                    device=device)
+                    device=device, backend=backend, mesh=mesh)
     compiled = compile_scenario(spec, cfg=sim.agg)
     with TraceCollector(out) as col:
         curves = sim.run(spec.rounds, scenario=compiled, collector=col,
@@ -93,6 +105,9 @@ def main(argv=None) -> int:
                     help="output trace path")
     ap.add_argument("--backend", default="host",
                     choices=("host", "device"))
+    ap.add_argument("--mesh", default=None, metavar="DEVICE",
+                    help="--backend device: put every rank on DEVICE "
+                         "(default: one CUDA device per client)")
     ap.add_argument("--torch-device", default=None,
                     help="torch device of the rounds (default: cuda)")
     ap.add_argument("--flush-every", type=int, default=8)
@@ -100,8 +115,9 @@ def main(argv=None) -> int:
 
     _check_backend(args.backend)
     spec = load_spec(args.spec)
-    curves = run_scenario(spec, out=args.out, flush_every=args.flush_every,
-                          device=args.torch_device)
+    curves = run_scenario(spec, backend=args.backend, out=args.out,
+                          flush_every=args.flush_every,
+                          device=args.torch_device, mesh=args.mesh)
 
     from repro_torch.obs import validate_trace
     from repro_torch.obs.report import print_summary, summarize

@@ -822,3 +822,154 @@ def test_nested_round_on_the_card_equals_the_cpu(cuda, kind, impl):
                       (got.stats,) + got.stage_stats):
         for f in ("nnz_out", "nnz_global", "nnz_local", "bits"):
             _same(getattr(ws, f), getattr(gs, f))
+
+
+@pytest.mark.parametrize("topo", ["chain", "star", "tree"])
+@pytest.mark.parametrize("kind", ["sia", "re_sia", "cl_sia", "tc_sia",
+                                  "cl_tc_sia", "dense_ia"])
+def test_execute_sharded_on_the_card_equals_host_execute(cuda, kind, topo):
+    """The client-per-rank backend on a mesh of 28 ranks on one card
+    (K = 28, d = 7850): one W = 1 level step per real slot, equal to host
+    ``execute`` on the card and to the CPU mesh bit for bit — aggregate, EF
+    rows, counts, bits and the pinned ``err_sq``."""
+    from repro_torch.agg import compile_plan, execute
+    from repro_torch.agg.device import client_mesh, execute_sharded
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.topo import star_tree
+    from repro_torch.topo.tree import PS, AggTree
+    k, d = 28, 7850
+    parent = tuple(PS if i < 3 else (i - 3) // 4 for i in range(k))
+    plan = compile_plan({"chain": k, "star": star_tree(k),
+                         "tree": AggTree(parent=parent)}[topo])
+    cfg = AggConfig(kind=kind, q=78,
+                    err_sq_mode="jnp" if kind == "dense_ia" else "kernel")
+    rng = np.random.default_rng(11)
+    g = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32))
+    e = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32))
+    part = torch.ones((k,))
+    part[5] = 0.0
+    gm = torch.zeros((d,))
+    gm[rng.choice(d, cfg.q_global or 1, replace=False)] = 1.0
+    args = lambda dev: (g.to(dev), 0.1 * e.to(dev),  # noqa: E731
+                        torch.ones((k,), device=dev))
+    opt = lambda dev: dict(global_mask=gm.to(dev),  # noqa: E731
+                           participate=part.to(dev))
+    host = execute(cfg, plan, *args(cuda), **opt(cuda))
+    before = [fn.launches for fn in level.KERNELS]
+    got = execute_sharded(cfg, plan, *args(cuda), **opt(cuda),
+                          mesh=client_mesh(k, devices=[cuda] * k))
+    torch.cuda.synchronize()
+    if kind != "dense_ia":
+        assert sum(fn.launches for fn in level.KERNELS) > sum(before)
+    cpu = execute_sharded(cfg, plan, *args("cpu"), **opt("cpu"),
+                          mesh=client_mesh(k, devices=["cpu"] * k))
+    assert got.e_new.device.type == "cuda"
+    for want in (host, cpu):
+        _same(want.aggregate, got.aggregate)
+        _same(want.e_new, got.e_new)
+        for f in ("nnz_out", "nnz_global", "nnz_local", "bits"):
+            _same(getattr(want.stats, f), getattr(got.stats, f))
+        if cfg.err_sq_mode == "kernel":
+            _same(want.stats.err_sq, got.stats.err_sq)
+
+
+def _mixed_meshes(cuda, k):
+    """(mesh, caller device) pairs whose transfers cross between the card
+    and the CPU: the card mesh under a CPU caller, and ranks alternating
+    CPU / card under a CPU and under a card caller."""
+    from repro_torch.agg.device import client_mesh
+    mixed = client_mesh(k, devices=["cpu", cuda] * (k // 2))
+    return {"card mesh, cpu caller": (client_mesh(k, devices=[cuda] * k),
+                                      "cpu"),
+            "mixed mesh, cpu caller": (mixed, "cpu"),
+            "mixed mesh, card caller": (mixed, cuda)}
+
+
+def _same_round(want, got, exact_err):
+    _same_t(want.aggregate, got.aggregate)
+    _same_t(want.e_new, got.e_new)
+    for f in ("nnz_out", "nnz_global", "nnz_local", "bits"):
+        _same_t(getattr(want.stats, f), getattr(got.stats, f))
+    if exact_err:
+        _same_t(want.stats.err_sq, got.stats.err_sq)
+    else:
+        torch.testing.assert_close(got.stats.err_sq.cpu(),
+                                   want.stats.err_sq, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("setup", ["card mesh, cpu caller",
+                                   "mixed mesh, cpu caller",
+                                   "mixed mesh, card caller"])
+@pytest.mark.parametrize("topo", ["chain", "tree"])
+@pytest.mark.parametrize("kind", ["sia", "re_sia", "cl_sia", "tc_sia",
+                                  "cl_tc_sia", "dense_ia"])
+def test_execute_sharded_across_the_card_and_the_cpu_equals_host_execute(
+        cuda, kind, topo, setup):
+    """Meshes whose payloads, rows and stats cross between the card and the
+    CPU (K = 28, d = 7850): ``execute_sharded`` and
+    ``execute_sharded_batched`` (B = 3) bit for bit host ``execute`` and
+    ``execute_batched`` on the CPU — every copy from the card to the CPU
+    has landed before the CPU reads it. The chain takes the compact wire on
+    the CL kinds, the tree the dense one."""
+    from repro_torch.agg import compile_plan, execute, execute_batched
+    from repro_torch.agg.device import execute_sharded, execute_sharded_batched
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.topo.tree import PS, AggTree
+    k, d, b = 28, 7850, 3
+    parent = tuple(PS if i < 3 else (i - 3) // 4 for i in range(k))
+    plan = compile_plan({"chain": k, "tree": AggTree(parent=parent)}[topo])
+    cfg = AggConfig(kind=kind, q=78,
+                    err_sq_mode="jnp" if kind == "dense_ia" else "kernel")
+    rng = np.random.default_rng(13)
+    g = torch.from_numpy(rng.standard_normal((b, k, d), dtype=np.float32))
+    e = torch.from_numpy(rng.standard_normal((b, k, d), dtype=np.float32))
+    e = 0.1 * e
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, (b, k)).astype(np.float32))
+    part = torch.ones((b, k))
+    part[:, 5] = 0.0
+    gm = torch.zeros((b, d))
+    for c in range(b):
+        gm[c, rng.choice(d, cfg.q_global or 1, replace=False)] = 1.0
+    mesh, dev = _mixed_meshes(cuda, k)[setup]
+    on = lambda x: x.to(dev)  # noqa: E731
+    exact = cfg.err_sq_mode == "kernel"
+    want = execute(cfg, plan, g[0], e[0], w[0], global_mask=gm[0],
+                   participate=part[0])
+    got = execute_sharded(cfg, plan, on(g[0]), on(e[0]), on(w[0]),
+                          global_mask=on(gm[0]), participate=on(part[0]),
+                          mesh=mesh)
+    assert got.e_new.device.type == torch.device(dev).type
+    _same_round(want, got, exact)
+    want = execute_batched(cfg, plan, g, e, w, global_mask=gm,
+                           participate=part)
+    got = execute_sharded_batched(cfg, plan, on(g), on(e), on(w),
+                                  global_mask=on(gm), participate=on(part),
+                                  mesh=mesh)
+    _same_round(want, got, exact)
+
+
+@pytest.mark.parametrize("kind", ["cl_sia", "tc_sia"])
+def test_device_backend_with_a_card_mesh_and_a_cpu_simulator(cuda, kind):
+    """``Simulator(device="cpu", backend="device", mesh=<card mesh>)``: the
+    rounds run on the card, the model on the CPU, and 3 rounds equal the
+    CPU host backend's bit for bit (model, EF, bits, loss)."""
+    import dataclasses
+
+    from repro_torch.agg.device import client_mesh
+    from repro_torch.configs import PAPER
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.data import make_synthetic_mnist, partition_iid
+    from repro_torch.fed import Simulator
+    k = 8
+    pc = dataclasses.replace(PAPER, num_clients=k)
+    fed = partition_iid(make_synthetic_mnist(0, k * 60, device="cpu"), k,
+                        torch.Generator().manual_seed(2))
+    cfg = AggConfig(kind=kind, q=78)
+    host = Simulator(pc, cfg, fed, device="cpu").run(3, seed=3)
+    dev = Simulator(pc, cfg, fed, device="cpu", backend="device",
+                    mesh=client_mesh(k, devices=[cuda] * k)).run(3, seed=3)
+    assert dev["loss"] == host["loss"] and dev["bits"] == host["bits"]
+    for x, y in zip(host["state"], dev["state"]):
+        for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            if isinstance(u, torch.Tensor):
+                _same_t(u, v)

@@ -202,13 +202,18 @@ def test_nested_scenario_and_trace_entry_points_follow_the_device(tmp_path):
     sim = Simulator(PAPER, AggConfig(), _fed(4), nested_topology=nested,
                     device="cpu")
     assert [e.device.type for e in sim.init().stage_ef] == ["cpu"]
-    with pytest.raises(ValueError, match="A12"):
-        smoke.main(["--device", "--out", str(tmp_path)])
-    with pytest.raises(ValueError, match="A12"):
-        scenario_run.run_scenario(preset("relay-cascade"), backend="device",
+    with pytest.raises(ValueError, match="unknown backend"):
+        scenario_run.run_scenario(preset("relay-cascade"), backend="tpu",
                                   device="cpu")
     if torch.cuda.is_available():
         return
+    # the device backend needs one card per client unless a mesh is named,
+    # and never takes the CPU by itself
+    assert smoke.main(["--device", "--out", str(tmp_path),
+                       "--torch-device", "cpu"]) == 2
+    with pytest.raises(RuntimeError, match=r"devices=\['cpu'\]"):
+        scenario_run.run_scenario(preset("relay-cascade"), backend="device",
+                                  device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         zero_stage_ef(nested, 5)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -220,3 +225,66 @@ def test_nested_scenario_and_trace_entry_points_follow_the_device(tmp_path):
                                   out=str(tmp_path / "t.jsonl"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         smoke.main(["--out", str(tmp_path), "--rounds", "1"])
+
+
+def test_client_mesh_needs_a_card_per_rank_and_never_takes_the_cpu(
+        monkeypatch):
+    """``client_mesh(K)`` takes K cards: it raises with fewer, and with
+    none it names ``devices=['cpu'] * K`` instead of taking the CPU."""
+    from repro_torch.agg.device import client_mesh
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=r"devices=\['cpu'\] \* 28"):
+            client_mesh(28)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 28 devices, have 1"):
+        client_mesh(28)
+    with pytest.raises(ValueError, match="only 1 CUDA device"):
+        client_mesh(2, devices=["cuda:0", "cuda:1"])
+    assert client_mesh(28, devices=["cuda:0"] * 28).distinct() == (
+        torch.device("cuda", 0),)
+
+
+def test_device_backend_without_a_mesh_raises_where_there_is_no_card():
+    from repro_torch.agg.device import ClientMesh
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="devices="):
+        Simulator(PAPER, AggConfig(), _fed(4), device="cpu",
+                  backend="device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClientMesh(devices=("cuda:0",) * 4)
+
+
+def test_execute_sharded_never_moves_a_card_mesh_to_the_cpu(monkeypatch):
+    """A mesh that names the card keeps the work there: given CPU rows it
+    moves them to the card (which fails here) rather than stepping the
+    ranks on the CPU."""
+    from repro_torch.agg import compile_plan
+    from repro_torch.agg.device import client_mesh, execute_sharded
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    mesh = client_mesh(4, devices=["cuda:0"] * 4)
+    monkeypatch.undo()
+    stepped = []
+    monkeypatch.setattr(ops, "cl_fuse_level",
+                        lambda *a, **k: stepped.append(1))
+    with pytest.raises((AssertionError, RuntimeError)):
+        execute_sharded(AggConfig(q=3), compile_plan(4),
+                        torch.zeros((4, 16)), torch.zeros((4, 16)),
+                        torch.ones(4), mesh=mesh)
+    assert not stepped
+
+
+def test_device_module_imports_no_jax():
+    path = PORT / "agg" / "device.py"
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    code = ("import sys, repro_torch.agg.device\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -439,5 +439,12 @@ def test_cli_run_and_replay(tmp_path, capsys):
     d = diff(t1, t2)
     assert d["rounds_bits_differ"] == []
     assert d["bits_total_delta"] == 0.0
-    with pytest.raises(ValueError, match="A12"):
-        main([spec_path, "--out", t1, "--backend", "device"] + cpu)
+    # the device backend on a mesh of one device gives the same trace
+    t3 = str(tmp_path / "c.jsonl")
+    assert main([spec_path, "--out", t3, "--backend", "device",
+                 "--mesh", "cpu"] + cpu) == 0
+    d = diff(t1, t3)
+    assert d["rounds_bits_differ"] == []
+    assert d["bits_total_delta"] == 0.0
+    with pytest.raises(SystemExit):
+        main([spec_path, "--out", t3, "--backend", "tpu"] + cpu)
