@@ -1,15 +1,16 @@
 """Tree-topology sweep on the PyTorch/CUDA port: bits/round and
-critical-path latency across constellation shapes (twin of the host
-sections of ``fig_tree_topologies.py``; its device-plan section waits for
-the port's multi-device path).
+critical-path latency across constellation shapes (twin of
+``fig_tree_topologies.py``).
 
 For each topology (chain, star, grid, Walker-delta, Walker-star, random
 geometric) and each Algorithm 1–5 it measures exact §V bits from the tree
 simulator beside the ``comm_cost`` tree closed forms and bounds, and the
 aggregation critical path (serialize + propagate over per-link bandwidth
 and latency). A schedule section cycles all six routed trees through one
-padded ``(L, W)``; a last section sets bandwidth-scaled Top-Q budgets
-against the uniform one.
+padded ``(L, W)``; a section sets bandwidth-scaled Top-Q budgets
+against the uniform one; the last runs the chain ring and two routed trees
+through the rotated-segment lowering on a mesh of 8 ranks, all on the one
+device (``cuda:0`` by default, the CPU with ``--device cpu``).
 
     python benchmarks/torch_fig_tree_topologies.py [--device cpu]
 """
@@ -17,6 +18,7 @@ against the uniform one.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 from torch_common import ALGS, PAPER, agg_config, device_line, paper_data, \
@@ -24,7 +26,10 @@ from torch_common import ALGS, PAPER, agg_config, device_line, paper_data, \
 
 from repro_torch.agg import (TopologySchedule, bandwidth_budgets,
                              compile_plan, execute)
+from repro_torch.agg.device import (client_mesh, ring_chain_plan,
+                                    run_plan_segments_local)
 from repro_torch.core import comm_cost as cc
+from repro_torch.core.ring import segment_budget
 from repro_torch.device import resolve_device
 from repro_torch.fed import Simulator
 from repro_torch.fed.topology import TreeTopology
@@ -120,6 +125,64 @@ def measure_bandwidth_aware(device=None) -> list[str]:
             f"{float(bwa.stats.bits.sum()):.0f},-"]
 
 
+def measure_device_plans(device=None, ranks: int = 8, seg: int = 4096,
+                         reps: int = 10) -> list[str]:
+    """Chain ring vs routed tree plans on the rotated-segment lowering.
+
+    Every plan runs through ``run_plan_segments_local`` on a mesh of
+    ``ranks`` ranks, all on ``device``: the chain plan is the rotated
+    ring; the trees are routed multi-device topologies. CL-SIA §V bits are
+    topology-invariant, so what a tree buys is the critical path —
+    ``round_latency_s`` falls with depth — while the measured round (host
+    clock, synchronized) counts the levels and slots the lowering runs.
+    """
+    dev = resolve_device(device)
+    k = ranks
+    n = k * seg
+    pc = dataclasses.replace(PAPER, num_clients=k)
+    mesh = client_mesh(k, devices=[dev] * k)
+    gen = torch.Generator().manual_seed(0)
+    grads = list(torch.randn((k, n), generator=gen).to(dev))
+    ef = list(torch.zeros((k, n), device=dev))
+    cfg = dataclasses.replace(agg_config(ALGS["CL-SIA"]),
+                              q=segment_budget(pc.q * k, k))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    graphs = {"chain-ring": None,
+              f"grid-2x{k // 2}": tg.grid_graph(2, k // 2),
+              f"walker-delta-2x{k // 2}": tg.walker_delta(2, k // 2)}
+    per_hop = [cc.cl_sia_bits(1, n, cfg.q * k, pc.omega)] * k
+    lines = []
+    for name, g in graphs.items():
+        if g is None:
+            plan = ring_chain_plan(k)
+            tree = widest_path_tree(tg.path_graph(k))
+        else:
+            tree = widest_path_tree(g)
+            plan = compile_plan(tree)
+
+        def step():
+            return run_plan_segments_local(cfg, plan, mesh, grads, ef, 1.0,
+                                           transport="static")
+
+        _, _, st = step()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _, _, st = step()
+        sync()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        bits = sum(float(s.bits) for s in st)
+        depth = k if g is None else tree.max_depth()
+        lat = round_latency_s(tree, per_hop) * 1e3
+        lines.append(f"device,{name},CL-SIA,{bits:.0f} bits,depth {depth}, "
+                     f"crit-path {lat:.2f} ms, measured {ms:.1f} ms/round")
+    return lines
+
+
 def main(argv=None) -> list[str]:
     p = parser(__doc__)
     p.add_argument("--rounds", type=int, default=ROUNDS)
@@ -130,11 +193,14 @@ def main(argv=None) -> list[str]:
         lines.extend(measure(name, g, args.rounds, args.device))
     lines.extend(measure_time_varying(args.device))
     lines.extend(measure_bandwidth_aware(args.device))
+    lines.extend(measure_device_plans(args.device))
     print("\n".join(lines))
     # headline: CL-SIA bits are topology-invariant (the closed form holds
     # on every tree) while the critical path tracks tree depth; the
     # schedule section runs all six trees at one padded shape; the
-    # bandwidth-scaled budgets undercut the uniform budget's bits
+    # bandwidth-scaled budgets undercut the uniform budget's bits; on the
+    # segments lowering CL-SIA's bits are the same on the ring and the
+    # trees
     return lines
 
 

@@ -132,7 +132,32 @@ Phases (any failure exits non-zero and prints no result):
    cuda:0``; then ms per round of the device backend beside the host
    backend on the chain, the star, the Walker tree and the pod ring, in
    five alternating turns (medians and ranges), and torch.profiler's device
-   ops and busy time of a device round.
+   ops and busy time of a device round;
+10. the rotated-segment lowering — the same 28 ranks on ``cuda:0``, the
+   paper's d = 7850 padded to n = 7868 (281 per segment) and its budget per
+   segment (``segment_budget(78 · 28, 28)``): ``run_plan_segments_local``
+   for the six kinds on the ring's chain, a permuted chain,
+   ``star_tree(28)`` and phase 6's Walker tree, CL-SIA and SIA on the Walker
+   tree with client 0 dead and bandwidth budgets, TC-SIA under threshold
+   scan, with stragglers — each segment equal to host ``execute`` on the
+   card under the rotation relabelling (``execute_batched`` over the 28
+   segments, ``execute`` alone on two), the ranks equal to the CPU mesh's,
+   the butterfly equal to the static transport, four rounds on ranks
+   alternating CPU / card equal to the CPU mesh's, bit for bit (``err_sq``
+   under ``"jnp"`` to rtol 1e-6), level-kernel launches one per level;
+   ``run_plan_segments_batched`` with 4 cohorts equal to each cohort's
+   sequential round; ``hierarchical_ring_local`` and
+   ``run_nested_segments_local`` on sizes (7, 4) — the plane-aligned
+   ``cluster_routed`` Walker plan (static) and per-pod trees (the
+   butterfly) — equal to the staged host reference on the card and to the
+   CPU mesh, and ``cluster_routed(walker, 4)`` refused (not mesh-aligned);
+   ``threshold_for_topq`` over 8 card shards (1-D at d = 10**6 counting
+   with ``count_ge``, [4, 2**18] with ``count_ge_level``), scan and hist,
+   equal to the unsharded search in τ and counts; then ms per segments
+   round of the ring, the star, the Walker tree (static and butterfly),
+   the pod ring and the ring at n = 28 · 2**18 beside ``execute_sharded``
+   and host ``execute`` on the same rows, in five alternating turns, and
+   torch.profiler's device ops and busy time of segments rounds.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -2612,6 +2637,606 @@ def device_path(level, data) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rotated-segment lowering
+# ---------------------------------------------------------------------------
+
+SEG_BATCH = 4                      # run_plan_segments_batched cohorts
+SEG_TURNS = 5                      # alternating turns of the timing
+SEG_TIMED = 5                      # rounds per turn
+SEG_LARGE = 2 ** 18                # segment width of the large chain ring
+SEG_SHARDS = 8                     # shards of the sharded τ search
+SEG_LANES = (4, 2 ** 18)           # its [W, d] form: lanes × width
+
+
+def segment_plans(k, cfg_kw):
+    """name → port plan of phase 10's flat cases: the ring's chain, a
+    permuted chain (both on the register path), ``star_tree(28)`` (one
+    level of 28 slots) and phase 6's Walker tree; then the Walker tree with
+    client 0 dead and bandwidth budgets (the stub and budget plan)."""
+    from repro_torch.agg import compile_plan
+    from repro_torch.agg.device import ring_chain_plan
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.fed.topology import TreeTopology
+    from repro_torch.topo import star_tree, walker_delta
+
+    walker = TreeTopology(walker_delta(**WALKER), "widest")
+    perm = np.random.default_rng(SEED + 100).permutation(k)
+    return {"ring": ring_chain_plan(k), "permuted chain": compile_plan(perm),
+            "star": compile_plan(star_tree(k)), "walker": walker.plan(),
+            "walker stub+budget": walker.plan(
+                dead=(0,), bandwidth_aware=True,
+                cfg=AggConfig(**cfg_kw))}
+
+
+def segment_cases(k, q):
+    """(label, AggConfig keywords, plan name) of the flat checks."""
+    from repro_torch.core.algorithms import AggKind
+
+    kw = dict(q=q)
+    cases = []
+    for kind in (AggKind.SIA, AggKind.RE_SIA, AggKind.CL_SIA,
+                 AggKind.TC_SIA, AggKind.CL_TC_SIA, AggKind.DENSE_IA):
+        err = ({} if kind == AggKind.DENSE_IA
+               else dict(err_sq_mode="kernel"))
+        for name in ("ring", "permuted chain", "star", "walker"):
+            cases.append((f"{kind.value} {name}",
+                          dict(kind=kind, **kw, **err), name))
+    for kind in (AggKind.CL_SIA, AggKind.SIA):
+        cases.append((f"{kind.value} walker stub+budget",
+                      dict(kind=kind, **kw, err_sq_mode="kernel"),
+                      "walker stub+budget"))
+    cases.append(("tc_sia walker threshold scan",
+                  dict(kind=AggKind.TC_SIA, **kw, err_sq_mode="kernel",
+                       topq_impl="threshold", hist_branch=BRANCH,
+                       **THRESHOLD["scan"]), "walker"))
+    cases.append(("cl_sia walker threshold hist",
+                  dict(kind=AggKind.CL_SIA, **kw, err_sq_mode="kernel",
+                       topq_impl="threshold", hist_branch=BRANCH,
+                       **THRESHOLD["hist"]), "walker"))
+    cases.append(("cl_sia star jnp err_sq", dict(kind=AggKind.CL_SIA, **kw),
+                  "star"))
+    return cases
+
+
+def segment_launches(cfg, plan) -> dict:
+    """Level-kernel launches of one segments round: one level step per
+    level for all ranks' lanes."""
+    from repro_torch.core.algorithms import AggKind
+
+    levels = plan.shape[0]
+    if cfg.kind == AggKind.DENSE_IA:
+        return {}
+    if cfg.kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
+        out = {"cl_fuse_level": levels}
+    else:
+        out = {"sparsify_ef_level": levels, "chain_accum_level": levels}
+    if cfg.topq_impl == "threshold" and cfg.tau_impl == "hist":
+        out["hist_topq_level"] = levels
+    elif cfg.topq_impl == "threshold":
+        out["count_ge_fused_level"] = levels * cfg.hist_rounds
+    return out
+
+
+def pairwise_sum(v):
+    """Σ over the last axis: the columns' halves added pairwise until one
+    column is left, an odd last column carried to the next pass — the
+    fixed order in which the lowering sums a level's per-rank stats."""
+    cols = list(v.unbind(-1))
+    while len(cols) > 1:
+        h = len(cols) // 2
+        cols = [cols[i] + cols[h + i] for i in range(h)] + cols[2 * h:]
+    return cols[0]
+
+
+def grown_since(level, before) -> dict:
+    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS]
+    return {n: fn.launches - b for n, fn, b in zip(names, level.KERNELS,
+                                                   before)
+            if fn.launches - b}
+
+
+def segments_inputs(k, n, q_global, seed, pieces=None):
+    """[K, n] gradients and EF, a TCS mask with q_global ones in each of
+    ``pieces`` (default K) equal pieces — at most Q_G ones in every segment
+    a CL-TC-SIA compact wire carries, as the simulator's masks —, and
+    stragglers."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((k, n), dtype=np.float32) * np.float32(0.01)
+    e = rng.standard_normal((k, n), dtype=np.float32) * np.float32(1e-3)
+    pieces = pieces or k
+    seg = n // pieces
+    gm = np.zeros((pieces, seg), np.float32)
+    for s in range(pieces):
+        gm[s, rng.choice(seg, q_global, replace=False)] = 1.0
+    part = (rng.random(k) < 0.8).astype(np.float32)
+    return (torch.from_numpy(g), torch.from_numpy(e),
+            torch.from_numpy(gm.reshape(n)), torch.from_numpy(part))
+
+
+def run_segments(cfg, plan, mesh, x, dev, **kw):
+    """``run_plan_segments_local`` on per-rank rows moved to ``dev``."""
+    from repro_torch.agg.device import run_plan_segments_local
+
+    g, e, gm, part = (t.to(dev) for t in x)
+    k = g.shape[0]
+    return run_plan_segments_local(cfg, plan, mesh, list(g), list(e), 1.3,
+                                   global_mask=[gm] * k,
+                                   participate=list(part), **kw)
+
+
+def segments_equal(a, b, exact_err: bool) -> tuple:
+    """(equal, err_sq max rel diff) of two segments rounds' per-rank
+    lists."""
+    same = all(bitwise_equal(u, v) for u, v in zip(a[0] + a[1], b[0] + b[1]))
+    same &= all(bitwise_equal(s.bits, t.bits) and bitwise_equal(s.nnz, t.nnz)
+                for s, t in zip(a[2], b[2]))
+    ea = torch.stack([s.err_sq.cpu() for s in a[2]])
+    eb = torch.stack([s.err_sq.cpu() for s in b[2]])
+    rel = err_sq_rel(eb, ea)
+    ok = bitwise_equal(ea, eb) if exact_err else rel <= 1e-6
+    return same and ok, rel
+
+
+def host_segments(cfg, plan, x, dev):
+    """Host ``execute_batched`` on ``dev`` over the K rotated segments
+    (position p of segment s is rank (p + s) mod K; stragglers, stubs and
+    budgets relabelled), as the lowering's per-rank lists; and host
+    ``execute`` on segments 0 and K − 1 alone."""
+    import dataclasses
+
+    from repro_torch.agg import execute, execute_batched, stack_plans
+
+    g, e, gm, part = (t.to(dev) for t in x)
+    k, n = g.shape
+    seg = n // k
+    rot = (np.arange(k)[None, :] + np.arange(k)[:, None]) % k   # [S, P]
+    rot_t = torch.as_tensor(rot, device=dev)
+    cols = torch.arange(k, device=dev)[:, None]
+    base = dataclasses.replace(plan, alive=np.ones(k, np.float32),
+                               q_budget=None)
+    plans = [dataclasses.replace(
+        base, q_budget=None if plan.q_budget is None
+        else np.asarray(plan.q_budget)[rot[s]]) for s in range(k)]
+    p_rank = part * torch.as_tensor(plan.alive, device=dev)
+    gs = g.view(k, k, seg)[rot_t, cols]                          # [S, P, seg]
+    es = e.view(k, k, seg)[rot_t, cols]
+    res = execute_batched(cfg, stack_plans(plans), gs, es,
+                          torch.full((k, k), 1.3, device=dev),
+                          global_mask=gm.view(k, seg),
+                          participate=p_rank[rot_t])
+    ef = torch.empty_like(e).view(k, k, seg)
+    ef[rot_t, cols] = res.e_new
+    direct = {}
+    for s in (0, k - 1):
+        one = execute(cfg, plans[s], gs[s], es[s],
+                      torch.full((k,), 1.3, device=dev),
+                      global_mask=gm.view(k, seg)[s],
+                      participate=p_rank[rot_t[s]])
+        direct[s] = (bitwise_equal(one.aggregate, res.aggregate[s])
+                     and bitwise_equal(one.e_new, res.e_new[s]))
+    # each rank's stats as the lowering sums them: per level its lanes
+    # (slot w plays position node_id[l, w] of segment (r − node) mod K),
+    # in its fixed pairwise order
+    node = np.asarray(plan.node_id)
+    mask = torch.as_tensor(np.asarray(plan.slot_mask, np.float32),
+                           device=dev)
+    register = plan.shape[1] == 1 and plan.shape[0] == k and bool(
+        (np.asarray(plan.slot_mask) > 0).all())
+    stats = []
+    for field in ("bits", "nnz_out", "err_sq"):
+        h = getattr(res.stats, field).to(torch.float32)          # [S, P]
+        acc = torch.zeros((k,), device=dev)
+        for li in range(node.shape[0]):
+            b = np.minimum(node[li], k - 1)
+            s_idx = (np.arange(k)[:, None] - b[None, :]) % k
+            v = h[torch.as_tensor(s_idx, device=dev),
+                  torch.as_tensor(b, device=dev)[None, :]]
+            v = torch.where(mask[li][None] > 0, v, torch.zeros_like(v))
+            acc = acc + (v[:, 0] if register
+                         else pairwise_sum(v * mask[li][None]))
+        stats.append(acc)
+    from repro_torch.core.ring import RingStats
+    return ((list(res.aggregate), list(ef.view(k, n)),
+             [RingStats(*(s[r] for s in stats)) for r in range(k)]),
+            all(direct.values()))
+
+
+def check_segments(level, pc, mesh, cpu_mesh, mixed) -> dict:
+    """Phase 10's flat cases; returns the level-kernel launches of the
+    lowering's card rounds."""
+    from repro_torch.agg.device import _segments_compact
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.core.ring import segment_budget
+
+    k = pc.num_clients
+    n = -(-pc.d // k) * k
+    q = segment_budget(pc.q * k, k)
+    cases = segment_cases(k, q)
+    plans = segment_plans(k, dict(q=q))
+    x = segments_inputs(k, n, AggConfig(kind="cl_tc_sia", q=q).q_global,
+                        SEED + 101)
+    t0 = time.perf_counter()
+    launches: dict = {}
+    worst = {"host": 0.0, "cpu": 0.0}
+    compact, crossed = [], 0
+    for label, kw, name in cases:
+        cfg = AggConfig(**kw)
+        plan = plans[name]
+        exact = cfg.err_sq_mode == "kernel"
+        before = [fn.launches for fn in level.KERNELS]
+        got = run_segments(cfg, plan, mesh, x, "cuda")
+        torch.cuda.synchronize()
+        grown = grown_since(level, before)
+        if grown != segment_launches(cfg, plan):
+            raise SystemExit(f"FAIL segments {label}: level-kernel launches "
+                             f"{grown}, predicted "
+                             f"{segment_launches(cfg, plan)}")
+        for n_, v in grown.items():
+            launches[n_] = launches.get(n_, 0) + v
+        host, direct = host_segments(cfg, plan, x, "cuda")
+        on_cpu = run_segments(cfg, plan, cpu_mesh, x, "cpu")
+        bfly = run_segments(cfg, plan, mesh, x, "cuda", transport="butterfly")
+        ok_host, rel_host = segments_equal(host, got, exact)
+        ok_cpu, rel_cpu = segments_equal(on_cpu, got, exact)
+        ok_bf, _ = segments_equal(bfly, got, True)
+        if name in ("ring", "walker") and label.split()[0] in (
+                "cl_tc_sia", "sia"):
+            crossed += 1
+            ok_mix, _ = segments_equal(
+                run_segments(cfg, plan, mixed, x, "cpu"), on_cpu, exact)
+        else:
+            ok_mix = True
+        if not (ok_host and direct and ok_cpu and ok_bf and ok_mix):
+            raise SystemExit(
+                f"FAIL segments {label} (plan {plan.shape}): = host execute "
+                f"per segment on the card {ok_host} (err_sq rel "
+                f"{rel_host:.2e}; execute alone {direct}), = the CPU mesh "
+                f"{ok_cpu} (err_sq rel {rel_cpu:.2e}), = the butterfly "
+                f"{ok_bf}, mixed mesh = the CPU {ok_mix}")
+        worst["host"] = max(worst["host"], rel_host)
+        worst["cpu"] = max(worst["cpu"], rel_cpu)
+        if _segments_compact(cfg, n // k, plan, True, "auto", True):
+            compact.append(label)
+    log(f"[segments] run_plan_segments_local on {k} ranks of the card (n = "
+        f"{n}, seg = {n // k}, q = {q} per segment) over {len(cases)} cases "
+        f"(6 kinds x ring, permuted chain, star_tree(28), the Walker tree; "
+        f"CL-SIA and SIA on the Walker tree with client 0 dead and "
+        f"bandwidth budgets; TC-SIA threshold scan; CL-SIA threshold "
+        f"hist; CL-SIA err_sq 'jnp'), "
+        f"with stragglers: = host execute per rotated segment on the card "
+        f"(execute_batched over the {k} segments, execute alone on two), "
+        f"= the CPU mesh, = the butterfly, bit for bit (aggregate, EF rows, "
+        f"bits, nnz; err_sq under 'kernel', else max rel "
+        f"{worst['host']:.2e} / {worst['cpu']:.2e} against host / CPU); "
+        f"{crossed} rounds on ranks alternating CPU / card = the CPU mesh; "
+        f"compact wire in {len(compact)} cases; launches one level step per "
+        f"level: {launches} ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def check_segments_batched(level, pc, mesh) -> dict:
+    """``run_plan_segments_batched`` with B cohorts: each cohort = its
+    sequential round bit for bit, one level step per level for all."""
+    from repro_torch.agg.device import (run_plan_segments_batched,
+                                        run_plan_segments_local)
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.core.ring import segment_budget
+
+    k = pc.num_clients
+    n = -(-pc.d // k) * k
+    q = segment_budget(pc.q * k, k)
+    plans = segment_plans(k, dict(q=q))
+    launches: dict = {}
+    for kind in ("cl_tc_sia", "tc_sia"):
+        cfg = AggConfig(kind=kind, q=q, err_sq_mode="kernel")
+        xs = [segments_inputs(k, n, cfg.q_global, SEED + 110 + b)
+              for b in range(SEG_BATCH)]
+        stack = lambda i: torch.stack([x[i] for x in xs], 1).cuda()  # noqa
+        for name in ("ring", "walker"):
+            plan = plans[name]
+            before = [fn.launches for fn in level.KERNELS]
+            fin, ef, st = run_plan_segments_batched(
+                cfg, plan, mesh, list(stack(0)), list(stack(1)), 1.3,
+                global_mask=list(torch.stack([x[2] for x in xs]).cuda()[
+                    None].expand(k, -1, -1)),
+                participate=list(stack(3)))
+            torch.cuda.synchronize()
+            grown = grown_since(level, before)
+            if grown != segment_launches(cfg, plan):
+                raise SystemExit(f"FAIL segments batched {kind} {name}: "
+                                 f"launches {grown}, predicted "
+                                 f"{segment_launches(cfg, plan)}")
+            for n_, v in grown.items():
+                launches[n_] = launches.get(n_, 0) + v
+            for b in range(SEG_BATCH):
+                one = run_segments(cfg, plan, mesh, xs[b], "cuda")
+                same = segments_equal(
+                    one, ([f[b] for f in fin], [e[b] for e in ef],
+                          [type(s)(*(v[b] for v in s)) for s in st]), True)
+                if not same[0]:
+                    raise SystemExit(f"FAIL segments batched {kind} {name}: "
+                                     f"cohort {b} differs from its "
+                                     f"sequential round")
+    log(f"[segments] run_plan_segments_batched, B = {SEG_BATCH}, CL-TC-SIA "
+        f"and TC-SIA on the ring and the Walker tree: every cohort = its "
+        f"sequential round bit for bit; launches one level step per level "
+        f"for all cohorts: {launches}")
+    return launches
+
+
+def staged_host_equal(cfg, nested, sizes, x, got) -> bool:
+    """The staged host reference of a two-stage nested round on the card:
+    stage 0 per data segment s on the merged forest (rank p·K_d + (k + s)
+    mod K_d plays local k of pod p), stage 1 per (s, pod sub-segment t) on
+    the stage-0 sink partials — against the lowering's per-rank lists."""
+    import dataclasses
+
+    from repro_torch.agg import execute
+
+    kd, kp = sizes
+    g, e, pe, gm, part = x
+    k, n = g.shape
+    seg1, seg2 = n // kd, n // k
+    st0, st1 = nested.stages
+    # stubs are physical ranks: an all-alive forest, participation·alive
+    # relabelled
+    p_rank = part * torch.as_tensor(st0.alive, device=g.device)
+    st0 = dataclasses.replace(st0, alive=np.ones(k, np.float32))
+    fin, ef, pef = got
+    ok = True
+    for s in range(kd):
+        rows = [p * kd + (j + s) % kd for p in range(kp) for j in range(kd)]
+        c1 = slice(s * seg1, (s + 1) * seg1)
+        r0 = execute(cfg, st0, g[rows, c1], e[rows, c1],
+                     torch.full((k,), 1.3, device=g.device),
+                     global_mask=gm[c1], participate=p_rank[rows])
+        ok &= all(bitwise_equal(r0.e_new[i], ef[r][c1])
+                  for i, r in enumerate(rows))
+        for t in range(kp):
+            urows = [(u + t) % kp for u in range(kp)]
+            pe_rows = [u * kd + s for u in urows]
+            c2 = slice(t * seg2, (t + 1) * seg2)
+            g2 = slice(s * seg1 + t * seg2, s * seg1 + (t + 1) * seg2)
+            r1 = execute(cfg, st1, r0.aggregate[urows, c2].contiguous(),
+                         pe[pe_rows, c2],
+                         torch.ones((kp,), device=g.device),
+                         global_mask=gm[g2])
+            ok &= bitwise_equal(r1.aggregate, fin[t * kd + s])
+            ok &= all(bitwise_equal(r1.e_new[u], pef[r][c2])
+                      for u, r in enumerate(pe_rows))
+    return ok
+
+
+def check_nested_segments(level, pc, mesh, cpu_mesh) -> dict:
+    """``hierarchical_ring_local`` and ``run_nested_segments_local`` on
+    sizes (7, 4): = the staged host reference on the card and = the CPU
+    mesh; a mesh-misaligned plan raises."""
+    from repro_torch.agg import compile_nested
+    from repro_torch.agg.device import run_nested_segments_local
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.core.hierarchical import hierarchical_ring_local
+    from repro_torch.core.ring import segment_budget
+    from repro_torch.topo import cluster_routed, walker_delta
+    from repro_torch.topo.tree import PS, AggTree
+
+    k = pc.num_clients
+    sizes = (7, 4)
+    n = -(-pc.d // k) * k
+    q = segment_budget(pc.q * k, k)
+    graph = walker_delta(**WALKER)
+    aligned = compile_nested(cluster_routed(
+        graph, clusters=[range(7 * p, 7 * p + 7) for p in range(4)]))
+    trees = [AggTree(parent=tuple(PS if i == 0 else (i - 1) // (1 + p % 3)
+                                  for i in range(7))) for p in range(4)]
+    per_pod = compile_nested([[(tuple(range(7 * p, 7 * p + 7)), trees[p])
+                               for p in range(4)], [((0, 1, 2, 3), None)]])
+    if not (aligned.clustered[0].mesh_aligned()
+            and aligned.clustered[0].uniform()
+            and not per_pod.clustered[0].uniform()):
+        raise SystemExit("FAIL segments nested: the plane-aligned Walker "
+                         "clusters are not aligned and uniform")
+    from repro_torch.agg import pod_ring_nested
+    launches: dict = {}
+    cases = [("hierarchical ring", pod_ring_nested(4, 7), "cl_tc_sia"),
+             ("hierarchical ring", pod_ring_nested(4, 7), "sia"),
+             ("plane-aligned walker", aligned, "cl_tc_sia"),
+             ("per-pod trees", per_pod, "cl_sia")]
+    g, e, gm, part = segments_inputs(
+        k, n, AggConfig(kind="cl_tc_sia", q=q).q_global, SEED + 120,
+        pieces=sizes[0])
+    pe = torch.from_numpy(np.random.default_rng(SEED + 121).standard_normal(
+        (k, n // 7), dtype=np.float32)) * np.float32(1e-3)
+    for label, nested, kind in cases:
+        cfg = AggConfig(kind=kind, q=q, err_sq_mode="kernel")
+        outs = []
+        for dev, m in (("cuda", mesh), ("cpu", cpu_mesh)):
+            args = [t.to(dev) for t in (g, e, pe, gm, part)]
+            before = [fn.launches for fn in level.KERNELS]
+            if label == "hierarchical ring":
+                fin, ef, pef, st = hierarchical_ring_local(
+                    cfg, m, list(args[0]), list(args[1]), list(args[2]), 1.3,
+                    sizes=sizes, global_mask=[args[3]] * k,
+                    participate=list(args[4]))
+            else:
+                fin, ef, (pef,), st = run_nested_segments_local(
+                    cfg, nested, m, list(args[0]), list(args[1]),
+                    (list(args[2]),), 1.3, sizes=sizes,
+                    global_mask=[args[3]] * k, participate=list(args[4]))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                grown = grown_since(level, before)
+                want = {}
+                for s, cfg_s in enumerate((cfg, cfg)):
+                    for n_, v in segment_launches(
+                            cfg_s, nested.stages[s]
+                            if s else nested.clustered[0].subplan(0)).items():
+                        want[n_] = want.get(n_, 0) + v
+                if grown != want:
+                    raise SystemExit(f"FAIL segments nested {label} {kind}: "
+                                     f"launches {grown}, predicted {want}")
+                for n_, v in grown.items():
+                    launches[n_] = launches.get(n_, 0) + v
+                host_ok = staged_host_equal(cfg, nested, sizes, args,
+                                            (fin, ef, pef))
+            outs.append(fin + ef + pef)
+        same = all(bitwise_equal(a, b) for a, b in zip(*outs))
+        if not (host_ok and same):
+            raise SystemExit(f"FAIL segments nested {label} {kind}: = the "
+                             f"staged host reference on the card {host_ok}, "
+                             f"= the CPU mesh {same}")
+    default = compile_nested(cluster_routed(graph, 4))
+    z = [torch.zeros(n, device="cuda")] * k
+    try:
+        run_nested_segments_local(AggConfig(q=q), default, mesh, z, z,
+                                  ([torch.zeros(n // 7, device="cuda")] * k,),
+                                  1.0, sizes=sizes)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise SystemExit("FAIL segments nested: cluster_routed(walker, 4) "
+                         "was not refused")
+    log(f"[segments] nested on sizes (7, 4): hierarchical_ring_local "
+        f"(CL-TC-SIA, SIA), the plane-aligned cluster_routed Walker plan "
+        f"(stages {[s.shape for s in aligned.stages]}, identical clusters: "
+        f"static) and per-pod trees (the butterfly) = the staged host "
+        f"reference on the card and = the CPU mesh, bit for bit; launches "
+        f"{launches}; cluster_routed(walker, 4) refused: {refused!r}")
+    return launches
+
+
+def check_sharded_search(sp, ops, topq_threshold, level) -> dict:
+    """``threshold_for_topq`` over 8 shards on the card (1-D at d = 10^6
+    with ``count_ge``, [4, 2^18] with ``count_ge_level``): τ and counts =
+    the unsharded search on the CPU."""
+    rng = np.random.default_rng(SEED + 130)
+    one = torch.from_numpy(rng.standard_normal(SEARCH_D, dtype=np.float32))
+    lanes = torch.from_numpy(rng.standard_normal(SEG_LANES,
+                                                 dtype=np.float32))
+    out = {"count_ge": 0, "count_ge_level": 0}
+    for impl in ("scan", "hist"):
+        rounds = THRESHOLD[impl]["hist_rounds"]
+        kw = dict(branch=BRANCH, rounds=rounds, tau_impl=impl,
+                  with_counts=True)
+        for x, fn, name in ((one, ops.count_ge, "count_ge"),
+                            (lanes, ops.count_ge_level, "count_ge_level")):
+            want = sp.threshold_for_topq(x, 500, **kw)
+            c0 = (topq_threshold.count_ge_cuda.launches,
+                  level.count_ge_level_cuda.launches)
+            got = sp.threshold_for_topq(
+                list(x.cuda().chunk(SEG_SHARDS, dim=-1)), 500, count_fn=fn,
+                **kw)
+            torch.cuda.synchronize()
+            grown = (topq_threshold.count_ge_cuda.launches - c0[0]
+                     + level.count_ge_level_cuda.launches - c0[1])
+            predicted = SEG_SHARDS * rounds if impl == "scan" else 0
+            if not (bitwise_equal(want[0], got[0])
+                    and bitwise_equal(want[1], got[1])
+                    and grown == predicted):
+                raise SystemExit(f"FAIL segments sharded τ search {impl} "
+                                 f"{name}: τ/counts = the unsharded search "
+                                 f"{bitwise_equal(want[0], got[0])}/"
+                                 f"{bitwise_equal(want[1], got[1])}, "
+                                 f"launches {grown} (predicted {predicted})")
+            out[name] += grown
+    log(f"[segments] threshold_for_topq over {SEG_SHARDS} card shards "
+        f"(d = {SEARCH_D}, count_ge; {SEG_LANES[0]} x {SEG_LANES[1]}, "
+        f"count_ge_level), scan and hist: τ and counts = the unsharded "
+        f"search on the CPU bit for bit; launches {out}")
+    return {k_: v for k_, v in out.items() if v}
+
+
+def segments_path(level, sp, ops, topq_threshold, data) -> dict:
+    from repro_torch.agg import execute
+    from repro_torch.agg.device import (client_mesh, execute_sharded,
+                                        run_plan_segments_local)
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.core.hierarchical import hierarchical_ring_local
+    from repro_torch.core.ring import segment_budget
+
+    pc = data[0]
+    k = pc.num_clients
+    t_phase = time.perf_counter()
+    mesh = client_mesh(k, devices=["cuda:0"] * k)
+    cpu_mesh = client_mesh(k, devices=["cpu"] * k)
+    mixed = client_mesh(k, devices=["cpu", "cuda:0"] * (k // 2))
+    level.reset_launch_counts()
+    launches = {}
+    for part in (check_segments(level, pc, mesh, cpu_mesh, mixed),
+                 check_segments_batched(level, pc, mesh),
+                 check_nested_segments(level, pc, mesh, cpu_mesh),
+                 check_sharded_search(sp, ops, topq_threshold, level)):
+        for n_, v in part.items():
+            launches[n_] = launches.get(n_, 0) + v
+    log(f"[segments] launches over phase 10's lowering runs: {launches}")
+
+    # ms per segments round beside execute_sharded and host execute on the
+    # same [K, n] (costs only: those compute a whole-vector Top-Q)
+    n = -(-pc.d // k) * k
+    q = segment_budget(pc.q * k, k)
+    cfg = AggConfig(q=q)
+    x = [t.cuda() for t in segments_inputs(k, n, 1, SEED + 140)]
+    plans = segment_plans(k, dict(q=q))
+    rows = (list(x[0]), list(x[1]))
+    w = torch.full((k,), 1.3, device="cuda")
+
+    def seg_round(plan, transport="static"):
+        return lambda: run_plan_segments_local(cfg, plan, mesh, *rows, 1.3,
+                                               transport=transport)
+
+    def pods():
+        return hierarchical_ring_local(cfg, mesh, *rows,
+                                       list(torch.zeros((k, n // 7),
+                                                        device="cuda")),
+                                       1.3, sizes=(7, 4))
+
+    big = torch.from_numpy(np.random.default_rng(SEED + 141).standard_normal(
+        (k, k * SEG_LARGE), dtype=np.float32)).cuda()
+    big_rows = (list(big), list(torch.zeros_like(big)))
+    cells = {}
+    for name in ("ring", "star", "walker"):
+        plan = plans[name]
+        cells[f"{name} segments"] = seg_round(plan)
+        cells[f"{name} execute_sharded"] = (
+            lambda plan=plan: execute_sharded(cfg, plan, x[0], x[1], w,
+                                              mesh=mesh))
+        cells[f"{name} host execute"] = (
+            lambda plan=plan: execute(cfg, plan, x[0], x[1], w))
+    cells["walker butterfly"] = seg_round(plans["walker"], "butterfly")
+    cells["star butterfly"] = seg_round(plans["star"], "butterfly")
+    cells["pod ring segments"] = pods
+    cells["ring segments, n = 28 x 2^18"] = (
+        lambda: run_plan_segments_local(cfg, plans["ring"], mesh, *big_rows,
+                                        1.3))
+    for fn in cells.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {key: [] for key in cells}
+    for turn in range(SEG_TURNS):
+        order = list(cells) if turn % 2 == 0 else list(cells)[::-1]
+        for key in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SEG_TIMED):
+                cells[key]()
+            torch.cuda.synchronize()
+            times[key].append(1e3 * (time.perf_counter() - t0) / SEG_TIMED)
+    log(f"[segments] {nvidia_smi()}")
+    log(f"[segments] cl_sia ms per round (host clock, synchronized, "
+        f"{SEG_TIMED} rounds, median of {SEG_TURNS} alternating turns [min, "
+        f"max]; n = {n}, q = {q} per segment): "
+        + "; ".join(f"{key} {float(np.median(v)):.3f} [{min(v):.3f}, "
+                    f"{max(v):.3f}]" for key, v in times.items()))
+    profile_calls("segments cl_sia ring", cells["ring segments"], 1)
+    profile_calls("segments cl_sia star", cells["star segments"], 1)
+    profile_calls("segments cl_sia ring n = 28 x 2^18",
+                  cells["ring segments, n = 28 x 2^18"], 1)
+    log(f"[segments] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -2654,8 +3279,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import sparsify as sp
-    from repro_torch.kernels import (chain_accum, level, ref, sparsify_ef,
-                                     topq_threshold)
+    from repro_torch.kernels import (chain_accum, level, ops, ref,
+                                     sparsify_ef, topq_threshold)
 
     # full-f32 products on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2694,6 +3319,9 @@ def main() -> int:
     for name, n in nested_path(level, ref, sp, data).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in device_path(level, data).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in segments_path(level, sp, ops, topq_threshold,
+                                 data).items():
         launches[name] = launches.get(name, 0) + n
 
     csrc = "src/repro_torch/kernels/csrc/"

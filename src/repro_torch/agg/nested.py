@@ -23,9 +23,10 @@ router — into a NestedPlan; :func:`execute_nested` runs one round through
 :func:`repro_torch.agg.plan.execute`, one stage after another, on the
 device of the gradients it is given. Plans are numpy on the host, as flat
 plans are. :class:`ClusteredStage` is the per-cluster view of a forest
-stage that the reference's rotated-segment lowering selects from (ROADMAP
-A12b); here :meth:`NestedPlan.client_alive` and :attr:`NestedPlan.shape`
-read it. The client-per-rank device backend runs nested plans through
+stage that the rotated-segment lowering selects from
+(:func:`repro_torch.agg.device.run_nested_segments_local`);
+:meth:`NestedPlan.client_alive` and :attr:`NestedPlan.shape` read it
+too. The client-per-rank device backend runs nested plans through
 :func:`repro_torch.agg.device.execute_nested_sharded`.
 
 Semantics note: staged CL-SIA applies Top-Q once per stage, so the
@@ -116,7 +117,8 @@ class ClusteredStage:
     ``flat_pos`` of unit-padding locals is a placeholder (0) — those locals
     never appear in the schedule. :meth:`mesh_aligned` tells whether
     cluster c is exactly units ``c·M .. c·M + M − 1``, the layout a
-    (pod, data) device mesh requires.
+    (pod, data) device mesh requires; :meth:`uniform` whether every
+    cluster runs the same local plan.
     """
 
     node_id: np.ndarray        # [C, L, W] int32 (local ids; pad = M)
@@ -149,6 +151,19 @@ class ClusteredStage:
                        flat_pos=take(self.flat_pos), alive=take(self.alive),
                        q_budget=take(self.q_budget),
                        num_clients=self.num_units, num_sinks=1)
+
+    def uniform(self) -> bool:
+        """True when every cluster runs an identical local plan; the
+        rotated-segment lowering then keeps the static per-slot transport
+        instead of the butterfly."""
+        leaves = [self.node_id, self.slot_mask, self.parent_row, self.alive]
+        if self.q_budget is not None:
+            leaves.append(self.q_budget)
+        for a in leaves:
+            a = np.asarray(a)
+            if a.shape[0] > 1 and not np.all(a == a[:1]):
+                return False
+        return True
 
     def pad(self, shape: tuple) -> "ClusteredStage":
         """Re-pad every cluster's (L, W) — the schedule-sharing companion

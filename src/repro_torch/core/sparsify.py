@@ -18,10 +18,12 @@ Two implementations, as in the reference:
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.device import to_device
 
 Tensor = torch.Tensor
 
@@ -323,8 +325,51 @@ def _hist_bisect(new_lo: Tensor, w2: Tensor, D2: Tensor, F: Tensor, q: int,
     return torch.clamp(tau, min=_TINY), counts
 
 
-def threshold_for_topq(x: Optional[Tensor], q: int, *, branch: int = 64,
-                       rounds: int = 3, axis_name: Optional[str] = None,
+def _sharded_operand(shards: Sequence[Tensor], count_fn=None) -> TauOperand:
+    """The bisection operand of the concatenation of ``shards`` (per-rank
+    ``[d_r]`` or ``[W, d_r]`` pieces, each on its own device), as a
+    :class:`TauOperand` on the first shard's device.
+
+    The single-controller counterpart of the reference's ``axis_name``
+    search: each shard counts (through ``count_fn`` where one is given)
+    and histograms its own elements, the counts and ``(D2, F)`` are summed
+    as integers, ``max_abs`` is the max of the shards' — so every round sees
+    the integers of the whole vector, and τ is the unsharded search's.
+    """
+    shards = list(shards)
+    if not shards:
+        raise ValueError("threshold_for_topq needs at least one shard")
+    ops = [tau_operand(x, count_fn) for x in shards]
+    devs = [x.device for x in shards]
+    home = devs[0]
+    batched = ops[0].batched
+    if any(op.batched != batched for op in ops):
+        raise ValueError("shards must all be [d] or all [W, d]")
+
+    def total(parts):
+        out = to_device(parts[0], home)
+        for t in parts[1:]:
+            out = out + to_device(t, home)
+        return out
+
+    def count(taus):
+        return total([op.count(to_device(taus, dev))
+                      for op, dev in zip(ops, devs)])
+
+    def max_abs():
+        return torch.stack([to_device(op.max_abs(), home)
+                            for op in ops]).amax(0)
+
+    def hist(tables):
+        parts = [op.hist(tuple(to_device(t, dev) for t in tables))
+                 for op, dev in zip(ops, devs)]
+        return total([p[0] for p in parts]), total([p[1] for p in parts])
+
+    return TauOperand(count=count, max_abs=max_abs, batched=batched,
+                      hist=hist)
+
+
+def threshold_for_topq(x, q: int, *, branch: int = 64, rounds: int = 3,
                        count_fn=None,
                        operand_fn: Optional[TauOperand] = None,
                        tau_impl: str = "scan", with_counts: bool = False):
@@ -343,18 +388,23 @@ def threshold_for_topq(x: Optional[Tensor], q: int, *, branch: int = 64,
     ``with_counts=True`` also returns the per-round counts, stacked
     ``[rounds, .., branch]``.
 
-    With none of ``count_fn``, ``operand_fn``, ``with_counts`` the scan is
-    count-free: the rounds read counts only through ``count >= q``, and
-    ``#{|x| >= t} >= q`` holds exactly when t ≤ the q-th largest |x|, so
-    one top-q selection answers every candidate of every round with the
-    same τ. ``axis_name`` (the multi-device search) is not ported.
+    ``x`` may also be a sequence of per-rank shards (the reference's
+    ``axis_name`` search over a mesh, here on one controller): ``q`` is the
+    global budget, the counts (or ``(D2, F)``) are summed over the shards
+    and the bracket top is their max (:func:`_sharded_operand`), so τ and
+    the counts are the unsharded search's.
+
+    With none of ``count_fn``, ``operand_fn``, ``with_counts`` and an
+    unsharded ``x`` the scan is count-free: the rounds read counts only
+    through ``count >= q``, and ``#{|x| >= t} >= q`` holds exactly when
+    t ≤ the q-th largest |x|, so one top-q selection answers every
+    candidate of every round with the same τ.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (the multi-device τ search) is not ported yet — "
-            "ROADMAP A12b")
     if tau_impl not in ("scan", "hist"):
         raise ValueError(f"unknown tau_impl {tau_impl!r}")
+    sharded = isinstance(x, (list, tuple))
+    if sharded and operand_fn is None:
+        operand_fn = _sharded_operand(x, count_fn)
     kth = None
     if (tau_impl == "scan" and operand_fn is None and count_fn is None
             and not with_counts):

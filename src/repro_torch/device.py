@@ -22,3 +22,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "plain PyTorch path on the CPU")
     return dev
 
+
+
+def to_device(x: torch.Tensor, dst: torch.device) -> torch.Tensor:
+    """``x`` on ``dst``. Asynchronous only between two cards: a copy from a
+    card to the CPU returns before it lands (pinned staging), and the CPU
+    code reads the result at once."""
+    return x.to(dst, non_blocking=x.device.type == "cuda"
+                and dst.type == "cuda")

@@ -141,3 +141,23 @@ def test_time_varying_topology_example():
     assert len(sched.plans) == 2 and len({p.shape for p in sched.plans}) == 1
     assert set(out["bits"]) == {cc.cl_sia_bits_tree(12, D, Q)}
     assert out["accuracy"][-1][1] > 0.9
+
+
+def test_fig_tree_device_plans_small_k():
+    """The segments section on a CPU mesh of 4 ranks: CL-SIA's bits are
+    the per-segment chain closed form summed over the K segments, the same
+    on the ring and both trees, whose depth is below the chain's."""
+    from repro_torch.core.ring import segment_budget
+    mod = _load("benchmarks", "torch_fig_tree_topologies")
+    k, seg = 4, 256
+    lines = mod.measure_device_plans("cpu", ranks=k, seg=seg, reps=2)
+    rows = [ln.split(",") for ln in lines]
+    assert [r[1] for r in rows] == ["chain-ring", "grid-2x2",
+                                    "walker-delta-2x2"]
+    q = segment_budget(Q * k, k)
+    want = k * cc.cl_sia_bits(k, seg, q)
+    assert {float(r[3].split()[0]) for r in rows} == {want}
+    depth = [int(r[4].split()[1]) for r in rows]
+    assert depth[0] == k and max(depth[1:]) < k
+    assert all(float(r[5].split()[1]) > 0 for r in rows)
+    assert all(r[6].strip().startswith("measured") for r in rows)

@@ -973,3 +973,242 @@ def test_device_backend_with_a_card_mesh_and_a_cpu_simulator(cuda, kind):
         for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
             if isinstance(u, torch.Tensor):
                 _same_t(u, v)
+
+
+# ---------------------------------------------------------------------------
+# the rotated-segment lowering on the card
+# ---------------------------------------------------------------------------
+
+def _segment_plans(k):
+    from repro_torch.agg import compile_plan
+    from repro_torch.agg.device import ring_chain_plan
+    from repro_torch.topo import star_tree
+    from repro_torch.topo.tree import PS, AggTree
+    parent = tuple(PS if i < 3 else (i - 3) // 4 for i in range(k))
+    perm = np.random.default_rng(5).permutation(k)
+    return {"ring": ring_chain_plan(k), "perm": compile_plan(perm),
+            "star": compile_plan(star_tree(k)),
+            "tree": compile_plan(AggTree(parent=parent))}
+
+
+def _segment_inputs(k, n, seed=17):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
+    e = 0.1 * torch.from_numpy(rng.standard_normal((k, n),
+                                                   dtype=np.float32))
+    gm = torch.zeros((n,))
+    gm[rng.choice(n, 40, replace=False)] = 1.0
+    part = torch.ones((k,))
+    part[3] = 0.0
+    return g, e, gm, part
+
+
+def _segments_round(cfg, plan, mesh, g, e, gm, part, dev, **kw):
+    from repro_torch.agg.device import run_plan_segments_local
+    k = g.shape[0]
+    return run_plan_segments_local(
+        cfg, plan, mesh, list(g.to(dev)), list(e.to(dev)), 1.3,
+        global_mask=[gm.to(dev)] * k, participate=list(part.to(dev)), **kw)
+
+
+@pytest.mark.parametrize("topo", ["ring", "perm", "star", "tree"])
+@pytest.mark.parametrize("kind", ["sia", "re_sia", "cl_sia", "tc_sia",
+                                  "cl_tc_sia", "dense_ia"])
+def test_segments_on_the_card_equal_host_execute_and_the_cpu_mesh(
+        cuda, kind, topo):
+    """``run_plan_segments_local`` on 28 ranks of one card (n = 7868, seg =
+    281, the paper's budget per segment): each segment equals host
+    ``execute`` on the card under the rotation relabelling, the ranks equal
+    the CPU mesh's bit for bit (``err_sq`` under the pinned order; under
+    ``"jnp"`` to rtol 1e-6), the butterfly equals the static transport, and
+    each level is one level step of the card's ranks × W lanes."""
+    from repro_torch.agg.device import client_mesh
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.core.ring import segment_budget
+    k, n = 28, 7868
+    plan = _segment_plans(k)[topo]
+    cfg = AggConfig(kind=kind, q=segment_budget(78 * k, k),
+                    err_sq_mode="jnp" if kind == "dense_ia" else "kernel")
+    g, e, gm, part = _segment_inputs(k, n)
+    mesh = client_mesh(k, devices=[cuda] * k)
+    before = {fn.__name__: fn.launches for fn in level.KERNELS}
+    got = _segments_round(cfg, plan, mesh, g, e, gm, part, cuda)
+    torch.cuda.synchronize()
+    grown = {n_: fn.launches - before[fn.__name__]
+             for n_, fn in ((f.__name__, f) for f in level.KERNELS)
+             if fn.launches - before[fn.__name__]}
+    levels = plan.shape[0]
+    if kind in ("cl_sia", "cl_tc_sia"):
+        assert grown == {"cl_fuse_level_cuda": levels}
+    elif kind != "dense_ia":
+        assert grown == {"sparsify_ef_level_cuda": levels,
+                         "chain_accum_level_cuda": levels}
+    cpu = _segments_round(cfg, plan, client_mesh(k, devices=["cpu"] * k),
+                          g, e, gm, part, "cpu")
+    bf = _segments_round(cfg, plan, mesh, g, e, gm, part, cuda,
+                         transport="butterfly")
+    for other in (cpu, bf):
+        for a, b in zip(got[0] + got[1], other[0] + other[1]):
+            _same_t(b, a)
+        for a, b in zip(got[2], other[2]):
+            _same_t(b.bits, a.bits)
+            _same_t(b.nnz, a.nnz)
+            if cfg.err_sq_mode == "kernel" or other is bf:
+                _same_t(b.err_sq, a.err_sq)
+            else:        # a torch row sum, ordered by the device
+                torch.testing.assert_close(a.err_sq.cpu(), b.err_sq,
+                                           rtol=1e-6, atol=0)
+    _segments_equal_host_execute(cfg, plan, got, g, e, gm, part, cuda)
+
+
+@pytest.mark.parametrize("impl", ["scan", "hist"])
+@pytest.mark.parametrize("kind", ["tc_sia", "cl_sia"])
+def test_segments_threshold_on_the_card_equal_host_execute_and_the_cpu_mesh(
+        cuda, kind, impl):
+    """Threshold Top-Q through the lowering on 28 ranks of one card (n =
+    7868, the odd segment width 281) on the tree: the τ search runs once
+    per level on all ranks' lanes (``hist_topq_level`` once per level,
+    ``count_ge_fused_level`` once per scan round), the ranks equal the CPU
+    mesh's bit for bit, ``err_sq`` included, and each segment equals host
+    ``execute`` on the card under the rotation relabelling."""
+    from repro_torch.agg.device import client_mesh
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.core.ring import segment_budget
+    k, n = 28, 7868
+    plan = _segment_plans(k)["tree"]
+    rounds = 3 if impl == "scan" else 2
+    cfg = AggConfig(kind=kind, q=segment_budget(78 * k, k),
+                    err_sq_mode="kernel", topq_impl="threshold",
+                    tau_impl=impl, hist_rounds=rounds, hist_branch=64)
+    g, e, gm, part = _segment_inputs(k, n, 29)
+    before = {fn.__name__: fn.launches for fn in level.KERNELS}
+    got = _segments_round(cfg, plan, client_mesh(k, devices=[cuda] * k),
+                          g, e, gm, part, cuda)
+    torch.cuda.synchronize()
+    grown = {n_: fn.launches - before[fn.__name__]
+             for n_, fn in ((f.__name__, f) for f in level.KERNELS)
+             if fn.launches - before[fn.__name__]}
+    levels = plan.shape[0]
+    want = ({"cl_fuse_level_cuda": levels} if kind == "cl_sia" else
+            {"sparsify_ef_level_cuda": levels,
+             "chain_accum_level_cuda": levels})
+    want.update({"hist_topq_level_cuda": levels} if impl == "hist" else
+                {"count_ge_fused_level_cuda": levels * rounds})
+    assert grown == want
+    cpu = _segments_round(cfg, plan, client_mesh(k, devices=["cpu"] * k),
+                          g, e, gm, part, "cpu")
+    for a, b in zip(got[0] + got[1], cpu[0] + cpu[1]):
+        _same_t(b, a)
+    for a, b in zip(got[2], cpu[2]):
+        for f in ("bits", "nnz", "err_sq"):
+            _same_t(getattr(b, f), getattr(a, f))
+    _segments_equal_host_execute(cfg, plan, got, g, e, gm, part, cuda)
+
+
+def _segments_equal_host_execute(cfg, plan, got, g, e, gm, part, cuda):
+    """Segment s of a lowering round ``got`` equals host ``execute`` on the
+    card with position p played by rank (p + s) mod K."""
+    import dataclasses
+
+    from repro_torch.agg import execute
+    k, n = g.shape
+    seg = n // k
+    base = dataclasses.replace(plan, alive=np.ones(k, np.float32))
+    for s in range(k):
+        rot = [(x + s) % k for x in range(k)]
+        cols = slice(s * seg, (s + 1) * seg)
+        res = execute(cfg, base, g[rot, cols].to(cuda),
+                      e[rot, cols].to(cuda),
+                      torch.full((k,), 1.3, device=cuda),
+                      global_mask=gm[cols].to(cuda),
+                      participate=part[rot].to(cuda))
+        _same_t(res.aggregate, got[0][s])
+        for x in range(k):
+            _same_t(res.e_new[x], got[1][rot[x]][cols])
+
+
+def test_segments_across_the_card_and_the_cpu_equal_the_cpu_mesh(cuda):
+    """Ranks alternating CPU / card (every transfer crosses) on a tree, a
+    chain and the butterfly, ``run_plan_segments_batched`` with B = 2: bit
+    for bit the CPU mesh's round."""
+    from repro_torch.agg.device import client_mesh, run_plan_segments_batched
+    from repro_torch.core.algorithms import AggConfig
+    k, n, b = 28, 7868, 2
+    g, e, gm, part = _segment_inputs(k, n, 19)
+    cfg = AggConfig(kind="cl_tc_sia", q=78, err_sq_mode="kernel")
+    mixed = client_mesh(k, devices=["cpu", cuda] * (k // 2))
+    cpu = client_mesh(k, devices=["cpu"] * k)
+    for name in ("ring", "tree"):
+        plan = _segment_plans(k)[name]
+        for tr in ("static", "butterfly"):
+            want = _segments_round(cfg, plan, cpu, g, e, gm, part, "cpu",
+                                   transport=tr)
+            got = _segments_round(cfg, plan, mixed, g, e, gm, part, "cpu",
+                                  transport=tr)
+            for a, c in zip(want[0] + want[1], got[0] + got[1]):
+                _same_t(a, c)
+        two = lambda x: torch.stack([x, x.flip(0)], 1)  # noqa: E731
+        rows = lambda x, m: [r.to(d) for r, d in  # noqa: E731
+                             zip(two(x).unbind(0), m.devices)]
+        outs = [run_plan_segments_batched(
+            cfg, plan, m, rows(g, m), rows(e, m), 1.3,
+            global_mask=[torch.stack([gm, gm]).to(d) for d in m.devices])
+            for m in (cpu, mixed)]
+        for a, c in zip(outs[0][0] + outs[0][1], outs[1][0] + outs[1][1]):
+            _same_t(a, c)
+
+
+def test_nested_segments_on_the_card_equal_the_cpu(cuda):
+    """``hierarchical_ring_local`` (sizes (7, 4)) and
+    ``run_nested_segments_local`` on per-pod different trees (the
+    butterfly) on 28 ranks of one card: bit for bit the CPU mesh's."""
+    from repro_torch.agg import compile_nested
+    from repro_torch.agg.device import client_mesh, run_nested_segments_local
+    from repro_torch.core.algorithms import AggConfig
+    from repro_torch.core.hierarchical import hierarchical_ring_local
+    from repro_torch.topo.tree import PS, AggTree
+    k, n = 28, 7868
+    g, e, gm, part = _segment_inputs(k, n, 23)
+    pe = 0.02 * e[:, :n // 7]
+    cfg = AggConfig(kind="cl_tc_sia", q=78, err_sq_mode="kernel")
+    trees = [AggTree(parent=tuple(PS if i == 0 else (i - 1) // (1 + p % 2)
+                                  for i in range(7))) for p in range(4)]
+    per_pod = compile_nested([[(tuple(range(7 * p, 7 * p + 7)), trees[p])
+                               for p in range(4)], [((0, 1, 2, 3), None)]])
+    assert not per_pod.clustered[0].uniform()
+    outs = []
+    for dev in (cuda, "cpu"):
+        mesh = client_mesh(k, devices=[dev] * k)
+        args = (list(g.to(dev)), list(e.to(dev)))
+        h = hierarchical_ring_local(cfg, mesh, *args, list(pe.to(dev)), 1.3,
+                                    sizes=(7, 4),
+                                    global_mask=[gm.to(dev)] * k,
+                                    participate=list(part.to(dev)))
+        t = run_nested_segments_local(cfg, per_pod, mesh, *args,
+                                      (list(pe.to(dev)),), 1.3,
+                                      sizes=(7, 4),
+                                      global_mask=[gm.to(dev)] * k)
+        outs.append(h[0] + h[1] + h[2] + t[0] + t[1] + list(t[2][0]))
+    for a, c in zip(*outs):
+        _same_t(c, a)
+
+
+@pytest.mark.parametrize("impl", ["scan", "hist"])
+def test_sharded_tau_search_on_the_card(cuda, impl):
+    """``threshold_for_topq`` over 8 shards on the card at d = 10^6,
+    counting with ``ops.count_ge``: τ and counts equal the unsharded
+    search on the CPU."""
+    d, shards = 1_000_000, 8
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        d, dtype=np.float32))
+    rounds = 3 if impl == "scan" else 2
+    kw = dict(branch=64, rounds=rounds, tau_impl=impl, with_counts=True)
+    want = sp.threshold_for_topq(x, 500, **kw)
+    before = topq_threshold.count_ge_cuda.launches
+    got = sp.threshold_for_topq(list(x.to(cuda).chunk(shards)), 500,
+                                count_fn=ops.count_ge, **kw)
+    if impl == "scan":
+        assert (topq_threshold.count_ge_cuda.launches - before
+                == shards * rounds)
+    for a, b in zip(want, got):
+        _same_t(a, b)

@@ -288,3 +288,52 @@ def test_device_module_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_segments_lowering_never_moves_a_card_mesh_to_the_cpu(monkeypatch):
+    """The rotated-segment lowering, the ring and the hierarchical ring on
+    a mesh that names the card move CPU rows to the card (which fails
+    here) rather than stepping the ranks on the CPU."""
+    from repro_torch.agg.device import client_mesh
+    from repro_torch.core.hierarchical import hierarchical_ring_local
+    from repro_torch.core.ring import rotated_ring_local
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    mesh = client_mesh(4, devices=["cuda:0"] * 4)
+    monkeypatch.undo()
+    stepped = []
+    monkeypatch.setattr(ops, "cl_fuse_level",
+                        lambda *a, **k: stepped.append(1))
+    rows = [torch.zeros(16)] * 4
+    with pytest.raises((AssertionError, RuntimeError)):
+        rotated_ring_local(AggConfig(q=3), mesh, rows, rows, 1.0)
+    with pytest.raises((AssertionError, RuntimeError)):
+        hierarchical_ring_local(AggConfig(q=3), mesh, rows, rows,
+                                [torch.zeros(8)] * 4, 1.0, sizes=(2, 2))
+    assert not stepped
+
+
+def test_sharded_tau_search_stays_on_the_shards_devices():
+    """Each shard counts on its own device and the sums land on the first
+    shard's: CPU shards give a CPU τ, never a copy made elsewhere."""
+    from repro_torch.core import sparsify as sp
+    x = torch.arange(64, dtype=torch.float32) - 20
+    tau = sp.threshold_for_topq(list(x.chunk(4)), 5, count_fn=ops.count_ge)
+    assert tau.device.type == "cpu"
+    assert torch.equal(tau, sp.threshold_for_topq(x, 5))
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.ring",
+                                    "repro_torch.core.hierarchical"])
+def test_ring_modules_import_no_jax(module):
+    path = PORT / Path(*module.split(".")[1:]).with_suffix(".py")
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    code = (f"import sys, {module}\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -232,8 +232,10 @@ def test_hist_validation():
                                tau_impl="hist")
     with pytest.raises(ValueError, match="tau_impl"):
         tsp.threshold_for_topq(one, 2, tau_impl="histo")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tsp.threshold_for_topq(one, 2, axis_name="clients")
+    with pytest.raises(ValueError, match="at least one shard"):
+        tsp.threshold_for_topq([], 2)
+    with pytest.raises(ValueError, match="shards must all be"):
+        tsp.threshold_for_topq([one, one[None]], 2)
     with pytest.raises(ValueError, match="hist_rounds"):
         TCfg(kind=AggKind.SIA, q=5, tau_impl="hist")      # hist_rounds=3
     with pytest.raises(ValueError, match="tau_impl"):
@@ -406,3 +408,121 @@ def test_err_sq_mode_kernel_under_threshold(kind):
         _same(u.numpy(), v, f"{kind}/kernel vs jnp")
     np.testing.assert_allclose(t.stats.err_sq.numpy(),
                                base.stats.err_sq.numpy(), rtol=ERR_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the sharded τ search (the reference's ``axis_name``)
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+# (name, rows (0: 1-D), d, q, tau_impl, rounds)
+SHARDED = [("scan 1-D q=50", 0, SHARDS * 1000, 50, "scan", 3),
+           ("scan 1-D q=700", 0, SHARDS * 1000 + 8, 700, "scan", 3),
+           ("hist 1-D q=50", 0, SHARDS * 1000, 50, "hist", 2),
+           ("scan [3, d]", 3, SHARDS * 400, 37, "scan", 3),
+           ("hist [3, d]", 3, SHARDS * 400, 37, "hist", 2)]
+
+SHARDED_REFERENCE = r"""
+import json, functools
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import PartitionSpec as P
+from repro import compat
+from repro.core import sparsify as sp
+
+inp = dict(np.load(INPUTS))
+mesh = compat.make_mesh((8,), ("data",))
+out = {}
+for name, rows, d, q, impl, rounds in json.loads(CASES):
+    x = inp[name]                       # [8, d/8] or [8, rows, d/8]
+
+    def body(x_l):
+        tau, counts = sp.threshold_for_topq(
+            x_l[0], q, branch=64, rounds=rounds, axis_name="data",
+            tau_impl=impl, with_counts=True)
+        return tau[None], counts[None]
+
+    tau, counts = jax.jit(compat.shard_map(
+        body, mesh=mesh, in_specs=(P("data"),),
+        out_specs=(P("data"), P("data")), axis_names={"data"}))(x)
+    out[name + "/tau"] = np.asarray(tau)
+    out[name + "/counts"] = np.asarray(counts)
+np.savez(OUTPUTS, **out)
+print("PASS")
+"""
+
+
+def _sharded_input(rows, d, seed):
+    rng = np.random.default_rng(seed)
+    shape = (rows, d) if rows else (d,)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[::97] = 0.0                      # zeros and ties
+    x.reshape(-1)[5::211] = 1.5
+    return x
+
+
+def _shards(x):
+    """Per-rank pieces of the last axis, as the reference's mesh splits it
+    (``[8, d/8]`` → 8 × ``[d/8]``; rows keep their lane axis)."""
+    return [torch.from_numpy(np.ascontiguousarray(p))
+            for p in np.split(x, SHARDS, axis=-1)]
+
+
+@pytest.fixture(scope="module")
+def sharded_reference(tmp_path_factory, multidev):
+    import json
+    d = tmp_path_factory.mktemp("tau_sharded")
+    arrays = {}
+    for i, (name, rows, dd, q, impl, rounds) in enumerate(SHARDED):
+        x = _sharded_input(rows, dd, 300 + i)
+        arrays[name] = np.stack(np.split(x, SHARDS, axis=-1))
+    np.savez(d / "in.npz", **arrays)
+    multidev(f"INPUTS = {str(d / 'in.npz')!r}\n"
+             f"OUTPUTS = {str(d / 'out.npz')!r}\n"
+             f"CASES = {json.dumps(SHARDED)!r}\n" + SHARDED_REFERENCE,
+             devices=SHARDS)
+    return dict(np.load(d / "out.npz"))
+
+
+@pytest.mark.parametrize("case", SHARDED, ids=[c[0] for c in SHARDED])
+@pytest.mark.parametrize("count", ["sorted", "count_ge"])
+def test_sharded_search_equals_the_unsharded_search(case, count):
+    """τ and every round's counts of the search over 8 shards (each
+    counting its own elements, here through ``ops.count_ge`` /
+    ``ops.count_ge_level`` when asked) equal the search over the whole
+    vector; the τ also equals the count-free shortcut's."""
+    i = SHARDED.index(case)
+    name, rows, d, q, impl, rounds = case
+    x = _sharded_input(rows, d, 300 + i)
+    count_fn = (None if count == "sorted"
+                else tops.count_ge_level if rows else tops.count_ge)
+    kw = dict(branch=64, rounds=rounds, tau_impl=impl)
+    tau, counts = tsp.threshold_for_topq(_shards(x), q, count_fn=count_fn,
+                                         with_counts=True, **kw)
+    tau_1, counts_1 = tsp.threshold_for_topq(_t(x), q, with_counts=True,
+                                             **kw)
+    _same(tau_1.numpy(), tau, name)
+    _same(counts_1.numpy(), counts, name + " counts")
+    _same(tau_1.numpy(), tsp.threshold_for_topq(_shards(x), q,
+                                                count_fn=count_fn, **kw),
+          name + " without counts")
+    if impl == "scan":
+        _same(tau_1.numpy(), tsp.threshold_for_topq(_t(x), q, **kw),
+              name + " shortcut")
+
+
+@pytest.mark.parametrize("case", SHARDED, ids=[c[0] for c in SHARDED])
+def test_sharded_search_matches_the_reference_axis_name(sharded_reference,
+                                                        case):
+    """The reference's ``threshold_for_topq(axis_name=)`` on 8 fake devices
+    with ``with_counts=True``: every rank's τ and counts equal the port's
+    sharded search bit for bit."""
+    i = SHARDED.index(case)
+    name, rows, d, q, impl, rounds = case
+    x = _sharded_input(rows, d, 300 + i)
+    tau, counts = tsp.threshold_for_topq(
+        _shards(x), q, branch=64, rounds=rounds, tau_impl=impl,
+        with_counts=True)
+    for r in range(SHARDS):
+        _same(sharded_reference[name + "/tau"][r], tau, f"{name} rank {r}")
+        _same(sharded_reference[name + "/counts"][r], counts,
+              f"{name} rank {r} counts")
