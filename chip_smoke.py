@@ -157,7 +157,30 @@ Phases (any failure exits non-zero and prints no result):
    round of the ring, the star, the Walker tree (static and butterfly),
    the pod ring and the ring at n = 28 · 2**18 beside ``execute_sharded``
    and host ``execute`` on the same rows, in five alternating turns, and
-   torch.profiler's device ops and busy time of segments rounds.
+   torch.profiler's device ops and busy time of segments rounds;
+11. the LM serving path (no kernel of its own: plain PyTorch on the card)
+   — (a) every SMOKE architecture in float32: ``forward`` (with the vision
+   and audio stub embeddings where the architecture has a frontend, and
+   without), the MoE aux, ``prefill`` of all tokens but the last and
+   ``decode_step`` of the last, with the caches, on the card and on the
+   CPU from one ``torch.Generator``'s weights, card = CPU to rtol = atol =
+   1e-3; on the card prefill and decode = ``forward`` at the reference
+   test's rtol = atol = 2e-2, and mixtral's SWA ring cache 16 steps past
+   its window (3e-2); (b) full width through ``launch.serve.generate``:
+   batch 4, prompt 512, 32 generated tokens, bf16, for phi4-mini-3.8b (32
+   layers), mamba2-130m (24 layers) and mixtral-8x7b at full widths with 2
+   layers (and no token dropped); prefill's and every decode step's logits
+   = the teacher-forcing ``forward`` over the prompt and the generated
+   tokens (relative L2 ≤ 5e-2 and max |Δ| ≤ 0.5 over the real vocabulary
+   per request and step; for the MoE on 95 % of the pairs, since a bf16
+   rounding can move a token to another expert pair), every logit finite,
+   and the same three models in float32 to relative L2 ≤ 1e-4 on every
+   pair; (c) one full-width float32
+   layer of phi4, mixtral and mamba2 on 2 × 32 tokens, card = CPU to rtol
+   = atol = 1e-4; (d) prefill ms, decode ms per step (median after 2
+   warm-up steps), tokens/s, weight and cache bytes, peak device memory,
+   the step's bound (weight + cache bytes over 3.35 TB/s) and its share,
+   and torch.profiler's device ops and busy time of one decode step.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -166,8 +189,10 @@ The last lines are a JSON object of per-kernel numbers, the card's
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -3237,6 +3262,315 @@ def segments_path(level, sp, ops, topq_threshold, data) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LM serving path
+# ---------------------------------------------------------------------------
+
+LM_CARD_CPU_TOL = 1e-3             # (a) SMOKE, f32: card = CPU, rtol = atol
+LM_DECODE_TOL = 2e-2               # (a) decode = forward on the card
+LM_RING_TOL = 3e-2                 # (a) mixtral's SWA ring past its window
+LM_LAYER_TOL = 1e-4                # (c) one full-width f32 layer, card = CPU
+BF16_REL_L2 = 5e-2                 # (b) bf16 decode = forward: ‖Δ‖₂/‖ref‖₂
+BF16_MAX_ABS = 0.5                 # (b) and max |Δ| over the real vocab
+# (b) mixtral in bf16: a token whose router input moves by a bf16 rounding
+# can take another expert pair, and its logits then differ by O(0.3), so
+# for an MoE this share of (request, step) pairs must be within the limits
+MOE_PAIRS_OK = 0.95
+F32_REL_L2 = 1e-4                  # (b) the same models in f32, every pair
+PROFILE_STEPS = 3                  # decode steps under torch.profiler
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+SERVE_WARM = 2                     # decode steps left out of the median
+# full-width models served: (arch, replace(FULL, **cut), why cut)
+SERVE_MODELS = (
+    ("phi4-mini-3.8b", {}, ""),
+    ("mamba2-130m", {}, ""),
+    ("mixtral-8x7b", dict(num_layers=2, capacity_factor=4.0),
+     "num_layers 32 -> 2 (93.4 GB of bf16 weights > the card's 80 GB); "
+     "capacity_factor 1.25 -> 4.0 (cap >= group: no token is dropped, so "
+     "prefill's 1024-token groups, decode's 4-token groups and the "
+     "teacher-forcing forward's 543-token groups compute one function)"),
+)
+LAYER_TOKENS = (2, 32)
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
+    """(every element within ``tol + tol·|want|``, max |got − want|), on
+    the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs()
+    return bool(torch.all(err <= tol + tol * want.abs())), float(err.max())
+
+
+def lm_smoke_archs(dev) -> dict:
+    """(a): every SMOKE arch in f32, card against CPU, decode = forward."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.stubs import audio_stub_embeds, vision_stub_embeds
+    from repro_torch.models.transformer import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    worst = {"card_cpu": 0.0, "decode_forward": 0.0, "ring": 0.0}
+
+    def check(label, key, got, want, tol):
+        ok, err = _close(got, want, tol)
+        if not ok:
+            raise SystemExit(f"FAIL [lm] {label}: max |Δ| {err:.3e} over "
+                             f"rtol = atol = {tol}")
+        worst[key] = max(worst[key], err)
+
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        gen = torch.Generator().manual_seed(SEED)
+        p_cpu = lm.init_params(cfg, gen, cpu)
+        p_card = tree_map(lambda a: a.to(dev), p_cpu)
+        b, s = 2, 12
+        toks = torch.randint(0, cfg.vocab_size, (b, s),
+                             generator=torch.Generator().manual_seed(2))
+        fe = ()
+        if cfg.frontend == "vision":
+            fe = vision_stub_embeds(cfg, torch.Generator().manual_seed(3),
+                                    b, s, 4, cpu)
+        elif cfg.frontend == "audio":
+            fe = (audio_stub_embeds(cfg, torch.Generator().manual_seed(3),
+                                    b, s, cpu),)
+        out = {}
+        for where, p in (("cpu", p_cpu), ("card", p_card)):
+            d = cpu if where == "cpu" else dev
+            t = toks.to(d)
+            with torch.inference_mode():
+                lo_fe, aux = lm.forward(cfg, p, t, *(x.to(d) for x in fe))
+                lo, _ = lm.forward(cfg, p, t)
+                cache = lm.init_cache(cfg, b, 32, d)
+                last, cache = lm.prefill(cfg, p, t[:, :-1], cache)
+                step, cache = lm.decode_step(cfg, p, cache, t[:, -1], s - 1)
+            if not all(bool(torch.isfinite(x[..., :cfg.vocab_size]).all())
+                       for x in (lo_fe, lo, last, step)):
+                raise SystemExit(f"FAIL [lm] {arch} {where}: logits not "
+                                 f"finite")
+            out[where] = dict(lo_fe=lo_fe, aux=aux, lo=lo, last=last,
+                              step=step, cache=cache)
+        for key in ("lo_fe", "aux", "lo", "last", "step"):
+            check(f"{arch} {key} card = CPU", "card_cpu", out["card"][key],
+                  out["cpu"][key], LM_CARD_CPU_TOL)
+        for a, c in zip(tree_leaves(out["card"]["cache"]),
+                        tree_leaves(out["cpu"]["cache"])):
+            check(f"{arch} cache card = CPU", "card_cpu", a, c,
+                  LM_CARD_CPU_TOL)
+        card = out["card"]
+        check(f"{arch} prefill = forward on the card", "decode_forward",
+              card["last"], card["lo"][:, -2], LM_DECODE_TOL)
+        check(f"{arch} decode = forward on the card", "decode_forward",
+              card["step"], card["lo"][:, -1], LM_DECODE_TOL)
+
+    # mixtral's SWA ring cache, 16 steps past its window (window 32)
+    cfg = get_config("mixtral-8x7b", smoke=True)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), cpu)
+    p_card = tree_map(lambda a: a.to(dev), p_cpu)
+    total = 48
+    toks = torch.randint(0, cfg.vocab_size, (1, total),
+                         generator=torch.Generator().manual_seed(5))
+    steps = {}
+    for where, p in (("cpu", p_cpu), ("card", p_card)):
+        d = cpu if where == "cpu" else dev
+        t = toks.to(d)
+        with torch.inference_mode():
+            lo, _ = lm.forward(cfg, p, t)
+            cache = lm.init_cache(cfg, 1, cfg.sliding_window, d)
+            _, cache = lm.prefill(cfg, p, t[:, :32], cache)
+            steps[where] = []
+            for pos in range(32, total):
+                step, cache = lm.decode_step(cfg, p, cache, t[:, pos], pos)
+                steps[where].append(step)
+                if pos + 1 < total and where == "card":
+                    check(f"mixtral ring step {pos} = forward", "ring",
+                          step, lo[:, pos], LM_RING_TOL)
+    for pos, (a, c) in enumerate(zip(steps["card"], steps["cpu"]), 32):
+        check(f"mixtral ring step {pos} card = CPU", "card_cpu", a, c,
+              LM_CARD_CPU_TOL)
+    log(f"[lm] (a) {len(ARCHS)} SMOKE archs in f32 (forward with and "
+        f"without frontend stubs, aux, prefill, decode, caches): card = "
+        f"CPU max |Δ| {worst['card_cpu']:.3e} (rtol = atol = "
+        f"{LM_CARD_CPU_TOL}); decode and prefill = forward on the card "
+        f"max |Δ| {worst['decode_forward']:.3e} (rtol = atol = "
+        f"{LM_DECODE_TOL}); mixtral's ring 16 steps past its window max "
+        f"|Δ| {worst['ring']:.3e} (rtol = atol = {LM_RING_TOL})")
+    return worst
+
+
+def lm_full_layers(dev) -> dict:
+    """(c): one full-width layer per family in f32, card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer import tree_map
+
+    cpu = torch.device("cpu")
+    errs = {}
+    for arch in ("phi4-mini-3.8b", "mixtral-8x7b", "mamba2-130m"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=1,
+                                  param_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        init = (tr._mamba_layer_init if cfg.family == "ssm"
+                else tr._dense_layer_init)
+        p_card = init(gen, cfg, torch.float32, dev)
+        p_cpu = tree_map(lambda a: a.cpu(), p_card)
+        h = torch.randn((*LAYER_TOKENS, cfg.d_model),
+                        generator=torch.Generator().manual_seed(4))
+        outs = []
+        for p, d in ((p_cpu, cpu), (p_card, dev)):
+            with torch.inference_mode():
+                if cfg.family == "ssm":
+                    y, _ = tr._mamba_layer(cfg, p, h.to(d))
+                else:
+                    y, _, _ = tr._dense_layer(cfg, p, h.to(d))
+            outs.append(y)
+        ok, err = _close(outs[1], outs[0], LM_LAYER_TOL)
+        if not ok or not bool(torch.isfinite(outs[1]).all()):
+            raise SystemExit(f"FAIL [lm] one full-width {arch} layer: card "
+                             f"and CPU differ by {err:.3e}")
+        errs[arch] = err
+        del p_card, p_cpu
+    torch.cuda.empty_cache()
+    log(f"[lm] (c) one full-width f32 layer, {LAYER_TOKENS[0]} x "
+        f"{LAYER_TOKENS[1]} tokens, card = CPU (rtol = atol = "
+        f"{LM_LAYER_TOL}): " + ", ".join(f"{a} max |Δ| {e:.3e}"
+                                        for a, e in errs.items()))
+    return errs
+
+
+def teacher_forcing(cfg, params, prompts, out) -> tuple:
+    """Each logits row of ``generate`` against the forward over the prompt
+    and the generated tokens (one request at a time): relative L2 error and
+    max |Δ| over the real vocabulary, [B, gen] each."""
+    from repro_torch.models import model as lm
+    full = torch.cat([prompts, out.tokens[:, :-1]], dim=1)
+    s, v = prompts.shape[1], cfg.vocab_size
+    rel = torch.zeros(full.shape[0], len(out.logits))
+    mx = torch.zeros_like(rel)
+    with torch.inference_mode():
+        for i in range(full.shape[0]):
+            tf, _ = lm.forward(cfg, params, full[i:i + 1])
+            for j, lg in enumerate(out.logits):
+                if not bool(torch.isfinite(lg[i]).all()):
+                    raise SystemExit(f"FAIL [serve] {cfg.name}: logits not "
+                                     f"finite at step {j}")
+                want = tf[0, s - 1 + j, :v].float()
+                got = lg[i, :v].float()
+                rel[i, j] = float((got - want).norm() / want.norm())
+                mx[i, j] = float((got - want).abs().max())
+            del tf
+    return rel, mx
+
+
+def serve_once(cfg, dev, gen: int):
+    """Random weights and prompts, then ``generate`` with its logits kept
+    and held against teacher forcing."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as lm
+    params = lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    generate(cfg, params, prompts, 4, dev)               # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = generate(cfg, params, prompts, gen, dev, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rel, mx = teacher_forcing(cfg, params, prompts, out)
+    return params, prompts, out, peak, rel, mx
+
+
+def lm_serve_full(dev, card: str) -> list:
+    """(b) and (d): full-width models through ``launch.serve.generate``,
+    timed in bf16; the same models in f32 hold decode = teacher forcing to
+    ``F32_REL_L2`` on every (request, step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.transformer import tree_leaves
+
+    rows = []
+    for arch, cut, why in SERVE_MODELS:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        f32 = dataclasses.replace(cfg, param_dtype="float32")
+        torch.cuda.empty_cache()
+        *_, rel32, _ = serve_once(f32, dev, SERVE_GEN)
+        if float(rel32.max()) > F32_REL_L2:
+            raise SystemExit(f"FAIL [serve] {cfg.name} in float32: decode "
+                             f"against the teacher-forcing forward rel L2 "
+                             f"{float(rel32.max()):.3e} (limit {F32_REL_L2})")
+        torch.cuda.empty_cache()
+        params, prompts, out, peak, rel, mx = serve_once(cfg, dev, SERVE_GEN)
+        ok = (rel <= BF16_REL_L2) & (mx <= BF16_MAX_ABS)
+        share = float(ok.float().mean())
+        if share < (MOE_PAIRS_OK if cfg.family == "moe" else 1.0):
+            raise SystemExit(f"FAIL [serve] {cfg.name}: decode against the "
+                             f"teacher-forcing forward within rel L2 "
+                             f"{BF16_REL_L2} and max |Δ| {BF16_MAX_ABS} on "
+                             f"{100 * share:.1f} % of (request, step) pairs; "
+                             f"worst rel L2 {float(rel.max()):.3e}, max |Δ| "
+                             f"{float(mx.max()):.3e}")
+        w_bytes = sum(a.nbytes for a in tree_leaves(params))
+        max_len = SERVE_PROMPT + SERVE_GEN
+        c_bytes = sum(a.nbytes for a in tree_leaves(
+            lm.cache_specs(cfg, SERVE_BATCH, max_len)))
+        step_ms = 1e3 * statistics.median(out.seconds[1 + SERVE_WARM:])
+        bound_ms = 1e3 * (w_bytes + c_bytes) / HBM_BYTES_PER_S
+        # generate's first decode steps again, under the profiler
+        cache = lm.init_cache(cfg, SERVE_BATCH, max_len, dev)
+        with torch.inference_mode():
+            lm.prefill(cfg, params, prompts, cache)
+
+            def steps():
+                for i in range(PROFILE_STEPS):
+                    lm.decode_step(cfg, params, cache, out.tokens[:, i],
+                                   SERVE_PROMPT + i)
+            prof = profile_calls(f"{cfg.name} decode step", steps,
+                                 PROFILE_STEPS)
+        row = dict(arch=cfg.name, layers=cfg.num_layers, reduced=why or None,
+                   params=cfg.param_count(), weight_bytes=w_bytes,
+                   cache_bytes=c_bytes, prefill_ms=1e3 * out.seconds[0],
+                   decode_ms=step_ms,
+                   tokens_per_s=SERVE_BATCH * 1e3 / step_ms,
+                   bound_ms=bound_ms, share_of_bound=bound_ms / step_ms,
+                   peak_bytes=peak, rel_l2=float(rel.max()),
+                   rel_l2_median=float(rel.median()),
+                   max_abs=float(mx.max()), pairs_within=share,
+                   pairs_outside=[[i, j] for i, j in
+                                  (~ok).nonzero().tolist()],
+                   f32_rel_l2=float(rel32.max()), profiled_ms=prof[0],
+                   device_busy_ms=prof[1], device_ops=prof[2],
+                   top_kernels=prof[3])
+        log(f"[serve] {cfg.name} ({cfg.num_layers} layers"
+            + (f"; reduced: {why}" if why else "") + f"): batch "
+            f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_GEN} generated, "
+            f"bf16; prefill {row['prefill_ms']:.2f} ms, decode "
+            f"{step_ms:.3f} ms/step (median of {SERVE_GEN - 1 - SERVE_WARM}"
+            f"), {row['tokens_per_s']:.1f} tok/s; weights "
+            f"{w_bytes / 1e9:.3f} GB, cache {c_bytes / 1e6:.1f} MB, peak "
+            f"{peak / 1e9:.3f} GB; bound {bound_ms:.3f} ms "
+            f"({100 * row['share_of_bound']:.1f} % of it); decode = "
+            f"teacher forcing rel L2 max {row['rel_l2']:.3e} (median "
+            f"{row['rel_l2_median']:.3e}), max |Δ| {row['max_abs']:.3e}, "
+            f"{100 * share:.1f} % of pairs within; f32 rel L2 max "
+            f"{row['f32_rel_l2']:.3e}; {card}")
+        log("[serve] " + json.dumps(row))
+        rows.append(row)
+        del params, out, cache
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_path() -> dict:
+    """Phase 11: the LM serving path on the card."""
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    smoke = lm_smoke_archs(dev)
+    layers = lm_full_layers(dev)
+    rows = lm_serve_full(dev, card)
+    log(f"[serve] phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return dict(smoke=smoke, layers=layers, served=rows)
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -3270,6 +3604,9 @@ def profile_calls(label: str, fn, rounds: int):
         f"device busy {busy_ms:.3f} ms/round ({100 * busy_ms / wall_ms:.1f}"
         f"%), {ops:.0f} device ops/round; top: "
         + ", ".join(e.key[:40] for e in top))
+    return wall_ms, busy_ms, ops, [
+        (e.key[:60], (getattr(e, "self_device_time_total", 0) or getattr(
+            e, "self_cuda_time_total", 0)) / 1e3 / rounds) for e in top]
 
 
 def main() -> int:
@@ -3323,6 +3660,7 @@ def main() -> int:
     for name, n in segments_path(level, sp, ops, topq_threshold,
                                  data).items():
         launches[name] = launches.get(name, 0) + n
+    serve_path()
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",

@@ -23,6 +23,32 @@ def _t(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
+def _tree(tree, dev):
+    """A dict tree of numpy arrays → the same tree of tensors on ``dev``.
+    bfloat16 leaves (``ml_dtypes.bfloat16``, which ``torch.as_tensor``
+    cannot take) go through float32, which holds them exactly, and are
+    cast back."""
+    if isinstance(tree, Mapping):
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    x = np.asarray(tree)
+    if x.dtype.name == "bfloat16":
+        return _t(x.astype(np.float32), dev).to(torch.bfloat16)
+    return torch.as_tensor(np.array(x), device=dev)
+
+
+def lm_params(tree: Mapping, device: DeviceLike = None) -> dict:
+    """The reference's LM params tree (numpy leaves) → the port's tree
+    (:func:`repro_torch.models.model.init_params`: same keys, stacked
+    ``[L, …]`` leaves, same dtypes)."""
+    return _tree(tree, resolve_device(device))
+
+
+def lm_cache(tree: Mapping, device: DeviceLike = None) -> dict:
+    """The reference's decode cache (numpy leaves) → the port's cache
+    (:func:`repro_torch.models.model.init_cache`)."""
+    return _tree(tree, resolve_device(device))
+
+
 def lr_params(params: Mapping, device: DeviceLike = None) -> dict:
     """``{"w": [784, 10], "b": [10]}`` logistic-regression parameters."""
     dev = resolve_device(device)

@@ -1,0 +1,200 @@
+"""Attention: GQA/MQA with RoPE; full, blocked, SWA, decode.
+
+The reference's plain implementations, with its materialized float32
+scores (plain einsums, no fused attention): q·scale, k and v are upcast to
+f32, masked scores are ``NEG_INF = -1e30`` and the output is cast back to
+q's dtype. The reference's GSPMD sharding constraints (``_mesh_auto``,
+``_head_axes``, ``_batch_ax``, ``_constrain_scores``) pin shardings on a
+mesh and are the identity on one process, so they have no counterpart.
+
+Caches are updated in place: a K/V cache passed to :func:`run_attention`
+is consumed (its slot or prefix is overwritten) and returned.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e30
+
+
+def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
+    """[B, S, Hq, Dh] → [B, S, Hkv, G, Dh]."""
+    b, s, hq, dh = q.shape
+    return q.reshape(b, s, num_kv, hq // num_kv, dh)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    k_offset: int = 0) -> torch.Tensor:
+    """Materialized-scores attention (used for S ≤ ~4k and as the oracle).
+
+    q: [B, Sq, Hq, Dh]; k,v: [B, Sk, Hkv, Dh]. ``q_offset``/``k_offset``
+    are the absolute positions of q[0]/k[0] (cached decoding, chunked
+    prefill, SWA-sliced K spans).
+    """
+    b, sq, hq, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    qg = _split_gqa(q, hkv)
+    scale = dh ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float() * scale, k.float())
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = k_offset + torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= qpos - kpos < window
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_chunk: int = 1024, k_chunk: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Q-blocked attention: a loop over query chunks, each attending to the
+    full K/V with materialized [qc × Sk] scores (O(qc·Sk) memory); with a
+    window each chunk scores only the last ``window + q_chunk`` keys.
+
+    Matches :func:`plain_attention` to f32 accuracy. ``k_chunk`` is
+    accepted for API compatibility.
+    """
+    b, sq, hq, dh = q.shape
+    sk = k.shape[1]
+    nq = sq // q_chunk
+    span = window + q_chunk if window > 0 else sk
+    span = min(span, sk)
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_off = q_offset + qi * q_chunk
+        if span < sk:
+            start = min(max(q_off + q_chunk - span, 0), sk - span)
+            out = plain_attention(qblk, k[:, start:start + span],
+                                  v[:, start:start + span], causal=causal,
+                                  window=window, q_offset=q_off,
+                                  k_offset=start)
+        else:
+            out = plain_attention(qblk, k, v, causal=causal, window=window,
+                                  q_offset=q_off)
+        outs.append(out)
+    return torch.cat(outs, dim=1).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *, window: int = 0,
+                     ring: bool = False) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: [B, 1, Hq, Dh]; caches: [B, Smax, Hkv, Dh]; ``pos``: current absolute
+    position (a Python int). Plain cache: entries at index ≤ pos are valid.
+    Ring cache (``ring=True``): slot j holds absolute position
+    pos − ((pos − j) mod Smax); valid iff j ≤ pos (warmup) — window bound is
+    implicit.
+    """
+    b, _, hq, dh = q.shape
+    _, smax, hkv, _ = k_cache.shape
+    qg = _split_gqa(q, hkv).float() * dh ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float())
+    kpos = torch.arange(smax, device=q.device)
+    valid = kpos <= pos
+    if window > 0 and not ring:
+        valid &= kpos > pos - window
+    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention sub-layer (projections + RoPE + cache plumbing)
+# ---------------------------------------------------------------------------
+
+def attn_project_qkv(params, x: torch.Tensor, *, num_heads: int,
+                     num_kv: int, head_dim: int, rope_theta: float,
+                     positions: torch.Tensor):
+    """x: [B, S, D] → q [B,S,Hq,Dh], k,v [B,S,Hkv,Dh], RoPE applied."""
+    b, s, _ = x.shape
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.reshape(b, s, num_heads, head_dim)
+    k = k.reshape(b, s, num_kv, head_dim)
+    v = v.reshape(b, s, num_kv, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def attn_out(params, o: torch.Tensor) -> torch.Tensor:
+    b, s, h, dh = o.shape
+    return o.reshape(b, s, h * dh) @ params["wo"]
+
+
+def run_attention(params, x: torch.Tensor, *, cfg_heads: int, cfg_kv: int,
+                  head_dim: int, rope_theta: float, window: int,
+                  cache: Optional[dict] = None, pos: Optional[int] = None,
+                  blocked_threshold: int = 8192, q_chunk: int = 1024,
+                  k_chunk: int = 1024):
+    """Full attention sub-layer.
+
+    Modes:
+    * train/prefill: ``pos is None`` → causal self-attention over x; with a
+      cache dict its K/V are seeded (prefill), in place.
+    * decode: ``cache`` + ``pos`` (a Python int) → one-token step; the new
+      K/V are written into the cache in place.
+
+    Returns (out [B,S,D], cache_or_None): the cache passed in, updated.
+    """
+    b, s, _ = x.shape
+    if pos is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    else:
+        positions = torch.full((b, s), pos, device=x.device)
+    q, k, v = attn_project_qkv(
+        params, x, num_heads=cfg_heads, num_kv=cfg_kv, head_dim=head_dim,
+        rope_theta=rope_theta, positions=positions)
+
+    if cache is not None and pos is not None:
+        # decode step. SWA caches are ring buffers of length == window:
+        # slot = pos % smax; validity slot_pos <= pos covers both the warmup
+        # and the steady state, and the window bound is implicit for ring
+        # buffers (only the last `window` tokens are retained).
+        smax = cache["k"].shape[1]
+        slot = pos % smax
+        cache["k"][:, slot:slot + s] = k
+        cache["v"][:, slot:slot + s] = v
+        eff_window = window if (window == 0 or smax > window) else 0
+        o = decode_attention(q, cache["k"], cache["v"], pos,
+                             window=eff_window,
+                             ring=smax <= max(window, 0) and window > 0)
+        return attn_out(params, o), cache
+
+    if s >= blocked_threshold:
+        o = blocked_attention(q, k, v, causal=True, window=window,
+                              q_chunk=q_chunk, k_chunk=k_chunk)
+    else:
+        o = plain_attention(q, k, v, causal=True, window=window)
+    if cache is not None:
+        smax = cache["k"].shape[1]
+        if smax < s:
+            # SWA ring cache shorter than the prompt: keep the last smax
+            # tokens; slot alignment requires s % smax == 0 (configs comply).
+            assert s % smax == 0, (s, smax)
+            cache["k"].copy_(k[:, -smax:])
+            cache["v"].copy_(v[:, -smax:])
+        else:
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+    return attn_out(params, o), cache

@@ -1,0 +1,295 @@
+"""Decoder stacks for all assigned families (dense/moe/ssm/hybrid/vlm/audio).
+
+Parameters keep the reference's pytree: the same dict keys, with each
+layer's leaves stacked on a leading ``[L, …]`` axis (the hybrid stack's
+``[n_sites, attn_every, …]``), so weights carry across leaf for leaf.
+:func:`run_stack` loops over the layers in Python, indexing the stacked
+leaves. The hybrid (zamba2-style) stack is ``n_sites`` super-blocks
+(attn_every mamba layers + one *shared* attention block) plus trailing
+mamba layers, so the shared block's KV cache is per-site, not per-layer.
+
+Caches are updated in place: a cache passed to :func:`run_stack` is
+consumed and returned.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import ssm
+from repro_torch.models.attention import run_attention
+from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.models.moe import moe_ffn
+
+Params = Any
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a dict tree (same keys)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _at(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _device(device: DeviceLike) -> torch.device:
+    """``"meta"`` as given (shapes only); else the card unless asked."""
+    return (torch.device("meta") if str(device) == "meta"
+            else resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init (``lead`` stacks layers on leading axes)
+# ---------------------------------------------------------------------------
+
+def _attn_init(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, hq, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    p = {
+        "wq": dense_init(gen, d, hq * dh, dtype, device, lead),
+        "wk": dense_init(gen, d, hkv * dh, dtype, device, lead),
+        "wv": dense_init(gen, d, hkv * dh, dtype, device, lead),
+        "wo": dense_init(gen, hq * dh, d, dtype, device, lead),
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", hq * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+            p[name] = torch.zeros((*lead, width), dtype=dtype, device=device)
+    return p
+
+
+def _mlp_init(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, f = cfg.d_model, cfg.d_ff
+    p = {}
+    if cfg.mlp_type == "swiglu":
+        p["w_gate"] = dense_init(gen, d, f, dtype, device, lead)
+    p["w_up"] = dense_init(gen, d, f, dtype, device, lead)
+    p["w_down"] = dense_init(gen, f, d, dtype, device, lead)
+    return p
+
+
+def _mlp_apply(cfg: ModelConfig, params, x):
+    if cfg.mlp_type == "swiglu":
+        return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(x @ params["w_up"], approximate="tanh")
+    return h @ params["w_down"]
+
+
+def _moe_init(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": dense_init(gen, d, e, torch.float32, device, lead),
+        "w_gate": dense_init(gen, d, f, dtype, device, (*lead, e)),
+        "w_up": dense_init(gen, d, f, dtype, device, (*lead, e)),
+        "w_down": dense_init(gen, f, d, dtype, device, (*lead, e)),
+    }
+
+
+def _dense_layer_init(gen, cfg: ModelConfig, dtype, device, lead=()):
+    ones = dict(dtype=dtype, device=device)
+    return {
+        "attn": _attn_init(gen, cfg, dtype, device, lead),
+        "mlp": (_moe_init(gen, cfg, dtype, device, lead)
+                if cfg.family == "moe"
+                else _mlp_init(gen, cfg, dtype, device, lead)),
+        "ln1": torch.ones((*lead, cfg.d_model), **ones),
+        "ln2": torch.ones((*lead, cfg.d_model), **ones),
+    }
+
+
+def _mamba_layer_init(gen, cfg: ModelConfig, dtype, device, lead=()):
+    return {
+        "mamba": ssm.mamba2_init(gen, cfg, dtype, device, lead),
+        "ln": torch.ones((*lead, cfg.d_model), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Per-layer apply
+# ---------------------------------------------------------------------------
+
+def _dense_layer(cfg: ModelConfig, params, h, cache=None, pos=None):
+    """Pre-LN transformer layer; returns (h, cache, aux)."""
+    x = rms_norm(h, params["ln1"], cfg.norm_eps)
+    o, cache = run_attention(
+        params["attn"], x, cfg_heads=cfg.num_heads, cfg_kv=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window, cache=cache, pos=pos)
+    h = h + o
+    x = rms_norm(h, params["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_ffn(params["mlp"], x, num_experts=cfg.num_experts,
+                         top_k=cfg.num_experts_per_tok,
+                         capacity_factor=cfg.capacity_factor)
+    else:
+        y = _mlp_apply(cfg, params["mlp"], x)
+        aux = None
+    return h + y, cache, aux
+
+
+def _mamba_layer(cfg: ModelConfig, params, h, cache=None):
+    x = rms_norm(h, params["ln"], cfg.norm_eps)
+    y, cache = ssm.mamba2_block(params["mamba"], cfg, x, cache)
+    return h + y, cache
+
+
+def _shared_block(cfg: ModelConfig, params, h, cache=None, pos=None):
+    """Zamba2-style shared transformer block (attn + MLP)."""
+    x = rms_norm(h, params["ln1"], cfg.norm_eps)
+    o, cache = run_attention(
+        params["attn"], x, cfg_heads=cfg.num_heads, cfg_kv=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window, cache=cache, pos=pos)
+    h = h + o
+    x = rms_norm(h, params["ln2"], cfg.norm_eps)
+    return h + _mlp_apply(cfg, params["mlp"], x), cache
+
+
+# ---------------------------------------------------------------------------
+# Stack init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                device: DeviceLike = None) -> Params:
+    """Random params in the reference's tree, shapes, dtypes and scales
+    (dense √(2/(din+dout)), embed 0.02, ``conv_w`` 0.2, f32 router and
+    ``dt_bias``/``a_log``/``d_skip``). Normals are drawn in float32 from
+    ``generator`` on its own device and moved to ``device`` (the card
+    unless asked for another; ``"meta"`` gives shapes only)."""
+    dev = _device(device)
+    dtype, gen = cfg.dtype, generator
+    params: dict = {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                       dtype, dev)
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        params["layers"] = _mamba_layer_init(gen, cfg, dtype, dev, (L,))
+    elif cfg.family == "hybrid":
+        n_sites = L // cfg.attn_every
+        trailing = L - n_sites * cfg.attn_every
+        params["layers"] = _mamba_layer_init(gen, cfg, dtype, dev,
+                                             (n_sites, cfg.attn_every))
+        if trailing:
+            params["trailing"] = _mamba_layer_init(gen, cfg, dtype, dev,
+                                                   (trailing,))
+        ones = dict(dtype=dtype, device=dev)
+        params["shared_attn"] = {
+            "attn": _attn_init(gen, cfg, dtype, dev),
+            "mlp": _mlp_init(gen, cfg, dtype, dev),
+            "ln1": torch.ones((cfg.d_model,), **ones),
+            "ln2": torch.ones((cfg.d_model,), **ones),
+        }
+    else:  # dense / moe / vlm / audio share the dense-stack structure
+        params["layers"] = _dense_layer_init(gen, cfg, dtype, dev, (L,))
+    return params
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The params tree on the ``meta`` device: shapes and dtypes, no
+    allocation (the reference's ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(cfg, None, "meta")
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Any:
+    """Zeroed decode caches, stacked per layer as the reference's (real
+    zeros: decode writes each layer's slice in place)."""
+    dev = _device(device)
+    dtype = cfg.dtype
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    # SWA needs only the last `window` tokens → ring buffer (attention.py)
+    eff_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window > 0
+               else max_len)
+
+    def attn_cache(lead):
+        shape = (*lead, batch, eff_len, hkv, dh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    if cfg.family == "ssm":
+        return {"layers": ssm.mamba2_cache_init(cfg, batch, dtype, dev,
+                                                (cfg.num_layers,))}
+    if cfg.family == "hybrid":
+        n_sites = cfg.num_layers // cfg.attn_every
+        trailing = cfg.num_layers - n_sites * cfg.attn_every
+        cache = {
+            "layers": ssm.mamba2_cache_init(cfg, batch, dtype, dev,
+                                            (n_sites, cfg.attn_every)),
+            "shared": attn_cache((n_sites,)),
+        }
+        if trailing:
+            cache["trailing"] = ssm.mamba2_cache_init(cfg, batch, dtype, dev,
+                                                      (trailing,))
+        return cache
+    return {"layers": attn_cache((cfg.num_layers,))}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The cache tree on the ``meta`` device (the reference's
+    ``jax.eval_shape`` of ``init_cache``)."""
+    return init_cache(cfg, batch, max_len, "meta")
+
+
+# ---------------------------------------------------------------------------
+# Stack apply
+# ---------------------------------------------------------------------------
+
+def run_stack(cfg: ModelConfig, params, h: torch.Tensor, cache=None,
+              pos: Optional[int] = None):
+    """h: [B, S, D] embeddings → (h, cache, aux). ``cache`` (updated in
+    place) and ``pos`` (a Python int) for prefill/decode."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            c_i = None if cache is None else _at(cache["layers"], i)
+            h, _ = _mamba_layer(cfg, _at(params["layers"], i), h, c_i)
+        return h, cache, aux_total
+
+    if cfg.family == "hybrid":
+        n_sites = cfg.num_layers // cfg.attn_every
+        trailing = cfg.num_layers - n_sites * cfg.attn_every
+        for site in range(n_sites):
+            for j in range(cfg.attn_every):
+                c_j = (None if cache is None
+                       else _at(_at(cache["layers"], site), j))
+                h, _ = _mamba_layer(
+                    cfg, _at(_at(params["layers"], site), j), h, c_j)
+            sh = None if cache is None else _at(cache["shared"], site)
+            h, _ = _shared_block(cfg, params["shared_attn"], h, sh, pos)
+        for i in range(trailing):
+            c_i = None if cache is None else _at(cache["trailing"], i)
+            h, _ = _mamba_layer(cfg, _at(params["trailing"], i), h, c_i)
+        return h, cache, aux_total
+
+    # dense / moe / vlm / audio
+    for i in range(cfg.num_layers):
+        c_i = None if cache is None else _at(cache["layers"], i)
+        h, _, a = _dense_layer(cfg, _at(params["layers"], i), h, c_i, pos)
+        if a is not None:
+            aux_total = aux_total + a
+    return h, cache, aux_total

@@ -161,3 +161,15 @@ def test_fig_tree_device_plans_small_k():
     assert depth[0] == k and max(depth[1:]) < k
     assert all(float(r[5].split()[1]) > 0 for r in rows)
     assert all(r[6].strip().startswith("measured") for r in rows)
+
+
+def test_serve_decode_example():
+    """The twin of ``examples/serve_decode.py`` on the CPU: mixtral SMOKE's
+    32-slot SWA ring (2 layers × K and V × batch 2 × 2 heads × 16, f32),
+    decoded past the window."""
+    out = _load("examples", "torch_serve_decode").main(
+        ["--device", "cpu", "--batch", "2", "--prompt-len", "32",
+         "--gen", "8"])
+    assert out["tokens"].shape == (2, 8)
+    assert out["cache_bytes"] == 2 * 2 * 2 * 32 * 2 * 16 * 4
+    assert out["step_ms"] > 0

@@ -20,6 +20,9 @@ function. The four kernels that take a global mask are held the same way
 in its cohort-shared ``[B, d]`` form (``gmask_cohorts=B``), with cohort
 rows that do not start on a 16-byte boundary (b·d % 4 ≠ 0), straggler and
 ``valid == 0`` lanes, and a ``ValueError`` where B does not divide W.
+The LM serving path (plain PyTorch, no kernel of its own) runs each SMOKE
+architecture and one full-width phi4-mini layer on the card against the
+CPU in float32.
 """
 
 import math
@@ -1212,3 +1215,82 @@ def test_sharded_tau_search_on_the_card(cuda, impl):
                 == shards * rounds)
     for a, b in zip(want, got):
         _same_t(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (plain PyTorch on the card; no kernel of its own)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """Full-f32 products on the card, as in the reference."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def _lm_close(got, want, tol):
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", [
+    "granite-34b", "codeqwen1.5-7b", "glm4-9b", "phi4-mini-3.8b",
+    "mixtral-8x7b", "llama4-scout-17b-a16e", "zamba2-1.2b",
+    "internvl2-26b", "mamba2-130m", "musicgen-medium"])
+def test_lm_smoke_arch_on_the_card_equals_the_cpu(cuda, no_tf32, arch):
+    """Each SMOKE architecture in float32 from one generator's weights:
+    ``forward``, ``prefill`` of all tokens but the last and ``decode_step``
+    of the last (logits and caches) on the card = on the CPU to rtol =
+    atol = 1e-3; on the card prefill and decode = ``forward`` to the
+    reference test's 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    cfg = get_config(arch, smoke=True)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev, p in (("cpu", p_cpu),
+                   (cuda, tree_map(lambda a: a.to(cuda), p_cpu))):
+        t = toks.to(dev)
+        with torch.inference_mode():
+            lo, aux = lm.forward(cfg, p, t)
+            cache = lm.init_cache(cfg, 2, 16, dev)
+            last, cache = lm.prefill(cfg, p, t[:, :-1], cache)
+            step, cache = lm.decode_step(cfg, p, cache, t[:, -1], 11)
+        out[str(dev)] = (lo, aux, last, step, tree_leaves(cache))
+    card, cpu = out[str(cuda)], out["cpu"]
+    for a, b in zip(card[:4] + tuple(card[4]), cpu[:4] + tuple(cpu[4])):
+        _lm_close(a, b, 1e-3)
+    _lm_close(card[2], card[0][:, -2], 2e-2)
+    _lm_close(card[3], card[0][:, -1], 2e-2)
+
+
+def test_lm_full_width_phi4_layer_on_the_card_equals_the_cpu(cuda, no_tf32):
+    """One phi4-mini-3.8b layer at full width in float32 (3072 wide, 24
+    query and 8 KV heads of 128, an 8192-wide SwiGLU) on 2 × 32 tokens:
+    the card = the CPU to rtol = atol = 1e-4, and decode into its cache =
+    the layer's own forward."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer import tree_map
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), num_layers=1,
+                              param_dtype="float32")
+    p_card = tr._dense_layer_init(
+        torch.Generator(device=cuda).manual_seed(0), cfg, torch.float32,
+        cuda)
+    p_cpu = tree_map(lambda a: a.cpu(), p_card)
+    h = torch.randn((2, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        want, _, _ = tr._dense_layer(cfg, p_cpu, h)
+        got, _, _ = tr._dense_layer(cfg, p_card, h.to(cuda))
+        cache = {k: torch.zeros((2, 32, 8, 128), device=cuda)
+                 for k in ("k", "v")}
+        tr._dense_layer(cfg, p_card, h[:, :31].to(cuda), cache)
+        step, _, _ = tr._dense_layer(cfg, p_card, h[:, 31:].to(cuda), cache,
+                                     31)
+    _lm_close(got, want, 1e-4)
+    _lm_close(step[:, 0], got[:, 31], 1e-4)

@@ -337,3 +337,33 @@ def test_ring_modules_import_no_jax(module):
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_lm_serving_entry_points_raise_where_there_is_no_card():
+    """The LM stack runs on the card unless asked for the CPU: params,
+    caches, stubs, the converted reference trees, ``generate`` and the
+    serve CLI raise without one; the meta-device specs need no device."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = get_config("mamba2-130m", smoke=True)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_params({"x": np.zeros(2, np.float32)})
+    params = lm.init_params(cfg, gen, "cpu")
+    prompts = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.generate(cfg, params, prompts, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--gen", "2"])
+    assert lm.param_specs(cfg)["embed"].is_meta
+    assert lm.cache_specs(cfg, 1, 4)["layers"]["state"].is_meta
+    out = serve.generate(cfg, params, prompts, 2, "cpu")
+    assert out.tokens.device.type == "cpu" and out.tokens.shape == (1, 2)
