@@ -180,7 +180,31 @@ Phases (any failure exits non-zero and prints no result):
    = atol = 1e-4; (d) prefill ms, decode ms per step (median after 2
    warm-up steps), tokens/s, weight and cache bytes, peak device memory,
    the step's bound (weight + cache bytes over 3.35 TB/s) and its share,
-   and torch.profiler's device ops and busy time of one decode step.
+   and torch.profiler's device ops and busy time of one decode step;
+12. LM training (``train.step.build_train_step``: autograd through the
+   models, the rotated-segment lowering with the level kernels per model
+   column, the flat AdamW) — (a) every SMOKE family (dense, MoE, SSM,
+   hybrid) in float32 on ranks of ``cuda:0``: CL-SIA and CL-TC-SIA
+   (threshold, hist) on 4 × 1 and 2 × 2 meshes, the ``"hierarchical"``
+   plan on 2 × 2 × 1 and ``cohorts=2``, 3 steps with a straggler, each
+   step from the CPU's state: the whole card step's loss = the CPU's to
+   rtol 1e-5 (exact Top-Q: also bits and nnz equal, the transmitted
+   support equal but for swaps at ties, master and params to 1e-4), and
+   phases 2–3 on the card fed the CPU's gradient columns: EF, stage EF,
+   ``tcs_prev``, bits and nnz bit for bit, the optimizer to 1e-6; each
+   step launches the level kernels as often as its plan has levels per
+   column; (b) phi4-mini-3.8b at full widths (depth cut, ``TRAIN_FULL_WHY``)
+   in bf16 with the launcher's ``TrainConfig`` defaults on 2 × 2 ranks of
+   ``cuda:0``, batch 8 × 512 random tokens: 5 CL-SIA (exact) steps, then 5
+   CL-TC-SIA (threshold scan) steps; the loss finite, CL-SIA's bits = the
+   §V closed form every step, the launches as predicted (``count_ge`` for
+   the TCS τ_G scan), the peak memory under 80 GB; (c) ``launch/train``
+   for mamba2-130m (24 layers) on ``--mesh 4x1 --device cuda:0``, 6 steps
+   with a checkpoint every 3, then a resume to step 8: "resumed from step
+   6", the restored state = the saved arrays bit for bit; (d) for (b) and
+   (c) the step ms (median after a warm-up step, host clock after a
+   synchronize), phase 2's ms and share, torch.profiler's device ops and
+   busy ms per step, and the peak memory.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -3571,6 +3595,701 @@ def serve_path() -> dict:
     return dict(smoke=smoke, layers=layers, served=rows)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: LM training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = {"dense": "codeqwen1.5-7b", "moe": "mixtral-8x7b",
+                  "ssm": "mamba2-130m", "hybrid": "zamba2-1.2b"}
+TRAIN_HIST = dict(topq_impl="threshold", tau_impl="hist", hist_rounds=2)
+# (label, mesh, kind, AggConfig keywords, topology, cohorts)
+TRAIN_SMOKE = (
+    ("cl_sia 4x1", (4, 1), "cl_sia", {}, None, 1),
+    ("cl_sia 2x2", (2, 2), "cl_sia", {}, None, 1),
+    ("cl_tc_sia hist 4x1", (4, 1), "cl_tc_sia", TRAIN_HIST, None, 1),
+    ("cl_tc_sia hist 2x2", (2, 2), "cl_tc_sia", TRAIN_HIST, None, 1),
+    ("cl_sia hierarchical 2x2x1", (2, 2, 1), "cl_sia", {}, "hierarchical",
+     1),
+    ("cl_sia cohorts=2 4x1", (4, 1), "cl_sia", {}, None, 2),
+)
+TRAIN_SMOKE_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-5             # (a) card = CPU: the loss
+TRAIN_STATE_RTOL = 1e-3            # (a) the step's change of master and
+                                   # params, of that change's own scale
+TRAIN_TIE_GAP = 1e-5               # (a) a support swap must be a tie
+TRAIN_OPT_RTOL = 1e-6              # (a) phase 3 on the card = the CPU
+# (b) full width: phi4-mini at its published widths, depth cut for memory
+TRAIN_FULL_ARCH = "phi4-mini-3.8b"
+TRAIN_FULL_LAYERS = 2
+TRAIN_FULL_MESH = (2, 2)
+TRAIN_FULL_WHY = ("num_layers 32 -> 2: the f32 master and AdamW moments, "
+                  "bf16 EF and gradient columns and the aggregation's "
+                  "working set take about 75 bytes a parameter, and the "
+                  "200,064 x 3,072 tied embedding alone is 0.61 B "
+                  "parameters; with 4 layers (1.017 B) the run peaked at "
+                  "73.3 GB (CL-SIA) and 78.9 GB (CL-TC-SIA), above the 72 "
+                  "GB this phase allows itself, and as data 4 x model 1 it "
+                  "ran out of the card's 80 GB; the 4 ranks are data 2 x "
+                  "model 2")
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_FULL_STEPS = 5
+TRAIN_WARM = 1                     # steps left out of the median
+TRAIN_PROFILE_STEPS = 2
+TRAIN_PEAK_LIMIT = 80e9
+# (c) the CLI at full width
+CLI_ARCH, CLI_MESH, CLI_STEPS, CLI_EVERY, CLI_RESUME = (
+    "mamba2-130m", "4x1", 6, 3, 2)
+
+
+def train_launches(step) -> dict:
+    """Kernel launches of one train step, predicted from its plan: per
+    model column (all tenants at once), one level step per level (Σ over
+    stages for a nested plan), τ rounds per level under threshold Top-Q,
+    and the TCS τ_G scan's ``count_ge`` rounds on each column's shard."""
+    from repro_torch.core.algorithms import AggKind
+
+    cfg = step.agg_cfg
+    levels = (sum(s.shape[0] for s in step.nested.stages)
+              if step.nested is not None else step.plan.shape[0]) * step.m
+    if cfg.kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
+        out = {"cl_fuse_level": levels}
+    else:
+        out = {"sparsify_ef_level": levels, "chain_accum_level": levels}
+    if cfg.topq_impl == "threshold" and cfg.tau_impl == "hist":
+        out["hist_topq_level"] = levels
+    elif cfg.topq_impl == "threshold":
+        out["count_ge_fused_level"] = levels * cfg.hist_rounds
+    if step.needs_tcs and cfg.tau_impl == "scan":
+        out["count_ge"] = step.m * cfg.hist_rounds * step.cohorts
+    return out
+
+
+def launch_counts(level, topq_threshold) -> dict:
+    """Every kernel's launch count (the level kernels and ``count_ge``)."""
+    counts = {fn.__name__.replace("_cuda", ""): fn.launches
+              for fn in level.KERNELS}
+    counts["count_ge"] = topq_threshold.count_ge_cuda.launches
+    return counts
+
+
+def grown(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] - before[k]}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
+
+
+def support_swaps(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(swapped coordinates, worst relative gap): ``ef == 0`` marks the
+    transmitted support; per EF row the coordinates kept by one side alone
+    must pair up with equal left-behind magnitudes (a tie at the Q-th
+    magnitude); an unpaired difference is an infinite gap."""
+    got = got.float().cpu().reshape(-1, got.shape[-1])
+    want = want.float().cpu().reshape(-1, want.shape[-1])
+    swaps, worst = 0, 0.0
+    for k in range(got.shape[0]):
+        a = want[k][(got[k] == 0) & (want[k] != 0)].abs().sort().values
+        b = got[k][(want[k] == 0) & (got[k] != 0)].abs().sort().values
+        if not (a.numel() or b.numel()):
+            continue
+        swaps += a.numel()
+        worst = max(worst, math.inf if a.numel() != b.numel() else
+                    float((a - b).abs().max() / a.max()))
+    return swaps, worst
+
+
+def train_close(card, cpu, rtol: float,
+                keys=("master", "params")) -> tuple:
+    """(within, max |card − cpu| over max |cpu|) of the named state
+    fields: within means every element within rtol·|cpu| + rtol·max
+    |cpu|."""
+    from repro_torch.models.transformer import tree_leaves
+
+    ok, worst = True, 0.0
+    pairs = []
+    for key in keys:
+        a, b = getattr(card, key), getattr(cpu, key)
+        if key == "opt":
+            pairs += [(x, y) for x, y in zip(a[1:], b[1:]) if y is not None]
+        elif isinstance(b, dict):
+            pairs += list(zip(tree_leaves(a), tree_leaves(b)))
+        else:
+            pairs.append((a, b))
+    for a, b in pairs:
+        a, b = a.float().cpu(), b.float()
+        scale = float(b.abs().max()) or 1.0
+        err = (a - b).abs()
+        ok &= not bool((err > rtol * b.abs() + rtol * scale).any())
+        worst = max(worst, float(err.max()) / scale)
+    return ok, worst
+
+
+def loose_coordinates(step, old, card, cpu) -> dict:
+    """Where the card step's update may rightly differ from the CPU's by
+    up to a step, as bool tensors by key path (``.master`` and each
+    ``.params/…`` leaf, flat coordinates mapped through the step's
+    downlink): a support swap at a tie (``ef == 0`` differs in some
+    client's EF row, or under AdamW the aggregate's support differs: the
+    first moment left its decay ``b1·m`` on one side only, a tie at any
+    stage of the plan), and under AdamW ``0 < √v̂ < 1e3·eps`` in the CPU's
+    new second moment, where ``m̂ / (√v̂ + eps)`` turns a last-bit
+    difference of a gradient near zero into a change of its own size."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    flat = ((card.ef.cpu() == 0) != (cpu.ef == 0)).any(dim=-2)
+    opt = step.tc.opt
+    if opt.name == "adamw":
+        decayed = old.opt.m * torch.tensor(opt.b1, dtype=torch.float32)
+        flat = flat | ((card.opt.m.cpu() != decayed)
+                       != (cpu.opt.m != decayed))
+        t = cpu.opt.step.double()
+        t = t[:, None] if t.dim() else t
+        v = cpu.opt.v.double()
+        root = (v / (1 - opt.b2 ** t)).sqrt()
+        flat = flat | ((v > 0) & (root < 1e3 * opt.eps))
+    rows = flat.float().reshape(-1, flat.shape[-1])
+    trees = [_flatten_with_paths(step.downlink(r)) for r in rows]
+    out = {".master": flat}
+    for i, (parts, _) in enumerate(trees[0]):
+        leaves = [t[i][1] for t in trees]
+        leaf = leaves[0] if flat.dim() == 1 else torch.stack(leaves)
+        out["/".join((".params",) + parts)] = leaf != 0
+    return out
+
+
+def train_step_error(step, old, card, cpu, slack: float) -> float:
+    """How far the card step's change of master and params (``card −
+    old``) is from the CPU's (``cpu − old``): the largest ``|Δcard −
+    Δcpu| / (|Δcpu| + max |Δcpu|)`` over every leaf, counting only
+    coordinates where the difference exceeds ``2·eps_f32·|cpu|`` (the
+    roundings of the two new values) and, at the coordinates of
+    :func:`loose_coordinates`, ``slack``. A missing update or one of the
+    wrong sign gives about 1 or more."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    def leaves(state):
+        return {"/".join(p): x.detach().cpu().double()
+                for p, x in _flatten_with_paths(state)
+                if p[0] in (".master", ".params")}
+
+    loose = loose_coordinates(step, old, card, cpu)
+    o, a, b = leaves(old), leaves(card), leaves(cpu)
+    worst = 0.0
+    for key, want in b.items():
+        d_card, d_cpu = a[key] - o[key], want - o[key]
+        err = (d_card - d_cpu).abs()
+        free = (2 * torch.finfo(torch.float32).eps * want.abs()
+                + slack * loose[key])
+        scale = d_cpu.abs() + d_cpu.abs().max()
+        over = err > free
+        if bool(over.any()):
+            worst = max(worst, float((err[over] / scale[over].clamp(
+                min=1e-300)).max()))
+    return worst
+
+
+def train_state_diff(a, b) -> list:
+    """Key paths where two train states differ in any bit."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    la, lb = _flatten_with_paths(a), _flatten_with_paths(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["structure"]
+    return ["/".join(p) for (p, x), (_, y) in zip(la, lb)
+            if not bitwise_equal(x.cpu(), y.cpu())]
+
+
+def train_smoke(level, topq_threshold) -> dict:
+    """(a): every SMOKE family, f32, on ranks of ``cuda:0`` against the
+    same ranks on the CPU, each step from the CPU's state before it: the
+    whole step on the card (its launches counted) to tolerances, and
+    phases 2–3 on the card fed the CPU's gradient columns bit for bit (a
+    comparison: its launches are taken back out of the counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+    from repro_torch.train.state import state_to
+
+    t0 = time.perf_counter()
+    worst = dict(loss=0.0, state=0.0, swaps=0, gap=0.0, err_sq=0.0)
+    runs = 0
+    for family, arch in TRAIN_FAMILIES.items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  param_dtype="float32")
+        for label, shape, kind, agg, topo, coh in TRAIN_SMOKE:
+            tc = TrainConfig(agg=AggConfig(kind=AggKind(kind), q=1, **agg),
+                             q_frac=0.05, agg_dtype="float32",
+                             ef_dtype="float32")
+            axes = (("pod", "data", "model") if len(shape) == 3
+                    else ("data", "model"))
+            n = math.prod(shape)
+            steps = {d: build_train_step(
+                cfg, tc, make_mesh(shape, axes, [d] * n), topology=topo,
+                cohorts=coh) for d in ("cpu", "cuda:0")}
+            cpu_step, card_step = steps["cpu"], steps["cuda:0"]
+            k_dp = cpu_step.k_dp
+            st = init_state(cfg, tc, make_mesh(shape, axes, ["cpu"] * n),
+                            torch.Generator().manual_seed(SEED),
+                            topology=topo, cohorts=coh)
+            gen = torch.Generator().manual_seed(SEED + 1)
+            for s in range(TRAIN_SMOKE_STEPS):
+                toks = torch.randint(0, cfg.vocab_size,
+                                     ((coh,) if coh > 1 else ()) + (8, 16),
+                                     generator=gen)
+                part = [1.0] * k_dp
+                part[-1] = 0.0 if s == 1 else 1.0
+                batch = {"tokens": toks, "labels": toks.roll(-1, -1),
+                         "participate": torch.tensor(part)}
+                what = f"{family} {label} step {s}"
+                # the whole step on the card, launches counted
+                before = launch_counts(level, topq_threshold)
+                card, mc = card_step(state_to(st, "cuda"),
+                                     {k: v.cuda() for k, v in batch.items()})
+                torch.cuda.synchronize()
+                got = grown(before, launch_counts(level, topq_threshold))
+                want = train_launches(card_step)
+                if got != want:
+                    raise SystemExit(f"FAIL [train] {what}: launches {got}, "
+                                     f"predicted {want}")
+                # the CPU step
+                plain, w, p = cpu_step.round_inputs(batch)
+                cols, loss = cpu_step.phase1(st, plain)
+                new, m = cpu_step.finish(st, cols, loss, w, p)
+                loss_rel = float(((mc["loss"].cpu() - m["loss"]).abs()
+                                  / m["loss"].abs()).max())
+                if loss_rel > TRAIN_LOSS_RTOL:
+                    raise SystemExit(f"FAIL [train] {what}: loss rel "
+                                     f"{loss_rel:.3e}")
+                worst["loss"] = max(worst["loss"], loss_rel)
+                if tc.agg.topq_impl == "exact":
+                    # one function of the gradients up to ties: the same
+                    # support but for tied swaps, the same bits
+                    swaps, gap = support_swaps(card.ef, new.ef)
+                    for a, b in zip(card.stage_ef or (), new.stage_ef or ()):
+                        more, g = support_swaps(a, b)
+                        swaps, gap = swaps + more, max(gap, g)
+                    same = all(torch.equal(mc[k].cpu(), m[k])
+                               for k in ("agg_bits", "agg_nnz"))
+                    err = train_step_error(
+                        cpu_step, st, card, new,
+                        3 * tc.opt.lr * float(m["lr_scale"].max()))
+                    if not (same and err <= TRAIN_STATE_RTOL
+                            and gap <= TRAIN_TIE_GAP):
+                        raise SystemExit(
+                            f"FAIL [train] {what}: bits/nnz equal {same}, "
+                            f"support swaps {swaps} with gap {gap:.3e}, "
+                            f"the step's change of master/params off by "
+                            f"{err:.3e} of its scale")
+                    worst["state"] = max(worst["state"], err)
+                    worst["swaps"] += swaps
+                    worst["gap"] = max(worst["gap"], gap)
+                # phases 2-3 on the card from the CPU's columns: phase 2's
+                # outputs bit for bit, phase 3's elementwise optimizer to
+                # TRAIN_OPT_RTOL (torch's CPU and CUDA kernels round its
+                # float32 arithmetic apart in the last bits)
+                counts = [fn.launches for fn in level.KERNELS]
+                c_ge = topq_threshold.count_ge_cuda.launches
+                card2, mc2 = card_step.finish(
+                    state_to(st, "cuda"),
+                    [[c.cuda() for c in row] for row in cols], loss.cuda(),
+                    w, p)
+                torch.cuda.synchronize()
+                for fn, c in zip(level.KERNELS, counts):
+                    fn.launches = c
+                topq_threshold.count_ge_cuda.launches = c_ge
+                diff = [k for k in train_state_diff(card2, new)
+                        if k.split("/")[0] in (".ef", ".stage_ef",
+                                               ".tcs_prev", ".step")]
+                diff += [k for k in ("agg_bits", "agg_nnz")
+                         if not bitwise_equal(mc2[k].cpu(), m[k])]
+                e_rel = float(((mc2["agg_err_sq"].cpu() - m["agg_err_sq"])
+                               .abs() / m["agg_err_sq"].abs().clamp(
+                                   min=1e-30)).max())
+                opt_ok, opt_err = train_close(card2, new, TRAIN_OPT_RTOL,
+                                              keys=("master", "opt",
+                                                    "params"))
+                if diff or e_rel > 1e-6 or not opt_ok:
+                    raise SystemExit(f"FAIL [train] {what}: phases 2-3 on "
+                                     f"the card from the CPU's gradients "
+                                     f"differ in {diff}, err_sq rel "
+                                     f"{e_rel:.3e}, optimizer state "
+                                     f"{opt_err:.3e} of scale")
+                worst["opt"] = max(worst.get("opt", 0.0), opt_err)
+                worst["err_sq"] = max(worst["err_sq"], e_rel)
+                st = new
+            runs += 1
+    log(f"[train] (a) {runs} SMOKE runs (4 families x {len(TRAIN_SMOKE)} "
+        f"forms: CL-SIA and CL-TC-SIA threshold hist on 4x1 and 2x2, the "
+        f"hierarchical plan on 2x2x1, cohorts=2), f32, {TRAIN_SMOKE_STEPS} "
+        f"steps each with a straggler in step 1, each from the CPU's state: "
+        f"the whole step on the card = the CPU's, loss max rel "
+        f"{worst['loss']:.3e} (limit {TRAIN_LOSS_RTOL}); exact Top-Q also "
+        f"bits and nnz equal, {worst['swaps']} support coordinates swapped "
+        f"at ties (gap {worst['gap']:.3e}), the step's change of "
+        f"master/params = the CPU's to {worst['state']:.3e} of its scale "
+        f"(limit {TRAIN_STATE_RTOL}; 3 optimizer steps of slack only where "
+        f"a tie swapped the support or AdamW's sqrt(v_hat) < 1e3 eps); "
+        f"phases 2-3 on the card "
+        f"fed the CPU's gradients: EF, stage EF, tcs_prev, bits and nnz = "
+        f"the CPU bit for bit, err_sq max rel {worst['err_sq']:.3e}, "
+        f"master, moments and params max {worst.get('opt', 0.0):.3e} of "
+        f"scale (limit {TRAIN_OPT_RTOL}); launches = the plan's "
+        f"levels per column every step ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def cl_sia_step_bits(step) -> tuple:
+    """(§V closed form of one CL-SIA step, the same in the lowering's
+    float32 order): every (rank, column) sends q (value, index) pairs in
+    each of its K_dp ring levels; a lane's bits are fl((ω + ⌈log₂ seg⌉)·q),
+    a rank adds its levels in order, the step sums ranks pairwise."""
+    from repro_torch.agg.device import _slot_sum
+    from repro_torch.core import comm_cost as cc
+
+    k, m, seg, q = step.k_dp, step.m, step.seg, step.agg_cfg.q
+    exact = k * m * cc.cl_sia_bits(k, seg, q, step.agg_cfg.omega)
+    lane = (step.agg_cfg.omega + cc.idx_bits(seg)) * torch.tensor(
+        float(q), dtype=torch.float32)
+    acc = torch.zeros((), dtype=torch.float32)
+    for _ in range(k):
+        acc = acc + lane
+    return exact, float(_slot_sum(acc.expand(k * m).clone()))
+
+
+def time_phase2(step, log_ms: list):
+    """Wrap ``step.aggregate`` so each call's time (a synchronize on both
+    sides) lands in ``log_ms``."""
+    inner = step.aggregate
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        log_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    step.aggregate = timed
+
+
+def full_width_equals_plain(level, topq_threshold, step, state,
+                            batch) -> dict:
+    """Model column 0 of one full-width step's phase 2, on the step's own
+    gradient columns, through the lowering twice on the card: with the
+    kernels, and with their plain versions on the same inputs
+    (``kernel_mode="ref"``, ``ref.ref_*_level``); the outputs, EF, bits
+    and nnz bit for bit, ``err_sq`` to rel 1e-6. With the TCS mask,
+    ``count_ge`` also against its plain version on the column's Δ at 64
+    thresholds. These launches are comparisons: they are taken back out
+    of the counts."""
+    from repro_torch.agg.device import run_plan_segments_local
+    from repro_torch.kernels import ref
+    from repro_torch.models.transformer import tree_leaves
+
+    t0 = time.perf_counter()
+    counts = [fn.launches for fn in level.KERNELS]
+    c_ge = topq_threshold.count_ge_cuda.launches
+    torch.cuda.reset_peak_memory_stats()
+    plain, w, p = step.round_inputs(batch)
+    cols, _ = step.phase1(state, plain)
+    flat = [row[0] for row in cols]
+    del cols
+    n, k_dp = step.layout.n_local, step.k_dp
+    ef = [state.ef[k, :n] for k in range(k_dp)]
+    gm, what = None, f"{step.cfg.name} {step.agg_cfg.kind.value}"
+    out = dict(lanes=[k_dp, step.seg], column=n)
+    if step.needs_tcs:
+        gm = [step.tcs_masks(state.params, state.tcs_prev)[0]] * k_dp
+        delta = (step.layout.local_flatten(tree_leaves(state.params), 0,
+                                           torch.float32)
+                 - step.layout.local_flatten(tree_leaves(state.tcs_prev), 0,
+                                             torch.float32))
+        taus = (delta.abs().max() * torch.pow(2.0, -torch.linspace(
+            0.0, 24.0, 64, device=delta.device))).float()
+        got = topq_threshold.count_ge_cuda(delta, taus)
+        want = ref.ref_count_ge(delta, taus)
+        if not torch.equal(got, want):
+            raise SystemExit(f"FAIL [train] {what}: count_ge on the column's "
+                             f"Δ [{delta.numel()}] differs from its plain "
+                             f"version")
+        out["count_ge"] = dict(d=delta.numel(), taus=64,
+                               nonzero_delta=int((delta != 0).sum()))
+        del delta, got, want
+    runs = [run_plan_segments_local(
+        dataclasses.replace(step.agg_cfg, kernel_mode=mode), step.plan,
+        step.col_meshes[0], flat, ef, w, global_mask=gm, participate=p,
+        transport="static") for mode in ("auto", "ref")]
+    torch.cuda.synchronize()
+    kernel_runs = {fn.__name__.replace("_cuda", ""): fn.launches - c
+                   for fn, c in zip(level.KERNELS, counts)
+                   if fn.launches - c}
+    for fn, c in zip(level.KERNELS, counts):
+        fn.launches = c
+    topq_threshold.count_ge_cuda.launches = c_ge
+    same, rel = segments_equal(runs[0], runs[1], exact_err=False)
+    if not same:
+        raise SystemExit(f"FAIL [train] {what}: column 0's phase 2 through "
+                         f"the kernels differs from their plain versions "
+                         f"(err_sq rel {rel:.3e})")
+    out.update(kernels=kernel_runs, err_sq_rel=rel,
+               nnz=[float(s.nnz) for s in runs[0][2]],
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               seconds=time.perf_counter() - t0)
+    log(f"[train] {what} at full width: column 0's phase 2 on lanes "
+        f"[{k_dp}, {step.seg}] through {kernel_runs} = their plain versions "
+        f"on the card bit for bit (outputs, EF, bits, nnz; err_sq rel "
+        f"{rel:.3e}); "
+        + (f"count_ge on the column's Δ [{n}] at 64 thresholds = its "
+           f"plain version; " if step.needs_tcs else "")
+        + f"peak {out['peak_bytes'] / 1e9:.3f} GB "
+        f"({out['seconds']:.1f} s)")
+    del runs, flat, ef, gm
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full(level, topq_threshold, card: str) -> list:
+    """(b) and (d): phi4-mini at full width, bf16, the launcher's
+    TrainConfig defaults, random tokens; 5 CL-SIA (exact) steps, then 5
+    CL-TC-SIA (threshold scan) steps from that state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+
+    cfg = dataclasses.replace(get_config(TRAIN_FULL_ARCH),
+                              num_layers=TRAIN_FULL_LAYERS)
+    axes = ("data", "model")
+    mesh = make_mesh(TRAIN_FULL_MESH, axes,
+                     ["cuda:0"] * math.prod(TRAIN_FULL_MESH))
+    tc = TrainConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, tc, mesh,
+                       torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows, measured = [], {}
+    for kind, agg in (("cl_sia", {}),
+                      ("cl_tc_sia", dict(topq_impl="threshold"))):
+        tc_k = dataclasses.replace(
+            tc, agg=AggConfig(kind=AggKind(kind), q=1, **agg))
+        step = build_train_step(cfg, tc_k, mesh)
+        if step.needs_tcs and state.tcs_prev is None:
+            state = state._replace(tcs_prev=tree_map(
+                lambda p: p.to(step.agg_dt), state.params))
+        phase2: list = []
+        time_phase2(step, phase2)
+        want = train_launches(step)
+        exact, f32_bits = cl_sia_step_bits(step)
+        ms, losses, bits = [], [], []
+
+        def one(state):
+            toks = torch.randint(0, cfg.vocab_size,
+                                 (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                 generator=gen, device="cuda")
+            return step(state, {"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:]})
+
+        for i in range(TRAIN_FULL_STEPS):
+            before = launch_counts(level, topq_threshold)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = one(state)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            got = grown(before, launch_counts(level, topq_threshold))
+            if got != want:
+                raise SystemExit(f"FAIL [train] {cfg.name} {kind} step {i}: "
+                                 f"launches {got}, predicted {want}")
+            losses.append(float(m["loss"]))
+            bits.append(float(m["agg_bits"]))
+            if not math.isfinite(losses[-1]):
+                raise SystemExit(f"FAIL [train] {cfg.name} {kind}: loss "
+                                 f"{losses[-1]}")
+            if kind == "cl_sia" and bits[-1] != f32_bits:
+                raise SystemExit(f"FAIL [train] {cfg.name} CL-SIA bits "
+                                 f"{bits[-1]} differ from the closed form "
+                                 f"{f32_bits} (exact {exact})")
+        holder = [state]
+
+        def steps():
+            for _ in range(TRAIN_PROFILE_STEPS):
+                holder[0], _ = one(holder[0])
+
+        prof = profile_calls(f"{cfg.name} {kind} train step", steps,
+                             TRAIN_PROFILE_STEPS)
+        state = holder[0]
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = statistics.median(ms[TRAIN_WARM:])
+        p2 = statistics.median(phase2[TRAIN_WARM:TRAIN_FULL_STEPS])
+        row = dict(arch=cfg.name, layers=cfg.num_layers,
+                   reduced=TRAIN_FULL_WHY, params=cfg.param_count(),
+                   d_flat=step.layout.d_flat, mesh=list(TRAIN_FULL_MESH),
+                   k_dp=step.k_dp, model_columns=step.m, kind=kind,
+                   topq=step.agg_cfg.topq_impl, q_segment=step.agg_cfg.q,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+                   agg_bits=bits, closed_form_bits=exact,
+                   closed_form_bits_f32=f32_bits, launches_per_step=want,
+                   step_ms=step_ms, step_ms_all=ms, phase2_ms=p2,
+                   phase2_share=p2 / step_ms, profiled_ms=prof[0],
+                   device_busy_ms=prof[1], device_ops=prof[2],
+                   top_kernels=prof[3], peak_bytes=peak)
+        if peak >= TRAIN_PEAK_LIMIT:
+            raise SystemExit(f"FAIL [train] {cfg.name}: peak "
+                             f"{peak / 1e9:.2f} GB")
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                             generator=gen, device="cuda")
+        row["equals_plain"] = full_width_equals_plain(
+            level, topq_threshold, step, state,
+            {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[train] (b) {cfg.name} ({cfg.num_layers} of 32 layers, "
+            f"{cfg.param_count() / 1e9:.3f} B params, d_flat "
+            f"{step.layout.d_flat}; reduced: {TRAIN_FULL_WHY}) {kind} "
+            f"({step.agg_cfg.topq_impl}) on {step.k_dp}x{step.m} ranks of "
+            f"cuda:0, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+            f"{[round(x, 4) for x in losses]}, agg_bits {bits[-1]:.6e}"
+            + (f" = closed form {f32_bits:.6e} (exact {exact:.6e}) every "
+               f"step" if kind == "cl_sia" else "")
+            + f"; launches/step {want}; step {step_ms:.2f} ms (median of "
+            f"{TRAIN_FULL_STEPS - TRAIN_WARM}), phase 2 {p2:.2f} ms "
+            f"({100 * p2 / step_ms:.1f} %); {prof[2]:.0f} device ops, "
+            f"{prof[1]:.2f} ms busy per step; peak {peak / 1e9:.3f} GB; "
+            f"{card}")
+        log("[train] " + json.dumps(row))
+        rows.append(row)
+        del step
+    del state
+    torch.cuda.empty_cache()
+    return rows, launch_counts(level, topq_threshold)
+
+
+def train_cli(level, topq_threshold, card: str) -> dict:
+    """(c) and (d): ``launch/train`` for mamba2-130m at full width, then a
+    resume; the restored state = the saved arrays bit for bit; the same
+    step timed and profiled in-process."""
+    import io
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+    from repro_torch.train.state import abstract_like
+
+    out_dir = Path("build") / "phase12_ckpt"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--arch", CLI_ARCH, "--mesh", CLI_MESH, "--device", "cuda:0",
+            "--ckpt-dir", str(out_dir), "--ckpt-every", str(CLI_EVERY)]
+    t0 = time.perf_counter()
+    texts = []
+    for steps in (CLI_STEPS, CLI_RESUME):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_cli_mod.main(argv + ["--steps", str(steps)])
+        texts.append(buf.getvalue())
+        for line in buf.getvalue().splitlines():
+            log(f"[train] (c) cli: {line}")
+    end = CLI_STEPS + CLI_RESUME
+    if (f"resumed from step {CLI_STEPS}" not in texts[1]
+            or f"checkpointed step {end}" not in texts[1]):
+        raise SystemExit(f"FAIL [train] CLI resume: {texts[1][-500:]}")
+    cfg = get_config(CLI_ARCH)
+    mesh = make_mesh((4, 1), ("data", "model"), ["cuda:0"] * 4)
+    tc = TrainConfig(opt=OptConfig(lr=3e-4))          # the CLI's defaults
+    template = abstract_like(init_state(cfg, tc, mesh,
+                                        torch.Generator(device="cuda")))
+    restored = ckpt.restore(str(out_dir), template, step=CLI_STEPS,
+                            device="cuda")
+    saved = np.load(out_dir / f"step_{CLI_STEPS:08d}" / "leaves.npz")
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    leaves = _flatten_with_paths(restored)
+    for i, (path, leaf) in enumerate(leaves):
+        mine = leaf.float().cpu().numpy() if leaf.is_floating_point() \
+            else leaf.cpu().numpy()
+        if not np.array_equal(mine, saved[f"a{i}"]):
+            raise SystemExit(f"FAIL [train] restored {'/'.join(path)} "
+                             f"differs from the saved array")
+    cli_s = time.perf_counter() - t0
+    # the CLI's step, timed in-process on random tokens
+    step = build_train_step(cfg, tc, mesh)
+    phase2: list = []
+    time_phase2(step, phase2)
+    state = restored
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ms = []
+
+    def one(state):
+        toks = torch.randint(0, cfg.vocab_size, (8, 65), generator=gen,
+                             device="cuda")
+        return step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + 3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = one(state)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    holder = [state]
+
+    def steps():
+        holder[0], _ = one(holder[0])
+
+    # one step: it is host-bound, about 4 s under the profiler
+    prof = profile_calls(f"{cfg.name} CLI train step", steps, 1)
+    step_ms = statistics.median(ms[1:])
+    p2 = statistics.median(phase2[1:4])
+    row = dict(arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+               d_flat=step.layout.d_flat, mesh=[4, 1], batch=8, seq=64,
+               cli_seconds=cli_s, leaves_restored=len(leaves),
+               step_ms=step_ms, phase2_ms=p2, phase2_share=p2 / step_ms,
+               profiled_ms=prof[0], device_busy_ms=prof[1],
+               device_ops=prof[2], top_kernels=prof[3],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    toks = torch.randint(0, cfg.vocab_size, (8, 65), generator=gen,
+                         device="cuda")
+    row["equals_plain"] = full_width_equals_plain(
+        level, topq_threshold, step, holder[0],
+        {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    log(f"[train] (c) {cfg.name} ({cfg.num_layers} layers) via launch/train "
+        f"--mesh {CLI_MESH} --device cuda:0: {CLI_STEPS} steps, checkpoint "
+        f"every {CLI_EVERY}, resumed from step {CLI_STEPS} to {end}; the "
+        f"restored state = the saved arrays bit for bit ({len(leaves)} "
+        f"leaves); step {step_ms:.2f} ms, phase 2 {p2:.2f} ms "
+        f"({100 * p2 / step_ms:.1f} %), {prof[2]:.0f} device ops, "
+        f"{prof[1]:.2f} ms busy per step, peak "
+        f"{row['peak_bytes'] / 1e9:.3f} GB ({cli_s:.1f} s; {card})")
+    log("[train] " + json.dumps(row))
+    del state, holder, restored
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_path(level, topq_threshold) -> dict:
+    """Phase 12: the LM train step on the card. Every launch count is set
+    to 0 before each of the phase's three drives and read after it."""
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    level.reset_launch_counts()
+    train_smoke(level, topq_threshold)
+    total = launch_counts(level, topq_threshold)
+    level.reset_launch_counts()
+    full, counts = train_full(level, topq_threshold, card)
+    total = add_counts(total, counts)
+    level.reset_launch_counts()
+    train_cli(level, topq_threshold, card)
+    total = add_counts(total, launch_counts(level, topq_threshold))
+    log(f"[train] phase 12 launches: {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in total.items() if v}
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -3661,6 +4380,8 @@ def main() -> int:
                                  data).items():
         launches[name] = launches.get(name, 0) + n
     serve_path()
+    for name, n in train_path(level, topq_threshold).items():
+        launches[name] = launches.get(name, 0) + n
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",

@@ -1009,6 +1009,8 @@ def _segment_round(cfg: AggConfig, sched: _SegmentSchedule, compact: bool,
                 lvl = _slot_sum(lvl.view(3, -1, w) * valid.view(-1, w))
             s["acc"] = s["acc"] + lvl
             gout[dev] = out.view(rs.size, nb, w, seg)
+            # free this level's lanes before the next level makes its own
+            del g_l, e_l, m_l, gam, out, e_new, hs, lvl
         if sched.register:
             moved = _deliver(sched, {d: v[:, :, 0] for d, v in gout.items()},
                              sched.chain_routes[li], send_gamma)

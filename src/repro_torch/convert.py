@@ -83,3 +83,33 @@ def agg_plan(plan) -> AggPlan:
                    q_budget=None if qb is None else np.array(qb, np.int32),
                    num_clients=int(plan.num_clients),
                    num_sinks=int(getattr(plan, "num_sinks", 1)))
+
+
+def train_state(state, device: DeviceLike = None):
+    """A train state with ``step``, ``params``, ``master``, ``opt``
+    (``step``/``m``/``v``), ``ef``, ``tcs_prev`` and ``stage_ef``
+    attributes (numpy-convertible leaves, bfloat16 carried through
+    float32) → :class:`~repro_torch.train.state.TrainState` on ``device``,
+    leaf for leaf. Cohort-stacked states keep their leading axis."""
+    from repro_torch.optim.optimizers import FlatOptState
+    from repro_torch.train.state import TrainState
+
+    dev = resolve_device(device)
+
+    def leaf(x):
+        return None if x is None else _tree(x, dev)
+
+    opt = state.opt
+    stage_ef = getattr(state, "stage_ef", None)
+    return TrainState(
+        step=torch.as_tensor(np.array(state.step), dtype=torch.int32,
+                             device=dev),
+        params=_tree(state.params, dev), master=leaf(state.master),
+        opt=FlatOptState(step=torch.as_tensor(np.array(opt.step),
+                                              dtype=torch.int32, device=dev),
+                         m=leaf(opt.m), v=leaf(opt.v)),
+        ef=leaf(state.ef),
+        tcs_prev=None if state.tcs_prev is None else _tree(state.tcs_prev,
+                                                           dev),
+        stage_ef=None if stage_ef is None else tuple(leaf(e)
+                                                     for e in stage_ef))

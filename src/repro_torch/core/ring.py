@@ -21,9 +21,11 @@ returns per-rank lists. The caller sums the per-rank :class:`RingStats`
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import math
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -62,6 +64,57 @@ def rotated_ring_local(cfg, mesh, flat: Sequence[Tensor],
         cfg, ring_chain_plan(mesh.size), mesh, flat, ef, weight,
         global_mask=global_mask, participate=participate,
         transport="static")
+
+
+# ---------------------------------------------------------------------------
+# Flat layout helpers (the naive, unsharded layout)
+# ---------------------------------------------------------------------------
+
+def _leaves(tree: Any) -> list:
+    from repro_torch.models.transformer import tree_leaves
+    return tree_leaves(tree)
+
+
+def _size(leaf) -> int:
+    return int(math.prod(leaf.shape))
+
+
+def padded_flat_dim(tree_or_specs: Any, multiple: int) -> int:
+    """Σ leaf sizes, padded up to ``multiple`` (= model×data×pod sizes).
+    Leaves are tensors (any device, ``meta`` included) or anything with a
+    ``shape``."""
+    total = sum(_size(leaf) for leaf in _leaves(tree_or_specs))
+    return -(-total // multiple) * multiple
+
+
+def flatten_tree(tree: Any, d_pad: int, dtype=torch.float32,
+                 aligned_axis: Optional[Any] = None) -> Tensor:
+    """Dict tree → flat ``[d_pad]`` (row-major per leaf, sorted-key leaf
+    order). ``aligned_axis`` is reserved, as in the reference; ``None``
+    gives the naive layout."""
+    flat = torch.cat([leaf.reshape(-1).to(dtype) for leaf in _leaves(tree)])
+    return F.pad(flat, (0, d_pad - flat.shape[0]))
+
+
+def flatten_stacked(tree: Any, d_pad: int, dtype=torch.float32) -> Tensor:
+    """Tree with a leading stack dim K on every leaf → ``[K, d_pad]``."""
+    leaves = _leaves(tree)
+    k = leaves[0].shape[0]
+    flat = torch.cat([leaf.reshape(k, -1).to(dtype) for leaf in leaves],
+                     dim=1)
+    return F.pad(flat, (0, d_pad - flat.shape[1]))
+
+
+def unflatten_tree(template: Any, flat: Tensor) -> Any:
+    """Inverse of :func:`flatten_tree` (``template`` supplies the keys,
+    shapes and dtypes)."""
+    from repro_torch.core.flat_layout import tree_structure, tree_unflatten
+    out, off = [], 0
+    for leaf in _leaves(template):
+        size = _size(leaf)
+        out.append(flat[off:off + size].reshape(leaf.shape).to(leaf.dtype))
+        off += size
+    return tree_unflatten(tree_structure(template), out)
 
 
 def segment_budget(q_total: int, num_segments: int) -> int:

@@ -1,5 +1,5 @@
-"""Deterministic synthetic MNIST-like data (port of
-:mod:`repro.data.synthetic`'s ``make_synthetic_mnist``).
+"""Deterministic synthetic data (port of :mod:`repro.data.synthetic`):
+an MNIST-like image set and a bigram language model.
 
 A 10-class, 784-dim image-like dataset with MNIST's dimensionality, so the
 paper's d = 7850 logistic regression runs at its real width. Classes are
@@ -52,3 +52,52 @@ def make_synthetic_mnist(seed: int, n: int, *, num_classes: int = 10,
     x = x * (0.7 + 0.6 * rng.random((n, 1)))
     return Dataset(x=torch.as_tensor(x, dtype=torch.float32, device=dev),
                    y=torch.as_tensor(y, dtype=torch.int64, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Synthetic language-model data (a bigram Markov chain)
+# ---------------------------------------------------------------------------
+
+class BigramLM(NamedTuple):
+    trans: Tensor   # [V, V] row-wise transition logits
+
+
+def make_bigram_lm(seed, vocab: int, *, concentration: float = 3.0,
+                   device: DeviceLike = None) -> BigramLM:
+    """Random sparse-ish bigram transition table, fixed by ``seed`` (an
+    int, drawn on ``device`` — the card unless asked — or a
+    ``torch.Generator``, drawn on its device and moved to ``device``);
+    the reference's ``jax.random`` bits are not reproduced — a parity test
+    passes the reference's realized ``trans`` as ``BigramLM(trans=...)``.
+    """
+    dev = resolve_device(device)
+    gen = seed
+    if not isinstance(seed, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    logits = torch.randn((vocab, vocab), generator=gen,
+                         dtype=torch.float32, device=gen.device)
+    return BigramLM(trans=(logits * concentration).to(dev))
+
+
+def sample_bigram(lm: BigramLM, generator: torch.Generator, batch: int,
+                  seq: int) -> Tensor:
+    """Sample token sequences ``[B, S+1]`` (int64) from the bigram chain,
+    on ``lm.trans``'s device; ``generator`` must live there too."""
+    v = lm.trans.shape[0]
+    dev = lm.trans.device
+    tok = torch.randint(0, v, (batch,), generator=generator, device=dev)
+    out = [tok]
+    for _ in range(seq):
+        # one row per sequence: a [V, V] softmax would double the table
+        probs = torch.softmax(lm.trans[tok], dim=-1)
+        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def lm_batch(lm: BigramLM, generator: torch.Generator, batch: int,
+             seq: int) -> dict:
+    """``{"tokens": x[:, :-1], "labels": x[:, 1:]}`` of one sampled
+    ``[B, S+1]`` chain."""
+    toks = sample_bigram(lm, generator, batch, seq)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -10,14 +10,22 @@ mamba layers, so the shared block's KV cache is per-site, not per-layer.
 
 Caches are updated in place: a cache passed to :func:`run_stack` is
 consumed and returned.
+
+Without a cache (training) the layer loop is rematerialized as the
+reference's ``jax.checkpoint`` over its ``lax.scan`` body
+(``cfg.remat``): each layer runs under ``torch.utils.checkpoint``, and
+with ``cfg.nested_remat`` the layers go in √L groups, each group
+checkpointed as a whole too. Values do not change; memory does.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -258,6 +266,54 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
 # Stack apply
 # ---------------------------------------------------------------------------
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` is set
+    and autograd records (a plain call otherwise)."""
+    if not cfg.remat:
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
+
+
+def _remat_groups(cfg: ModelConfig, num_layers: int) -> int:
+    """Largest divisor of L that is ≤ ⌈√L⌉ (√L checkpointing group count)."""
+    if not (cfg.remat and cfg.nested_remat) or num_layers < 4:
+        return 1
+    cap = math.isqrt(num_layers - 1) + 1
+    best = 1
+    for g in range(2, cap + 1):
+        if num_layers % g == 0:
+            best = g
+    return best
+
+
+def _scan_layers(cfg: ModelConfig, body, carry, stacked):
+    """Loop ``carry = body(carry, layer_params)`` over stacked layer params
+    with the optional √L nested remat (the no-cache training path, where
+    only the carry matters)."""
+    num_layers = tree_leaves(stacked)[0].shape[0]
+    g = _remat_groups(cfg, num_layers)
+    layer = _maybe_remat(lambda c, i: body(c, _at(stacked, i)), cfg)
+
+    def run(c, lo: int, hi: int):
+        for i in range(lo, hi):
+            c = layer(c, i)
+        return c
+
+    if g == 1:
+        return run(carry, 0, num_layers)
+    per = num_layers // g
+    group = _maybe_remat(lambda c, j: run(c, j * per, (j + 1) * per), cfg)
+    for j in range(g):
+        carry = group(carry, j)
+    return carry
+
+
 def run_stack(cfg: ModelConfig, params, h: torch.Tensor, cache=None,
               pos: Optional[int] = None):
     """h: [B, S, D] embeddings → (h, cache, aux). ``cache`` (updated in
@@ -265,6 +321,11 @@ def run_stack(cfg: ModelConfig, params, h: torch.Tensor, cache=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
 
     if cfg.family == "ssm":
+        if cache is None:
+            h = _scan_layers(
+                cfg, lambda hh, p_i: _mamba_layer(cfg, p_i, hh, None)[0],
+                h, params["layers"])
+            return h, None, aux_total
         for i in range(cfg.num_layers):
             c_i = None if cache is None else _at(cache["layers"], i)
             h, _ = _mamba_layer(cfg, _at(params["layers"], i), h, c_i)
@@ -273,20 +334,35 @@ def run_stack(cfg: ModelConfig, params, h: torch.Tensor, cache=None,
     if cfg.family == "hybrid":
         n_sites = cfg.num_layers // cfg.attn_every
         trailing = cfg.num_layers - n_sites * cfg.attn_every
+        mamba = _maybe_remat(
+            lambda hh, p_j: _mamba_layer(cfg, p_j, hh, None)[0], cfg)
         for site in range(n_sites):
             for j in range(cfg.attn_every):
-                c_j = (None if cache is None
-                       else _at(_at(cache["layers"], site), j))
-                h, _ = _mamba_layer(
-                    cfg, _at(_at(params["layers"], site), j), h, c_j)
+                p_j = _at(_at(params["layers"], site), j)
+                if cache is None:
+                    h = mamba(h, p_j)
+                    continue
+                h, _ = _mamba_layer(cfg, p_j, h,
+                                    _at(_at(cache["layers"], site), j))
             sh = None if cache is None else _at(cache["shared"], site)
             h, _ = _shared_block(cfg, params["shared_attn"], h, sh, pos)
         for i in range(trailing):
-            c_i = None if cache is None else _at(cache["trailing"], i)
-            h, _ = _mamba_layer(cfg, _at(params["trailing"], i), h, c_i)
+            p_i = _at(params["trailing"], i)
+            if cache is None:
+                h = mamba(h, p_i)
+                continue
+            h, _ = _mamba_layer(cfg, p_i, h, _at(cache["trailing"], i))
         return h, cache, aux_total
 
     # dense / moe / vlm / audio
+    if cache is None:
+        def body(carry, p_i):
+            hh, aux = carry
+            hh, _, a = _dense_layer(cfg, p_i, hh, None, None)
+            return (hh, aux if a is None else aux + a)
+        h, aux_total = _scan_layers(cfg, body, (h, aux_total),
+                                    params["layers"])
+        return h, None, aux_total
     for i in range(cfg.num_layers):
         c_i = None if cache is None else _at(cache["layers"], i)
         h, _, a = _dense_layer(cfg, _at(params["layers"], i), h, c_i, pos)

@@ -1,3 +1,3 @@
-from repro_torch.runtime import fault
+from repro_torch.runtime import elastic, fault
 
-__all__ = ["fault"]
+__all__ = ["elastic", "fault"]

@@ -9,6 +9,7 @@ CL-SIA's normalized efficiency equal to K.
 """
 
 import importlib
+import math
 import sys
 from pathlib import Path
 
@@ -173,3 +174,13 @@ def test_serve_decode_example():
     assert out["tokens"].shape == (2, 8)
     assert out["cache_bytes"] == 2 * 2 * 2 * 32 * 2 * 16 * 4
     assert out["step_ms"] > 0
+
+
+def test_train_lm_sia_example():
+    """The twin of ``examples/train_lm_sia.py`` on the CPU: the 3M model
+    with CL-SIA over four clients; the loss falls."""
+    out = _load("examples", "torch_train_lm_sia").main(
+        ["--device", "cpu", "--steps", "12", "--batch", "8", "--seq", "32"])
+    losses = out["losses"]
+    assert len(losses) == 12 and all(map(math.isfinite, losses))
+    assert sum(losses[-3:]) < sum(losses[:3]), losses

@@ -1294,3 +1294,155 @@ def test_lm_full_width_phi4_layer_on_the_card_equals_the_cpu(cuda, no_tf32):
                                      31)
     _lm_close(got, want, 1e-4)
     _lm_close(step[:, 0], got[:, 31], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The LM train step on the card (plain PyTorch autograd + the level kernels)
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = {"dense": "codeqwen1.5-7b", "moe": "mixtral-8x7b",
+                  "ssm": "mamba2-130m", "hybrid": "zamba2-1.2b"}
+TRAIN_VARIANTS = {
+    "cl_sia": dict(mesh=(4, 1), kind="cl_sia", agg={}),
+    "cl_sia 2x2": dict(mesh=(2, 2), kind="cl_sia", agg={}),
+    "cl_tc_sia hist": dict(mesh=(4, 1), kind="cl_tc_sia",
+                           agg=dict(topq_impl="threshold", tau_impl="hist",
+                                    hist_rounds=2)),
+    "hierarchical": dict(mesh=(2, 2, 1), kind="cl_sia", agg={},
+                         topology="hierarchical"),
+    "cohorts": dict(mesh=(4, 1), kind="cl_sia", agg={}, cohorts=2),
+}
+
+
+def _train_launches(step) -> dict:
+    """Level-kernel launches of one train step: per model column (and per
+    tenant group, all cohorts in one), one level step per level of the plan
+    (Σ over stages for a nested plan) on the one device of the mesh."""
+    from repro_torch.core.algorithms import AggKind
+    cfg = step.agg_cfg
+    if step.nested is not None:
+        levels = sum(s.shape[0] for s in step.nested.stages)
+    else:
+        levels = step.plan.shape[0]
+    levels *= step.m
+    if cfg.kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
+        out = {"cl_fuse_level": levels}
+    else:
+        out = {"sparsify_ef_level": levels, "chain_accum_level": levels}
+    if cfg.topq_impl == "threshold" and cfg.tau_impl == "hist":
+        out["hist_topq_level"] = levels
+    elif cfg.topq_impl == "threshold":
+        out["count_ge_fused_level"] = levels * cfg.hist_rounds
+    return out
+
+
+def _same_support(got, want, what):
+    """``ef == 0`` equal but for swaps of two candidates tied at the Q-th
+    magnitude (the left-behind magnitudes agree to 1e-5)."""
+    got = got.float().cpu().reshape(-1, got.shape[-1])
+    want = want.float().cpu().reshape(-1, want.shape[-1])
+    for k in range(got.shape[0]):
+        a = want[k][(got[k] == 0) & (want[k] != 0)].abs().sort().values
+        b = got[k][(want[k] == 0) & (got[k] != 0)].abs().sort().values
+        if a.numel() or b.numel():
+            assert a.numel() == b.numel(), (what, k, a.numel(), b.numel())
+            gap = float((a - b).abs().max() / a.max())
+            assert gap <= 1e-5, (what, k, gap)
+
+
+@pytest.mark.parametrize("variant", list(TRAIN_VARIANTS))
+@pytest.mark.parametrize("family", list(TRAIN_FAMILIES))
+def test_train_step_on_the_card_equals_the_cpu(cuda, no_tf32, family,
+                                               variant):
+    """Each SMOKE family in float32 on ranks of the card against the same
+    ranks on the CPU, 3 steps, each from the CPU's state before it: the
+    whole step's loss to rtol 1e-5 (under exact Top-Q also bits and nnz
+    equal, the transmitted support equal but for ties, and the step's
+    change of master and params the CPU's to 1e-3 of its scale, with one
+    step's slack only where a tie swapped the support; a threshold τ moves
+    with the last bits of the gradients, so there only the loss), and phases 2–3 on the card fed the CPU's
+    gradient columns: EF, stage EF, ``tcs_prev``, bits and nnz = the CPU's
+    bit for bit, ``err_sq`` to 1e-6, and the elementwise optimizer's
+    master, moments and params to rtol 1e-6 (torch's CPU and CUDA kernels
+    round its float32 arithmetic apart in the last bits); the
+    level kernels launch as many times as the plan has levels per model
+    column."""
+    import dataclasses
+    import math as _math
+    from _torch_train import (assert_step_close, port_leaves,
+                              loose_coordinates)
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+    from repro_torch.train.state import state_to
+    v = TRAIN_VARIANTS[variant]
+    cfg = dataclasses.replace(get_config(TRAIN_FAMILIES[family], smoke=True),
+                              param_dtype="float32")
+    tc = TrainConfig(agg=AggConfig(kind=AggKind(v["kind"]), q=1, **v["agg"]),
+                     q_frac=0.05, agg_dtype="float32", ef_dtype="float32")
+    axes = ("pod", "data", "model") if len(v["mesh"]) == 3 else ("data",
+                                                                 "model")
+    n = _math.prod(v["mesh"])
+    coh, topo = v.get("cohorts", 1), v.get("topology")
+    meshes = {d: make_mesh(v["mesh"], axes, [d] * n)
+              for d in ("cpu", "cuda:0")}
+    steps = {d: build_train_step(cfg, tc, m, topology=topo, cohorts=coh)
+             for d, m in meshes.items()}
+    cpu_step, card_step = steps["cpu"], steps["cuda:0"]
+    st = init_state(cfg, tc, meshes["cpu"], torch.Generator().manual_seed(0),
+                    topology=topo, cohorts=coh)
+    gen = torch.Generator().manual_seed(1)
+    shape = (coh, 8, 16) if coh > 1 else (8, 16)
+    for s in range(3):
+        toks = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+        part = [1.0] * cpu_step.k_dp
+        part[-1] = 0.0 if s == 1 else 1.0
+        batch = {"tokens": toks, "labels": toks.roll(-1, -1),
+                 "participate": torch.tensor(part)}
+        before = [fn.launches for fn in level.KERNELS]
+        card, mc = card_step(state_to(st, cuda),
+                             {k: x.to(cuda) for k, x in batch.items()})
+        torch.cuda.synchronize()
+        grown = {fn.__name__.replace("_cuda", ""): fn.launches - b
+                 for fn, b in zip(level.KERNELS, before)
+                 if fn.launches - b}
+        assert grown == _train_launches(card_step), (grown, s)
+        plain, w, p = cpu_step.round_inputs(batch)
+        cols, loss = cpu_step.phase1(st, plain)
+        new, m = cpu_step.finish(st, cols, loss, w, p)
+        torch.testing.assert_close(mc["loss"].cpu(), m["loss"], rtol=1e-5,
+                                   atol=0)
+        if tc.agg.topq_impl == "exact":
+            for key in ("agg_bits", "agg_nnz"):
+                assert torch.equal(mc[key].cpu(), m[key]), key
+            what = f"{family} {variant} step {s}"
+            _same_support(card.ef, new.ef, what)
+            for a, b in zip(card.stage_ef or (), new.stage_ef or ()):
+                _same_support(a, b, what + " stage EF")
+            # the step's change of master and params = the CPU's, but at
+            # coordinates a tie swapped (each moves by up to one step)
+            old = port_leaves(st)
+            got, want = port_leaves(card), port_leaves(new)
+            assert_step_close(
+                what, old, got, want, 1e-3,
+                loose_coordinates(cpu_step, old, got, want),
+                3 * tc.opt.lr * float(m["lr_scale"].max()))
+        card2, mc2 = card_step.finish(
+            state_to(st, cuda), [[c.to(cuda) for c in row] for row in cols],
+            loss.to(cuda), w, p)
+        for (pa, a), (pb, b) in zip(_flatten_with_paths(card2),
+                                    _flatten_with_paths(new)):
+            assert pa == pb, (s, pa, pb)
+            if pa[0] in (".ef", ".stage_ef", ".tcs_prev", ".step"):
+                _same(a, b)                     # phase 2: bit for bit
+            else:                               # phase 3: the optimizer
+                scale = float(b.float().abs().max())
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-6,
+                                           atol=1e-6 * scale)
+        for key in ("agg_bits", "agg_nnz"):
+            _same(mc2[key], m[key])
+        torch.testing.assert_close(mc2["agg_err_sq"].cpu(), m["agg_err_sq"],
+                                   rtol=1e-6, atol=0)
+        st = new

@@ -367,3 +367,37 @@ def test_lm_serving_entry_points_raise_where_there_is_no_card():
     assert lm.cache_specs(cfg, 1, 4)["layers"]["state"].is_meta
     out = serve.generate(cfg, params, prompts, 2, "cpu")
     assert out.tokens.device.type == "cpu" and out.tokens.shape == (1, 2)
+
+
+def test_lm_training_entry_points_raise_where_there_is_no_card():
+    """The train stack runs on the card unless asked for another device:
+    meshes, the host mesh, the bigram data, ``convert.train_state`` and
+    the train CLI raise without one; a mesh of CPU ranks trains."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match=r"devices=\['cpu'\] \* 8"):
+        mesh_mod.make_mesh((4, 2), ("data", "model"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh_mod.make_host_mesh()
+    with pytest.raises(RuntimeError):
+        mesh_mod.make_production_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_bigram_lm(0, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh_mod.make_mesh((2, 1), ("data", "model"), ["cuda:0"] * 2)
+    cfg = get_config("mamba2-130m", smoke=True)
+    mesh = mesh_mod.make_mesh((2, 1), ("data", "model"), ["cpu"] * 2)
+    tc = TrainConfig(agg_dtype="float32", ef_dtype="float32")
+    st = init_state(cfg, tc, mesh, torch.Generator().manual_seed(0))
+    assert st.master.device.type == "cpu" and st.ef.shape[0] == 2
+    toks = torch.zeros((2, 8), dtype=torch.long)
+    st, m = build_train_step(cfg, tc, mesh)(st, {"tokens": toks,
+                                                 "labels": toks})
+    assert m["loss"].device.type == "cpu" and int(st.step) == 1
