@@ -204,7 +204,26 @@ Phases (any failure exits non-zero and prints no result):
    6", the restored state = the saved arrays bit for bit; (d) for (b) and
    (c) the step ms (median after a warm-up step, host clock after a
    synchronize), phase 2's ms and share, torch.profiler's device ops and
-   busy ms per step, and the peak memory.
+   busy ms per step, and the peak memory (and the peak of the init and the
+   timed steps alone: the profiled steps keep a third state alive);
+13. the dry run against the card (``launch/dryrun.py``: the port's step on
+   fake tensors, no kernel launched) — (a) ``dry_run_cell`` on fake
+   ``cuda:0`` tensors for phase 12's phi4 cell (its mesh, batch and
+   CL-SIA config) and phase 11's three served models (the larger of a
+   prefill of the prompt and a decode at prompt + generated tokens, batch
+   4), each predicted device peak within ±1 % of the peak those phases
+   measured, less the bytes live before them (phase 12: its init and
+   timed steps), and AdamW's second moment and the error feedback each a
+   larger share of phase 12's peak than the gate (a prediction without
+   either fails); (b) every full SHAPES cell whose arguments alone fit
+   72 GB on one card (``launch/dryrun.home_bytes``, from specs) is
+   predicted by ``python -m repro_torch.launch.dryrun --arch … --shape …
+   --mesh 1x1``, one background process per cell started with the phase,
+   CUDA hidden from them; each predicted to fit runs one step here from
+   seeded weights, mamba2-130m × decode_32k and × long_500k always, the
+   others until the phase's 60 s run out, each within ±1 % and its ms
+   logged; (c) the cells predicted not to fit one card, with their
+   predicted peaks or their arguments' bytes.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -216,6 +235,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3490,6 +3510,7 @@ def serve_once(cfg, dev, gen: int):
     and held against teacher forcing."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as lm
+    base = torch.cuda.memory_allocated(dev)
     params = lm.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     prompts = torch.randint(
@@ -3500,7 +3521,7 @@ def serve_once(cfg, dev, gen: int):
     out = generate(cfg, params, prompts, gen, dev, keep_logits=True)
     peak = torch.cuda.max_memory_allocated(dev)
     rel, mx = teacher_forcing(cfg, params, prompts, out)
-    return params, prompts, out, peak, rel, mx
+    return params, prompts, out, (peak, base), rel, mx
 
 
 def lm_serve_full(dev, card: str) -> list:
@@ -3522,7 +3543,8 @@ def lm_serve_full(dev, card: str) -> list:
                              f"against the teacher-forcing forward rel L2 "
                              f"{float(rel32.max()):.3e} (limit {F32_REL_L2})")
         torch.cuda.empty_cache()
-        params, prompts, out, peak, rel, mx = serve_once(cfg, dev, SERVE_GEN)
+        params, prompts, out, (peak, base), rel, mx = serve_once(
+            cfg, dev, SERVE_GEN)
         ok = (rel <= BF16_REL_L2) & (mx <= BF16_MAX_ABS)
         share = float(ok.float().mean())
         if share < (MOE_PAIRS_OK if cfg.family == "moe" else 1.0):
@@ -3555,7 +3577,8 @@ def lm_serve_full(dev, card: str) -> list:
                    decode_ms=step_ms,
                    tokens_per_s=SERVE_BATCH * 1e3 / step_ms,
                    bound_ms=bound_ms, share_of_bound=bound_ms / step_ms,
-                   peak_bytes=peak, rel_l2=float(rel.max()),
+                   peak_bytes=peak, peak_base_bytes=base,
+                   rel_l2=float(rel.max()),
                    rel_l2_median=float(rel.median()),
                    max_abs=float(mx.max()), pairs_within=share,
                    pairs_outside=[[i, j] for i, j in
@@ -4068,6 +4091,7 @@ def train_full(level, topq_threshold, card: str) -> list:
     tc = TrainConfig()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     state = init_state(cfg, tc, mesh,
                        torch.Generator(device="cuda").manual_seed(SEED))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -4113,6 +4137,9 @@ def train_full(level, topq_threshold, card: str) -> list:
                 raise SystemExit(f"FAIL [train] {cfg.name} CL-SIA bits "
                                  f"{bits[-1]} differ from the closed form "
                                  f"{f32_bits} (exact {exact})")
+        # init and the timed steps (the profiled ones below keep a third
+        # state alive: ``state`` still names the one they start from)
+        steps_peak = torch.cuda.max_memory_allocated()
         holder = [state]
 
         def steps():
@@ -4136,7 +4163,8 @@ def train_full(level, topq_threshold, card: str) -> list:
                    step_ms=step_ms, step_ms_all=ms, phase2_ms=p2,
                    phase2_share=p2 / step_ms, profiled_ms=prof[0],
                    device_busy_ms=prof[1], device_ops=prof[2],
-                   top_kernels=prof[3], peak_bytes=peak)
+                   top_kernels=prof[3], peak_bytes=peak,
+                   peak_steps_bytes=steps_peak, peak_base_bytes=base)
         if peak >= TRAIN_PEAK_LIMIT:
             raise SystemExit(f"FAIL [train] {cfg.name}: peak "
                              f"{peak / 1e9:.2f} GB")
@@ -4287,7 +4315,271 @@ def train_path(level, topq_threshold) -> dict:
     total = add_counts(total, launch_counts(level, topq_threshold))
     log(f"[train] phase 12 launches: {total}; "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {k: v for k, v in total.items() if v}
+    return {k: v for k, v in total.items() if v}, full
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the dry run against the card
+# ---------------------------------------------------------------------------
+DRY_PEAK_RTOL = 0.01               # predicted device peak against measured
+DRY_FIT_BYTES = 72e9               # a full cell runs here if predicted below
+DRY_BUDGET_S = 60.0                # the phase stops starting cells past it
+DRY_MUST_RUN = (("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k"))
+DRY_DIR = Path("build") / "phase13"
+
+
+def start_predictions(cells: list) -> list:
+    """(b)'s one-card predictions: one ``python -m repro_torch.launch.dryrun
+    --arch … --shape … --mesh 1x1`` process per cell, all started at once,
+    one thread each (a fake run takes seconds of CPU, about 100 µs an op,
+    and no card: CUDA is hidden from them, so their ranks claim a fake
+    ``cpu``)."""
+    root = Path(__file__).resolve().parent
+    out_dir = root / DRY_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(root / "src"))
+    procs = []
+    for arch, shape in cells:
+        out = out_dir / f"{arch}_{shape}.json"
+        out.unlink(missing_ok=True)
+        with open(out.with_suffix(".log"), "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", "1x1", "--out", str(out)],
+                cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT), out))
+    return procs
+
+
+def stop_predictions(procs: list) -> None:
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def gather_predictions(procs: list) -> list:
+    records = []
+    for proc, out in procs:
+        rc = proc.wait()
+        if rc != 0 or not out.exists():
+            raise SystemExit(f"FAIL [dryrun] the one-card prediction "
+                             f"{out.name} exited {rc}; see "
+                             f"{out.with_suffix('.log')}")
+        records += json.loads(out.read_text())
+    bad = [r for r in records if r["status"] != "ok"]
+    if bad:
+        raise SystemExit(f"FAIL [dryrun] {len(bad)} one-card cells failed "
+                         f"their dry run: {bad[0]}")
+    return records
+
+
+def held_peak(what: str, predicted: int, measured: int) -> float:
+    err = predicted / measured - 1
+    if abs(err) > DRY_PEAK_RTOL:
+        raise SystemExit(f"FAIL [dryrun] {what}: predicted device peak "
+                         f"{predicted / 1e9:.4f} GB, measured "
+                         f"{measured / 1e9:.4f} GB ({100 * err:+.2f} %, "
+                         f"limit ±{100 * DRY_PEAK_RTOL:.0f} %)")
+    return err
+
+
+def run_full_cell(cfg, shape, dev) -> tuple:
+    """One step of a full SHAPES cell on the card from seeded weights →
+    (bytes it added at its peak, ms). Inputs are made before the peak is
+    reset (their bytes stay in it); the step is timed between
+    synchronizes."""
+    from repro_torch.models import model as lm
+    from repro_torch.models.stubs import audio_stub_embeds, vision_stub_embeds
+    from repro_torch.train.step import build_prefill_step, build_serve_step
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.train import TrainConfig, build_train_step, init_state
+        mesh = make_mesh((1, 1), ("data", "model"), [dev])
+        tc = TrainConfig()
+        state = init_state(cfg, tc, mesh, gen)
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                             device=dev)
+        args = (state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        fn = build_train_step(cfg, tc, mesh)
+    else:
+        params = lm.init_params(cfg, gen, dev)
+        cache = lm.init_cache(cfg, b, s, dev)
+        if shape.kind == "prefill":
+            toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            extra = {}
+            if cfg.frontend == "vision":
+                extra = dict(zip(("frontend_embeds", "frontend_mask"),
+                                 vision_stub_embeds(cfg, gen, b, s, s // 2,
+                                                    dev)))
+            elif cfg.frontend == "audio":
+                extra = {"frontend_embeds": audio_stub_embeds(cfg, gen, b, s,
+                                                              dev)}
+            args = (params, cache, toks) + ((extra,) if extra else ())
+            fn = build_prefill_step(cfg, None)
+        else:
+            tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            args = (params, cache, tok, s - 1)
+            fn = build_serve_step(cfg, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    added = torch.cuda.max_memory_allocated(dev) - base
+    del out, args
+    torch.cuda.empty_cache()
+    return added, ms
+
+
+def dryrun_path(served: list, trained: list) -> list:
+    """Phase 13: ``launch/dryrun.dry_run_cell`` predicts each cell's device
+    peak on fake tensors; the card measures it. (a) phase 12's phi4 train
+    cell and phase 11's served models, predicted here on their own meshes
+    of ``cuda:0`` and held to the peaks those phases measured (less the
+    bytes live before them); the gate must be tighter than the share of
+    the train cell's peak that AdamW's second moment and the error
+    feedback each take, or it would pass a prediction that left one out;
+    (b) every full SHAPES cell whose arguments alone fit ``DRY_FIT_BYTES``
+    on one card is predicted in a background process started here, and
+    runs one step here if its predicted peak fits too, until the phase's
+    budget runs out (``DRY_MUST_RUN`` always); (c) the cells predicted not
+    to fit, with their predicted peaks or their arguments' bytes."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, shape_cells
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainConfig, init_state
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    dev = torch.device("cuda")
+    one = make_mesh((1, 1), ("data", "model"), ["cuda:0"])
+    cells = [(a, s) for a in ARCHS for s in shape_cells(get_config(a))]
+    home = {(a, s): dryrun.home_bytes(get_config(a), SHAPES[s], one)
+            for a, s in cells}
+    procs = start_predictions([c for c in cells
+                               if home[c] <= DRY_FIT_BYTES])
+    try:
+        rows = []
+        # (a) the cells phases 11 and 12 ran
+        cfg = dataclasses.replace(get_config(TRAIN_FULL_ARCH),
+                                  num_layers=TRAIN_FULL_LAYERS)
+        mesh = make_mesh(TRAIN_FULL_MESH, ("data", "model"),
+                         ["cuda:0"] * math.prod(TRAIN_FULL_MESH))
+        t = time.perf_counter()
+        rec = dryrun.dry_run_cell(cfg, ShapeSpec("phase12", TRAIN_SEQ,
+                                                 TRAIN_BATCH, "train"),
+                                  mesh, TrainConfig())
+        got = next(r for r in trained if r["kind"] == "cl_sia")
+        measured = got["peak_steps_bytes"] - got["peak_base_bytes"]
+        rows.append(dict(
+            cell=f"{cfg.name} x {TRAIN_FULL_LAYERS} layers train "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ}, {TRAIN_FULL_MESH} ranks (phase 12, "
+            f"CL-SIA)", predicted=rec["device_peak_bytes"],
+            measured=measured, stand_ins=rec["stand_ins"],
+            dry_run_s=time.perf_counter() - t,
+            err=held_peak("phase 12's phi4 cell", rec["device_peak_bytes"],
+                          measured)))
+        state = init_state(cfg, TrainConfig(), make_mesh(
+            TRAIN_FULL_MESH, ("data", "model"),
+            ["meta"] * math.prod(TRAIN_FULL_MESH)), None)
+        shares = {name: part.numel() * part.element_size() / measured
+                  for name, part in (("AdamW's second moment", state.opt.v),
+                                     ("the error feedback", state.ef))}
+        for name, share in shares.items():
+            if share <= DRY_PEAK_RTOL:
+                raise SystemExit(
+                    f"FAIL [dryrun] the gate ±{100 * DRY_PEAK_RTOL:.0f} % "
+                    f"would pass a prediction without {name} "
+                    f"({100 * share:.2f} % of the measured peak)")
+        rows[-1]["omitted_shares"] = shares
+        log("[dryrun] phase 12's cell: a prediction without "
+            + " or without ".join(f"{n} would read {100 * v:.2f} % low"
+                                  for n, v in shares.items())
+            + f", outside the gate ±{100 * DRY_PEAK_RTOL:.0f} %")
+        for (arch, cut, _), got in zip(SERVE_MODELS, served):
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            t = time.perf_counter()
+            pred = max(dryrun.dry_run_cell(cfg, ShapeSpec(
+                kind, n, SERVE_BATCH, kind), one)["device_peak_bytes"]
+                for kind, n in (("prefill", SERVE_PROMPT),
+                                ("decode", SERVE_PROMPT + SERVE_GEN)))
+            measured = got["peak_bytes"] - got["peak_base_bytes"]
+            rows.append(dict(cell=f"{cfg.name} generate {SERVE_BATCH}x"
+                             f"{SERVE_PROMPT}+{SERVE_GEN} (phase 11)",
+                             predicted=pred, measured=measured,
+                             dry_run_s=time.perf_counter() - t,
+                             err=held_peak(f"phase 11's {cfg.name}", pred,
+                                           measured)))
+        # (b) the full SHAPES cells predicted to fit one card
+        t = time.perf_counter()
+        records = gather_predictions(procs)
+        wait_s = time.perf_counter() - t
+    finally:
+        stop_predictions(procs)
+    fits = sorted((r for r in records
+                   if r["device_peak_bytes"] <= DRY_FIT_BYTES),
+                  key=lambda r: ((r["arch"], r["shape"]) not in DRY_MUST_RUN,
+                                 r["device_peak_bytes"]))
+    skipped = []
+    for r in fits:
+        key = (r["arch"], r["shape"])
+        if (time.perf_counter() - t_phase > DRY_BUDGET_S
+                and key not in DRY_MUST_RUN):
+            skipped.append(key)
+            continue
+        measured, ms = run_full_cell(get_config(r["arch"]),
+                                     SHAPES[r["shape"]], dev)
+        rows.append(dict(cell=f"{r['arch']} x {r['shape']} (full, one card)",
+                         predicted=r["device_peak_bytes"], measured=measured,
+                         step_ms=ms, err=held_peak(
+                             f"{r['arch']} x {r['shape']}",
+                             r["device_peak_bytes"], measured)))
+    ran = {(r["arch"], r["shape"]) for r in fits} - set(skipped)
+    missing = [k for k in DRY_MUST_RUN if k not in ran]
+    if missing:
+        raise SystemExit(f"FAIL [dryrun] {missing} predicted above "
+                         f"{DRY_FIT_BYTES / 1e9:.0f} GB; they must run")
+    for row in rows:
+        log(f"[dryrun] {row['cell']}: predicted "
+            f"{row['predicted'] / 1e9:.4f} GB, measured "
+            f"{row['measured'] / 1e9:.4f} GB ({100 * row['err']:+.2f} %)"
+            + (f", step {row['step_ms']:.2f} ms" if "step_ms" in row else "")
+            + f"; {card}")
+    # (c) the cells predicted not to fit
+    over = sorted((r for r in records
+                   if r["device_peak_bytes"] > DRY_FIT_BYTES),
+                  key=lambda r: r["device_peak_bytes"])
+    by_args = sorted((c for c in cells if home[c] > DRY_FIT_BYTES),
+                     key=home.get)
+    log(f"[dryrun] (c) {len(over) + len(by_args)} of {len(cells)} full "
+        f"cells predicted above {DRY_FIT_BYTES / 1e9:.0f} GB on one card: "
+        f"by their fake run, "
+        + ", ".join(f"{r['arch']} x {r['shape']} "
+                    f"{r['device_peak_bytes'] / 1e9:.1f} GB" for r in over)
+        + "; by their arguments alone, "
+        + ", ".join(f"{a} x {s} {home[a, s] / 1e9:.1f} GB"
+                    for a, s in by_args))
+    if skipped:
+        log(f"[dryrun] not run (phase budget): {skipped}")
+    log("[dryrun] " + json.dumps(dict(
+        rows=rows, waited_for_predictions_s=wait_s,
+        one_card=[{k: r[k] for k in ("arch", "shape", "device_peak_bytes",
+                                     "port_home_bytes", "trace_s")}
+                  for r in records],
+        one_card_arguments_over=[
+            {"arch": a, "shape": s, "port_home_bytes": home[a, s]}
+            for a, s in by_args])))
+    log(f"[dryrun] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
@@ -4379,9 +4671,11 @@ def main() -> int:
     for name, n in segments_path(level, sp, ops, topq_threshold,
                                  data).items():
         launches[name] = launches.get(name, 0) + n
-    serve_path()
-    for name, n in train_path(level, topq_threshold).items():
+    served = serve_path()["served"]
+    trained, train_rows = train_path(level, topq_threshold)
+    for name, n in trained.items():
         launches[name] = launches.get(name, 0) + n
+    dryrun_path(served, train_rows)
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",

@@ -70,7 +70,9 @@ def loss_fn(cfg: ModelConfig, params, batch: dict):
                           batch.get("frontend_embeds"),
                           batch.get("frontend_mask"))
     logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.take_along_dim(logp, batch["labels"][..., None], dim=-1)
+    # labels may be int32, as the reference's input specs give them
+    ll = torch.take_along_dim(logp, batch["labels"][..., None].long(),
+                              dim=-1)
     ce = -torch.mean(ll)
     total = ce + MOE_AUX_WEIGHT * aux
     return total, {"ce": ce, "aux": aux}

@@ -39,8 +39,9 @@ vectors do not depend on that order; only the ownership does. The state
 lives on the mesh's first device: where every rank shares one device
 (``["cuda:0"] * K``, ``["cpu"] * K``) each rank's piece is a view of it,
 and on a mesh of several devices each piece is copied to its rank's device
-for the round and back. Placement is decided by :func:`init_state`, so the
-reference's ``state_shardings`` gets no counterpart.
+for the round and back. Placement is still decided by :func:`init_state`
+(the whole state on the mesh's first device); :func:`state_shardings` gives
+what each rank owns under the reference's program, as spec data.
 """
 
 from __future__ import annotations
@@ -322,6 +323,55 @@ def _stack_states(states: list):
 def _cohort(state, i: int):
     """Tenant i of a cohort-stacked state (views)."""
     return map_state(lambda x: x[i], state)
+
+
+def _cohort_spec(spec: tuple) -> tuple:
+    """Prepend an unsharded leading cohort axis to a spec."""
+    return (None,) + tuple(spec)
+
+
+def _map_specs(fn, specs):
+    """``fn`` on every spec (a tuple of axis entries) of a dict tree."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
+
+
+def state_shardings(cfg: ModelConfig, tc: TrainConfig, mesh,
+                    topology: Any = None, cohorts: int = 1) -> TrainState:
+    """The reference's ``state_shardings`` as spec data: a
+    :class:`~repro_torch.train.state.TrainState` of plain-tuple specs (as
+    :func:`~repro_torch.models.partition.param_pspecs` gives them) saying
+    what each rank owns under the reference's program. Params and
+    ``tcs_prev`` by ``param_pspecs``; master and the optimizer moments by
+    :func:`flat_spec` (:func:`nested_flat_spec` for nested topologies);
+    ``ef`` and each ``stage_ef`` tier by ``(dp axes, "model")``; the steps
+    replicated. Pass the same ``topology``/``cohorts`` as
+    :func:`build_train_step`: cohort batches add an unsharded leading
+    axis to every leaf."""
+    _, nested, n_axes = _resolve_topology(mesh, topology)
+    fs = flat_spec(mesh) if nested is None else nested_flat_spec(mesh,
+                                                                 n_axes)
+    dp = dp_axes(mesh)
+    coh = _cohort_spec if cohorts > 1 else tuple
+    p_specs = _map_specs(coh, partition.param_pspecs(cfg, mesh))
+    opt_m = None if tc.opt.name == "sgd" else coh(fs)
+    opt_v = coh(fs) if tc.opt.name == "adamw" else None
+    tcs = (_map_specs(coh, partition.param_pspecs(cfg, mesh))
+           if tc.needs_tcs() else None)
+    stage_ef = None
+    if nested is not None:
+        stage_ef = tuple(coh((dp, "model"))
+                         for _ in range(nested.num_stages - 1))
+    return TrainState(
+        step=coh(()),
+        params=p_specs,
+        master=coh(fs),
+        opt=opt_mod.FlatOptState(step=coh(()), m=opt_m, v=opt_v),
+        ef=coh((dp, "model")),
+        tcs_prev=tcs,
+        stage_ef=stage_ef,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -184,3 +184,44 @@ def test_train_lm_sia_example():
     losses = out["losses"]
     assert len(losses) == 12 and all(map(math.isfinite, losses))
     assert sum(losses[-3:]) < sum(losses[:3]), losses
+
+
+def test_emit_experiments_table_twin(tmp_path, capsys):
+    """The twin of ``emit_experiments_table.py`` on a small dry-run JSON:
+    the ok cells of the mesh asked for, then the failure count."""
+    rec = {"arch": "mamba2-130m", "shape": "decode_32k", "mesh": "16x16",
+           "agg": "cl_sia", "status": "ok",
+           "memory_analysis": {"peak_bytes_estimate": 2.5e9},
+           "roofline": {"t_compute_s": 1e-6, "t_memory_s": 2e-4,
+                        "t_collective_s": 0.0, "bottleneck": "memory",
+                        "useful_flops_ratio": 0.5,
+                        "roofline_fraction": 0.0025}}
+    unmeasured = dict(rec, shape="long_500k",
+                      memory_analysis={"peak_bytes_estimate": None})
+    cells = [rec, unmeasured, dict(rec, mesh="2x16x16"),
+             dict(rec, shape="train_4k", status="FAIL")]
+    path = tmp_path / "dry.json"
+    path.write_text(__import__("json").dumps(cells))
+    _load("benchmarks", "torch_emit_experiments_table").main(str(path))
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[2] == ("| mamba2-130m | decode_32k | 1e-06 | 0.0002 | 0 "
+                        "| memory | 0.50 | 0.0025 | 2.5 |")
+    assert lines[3] == ("| mamba2-130m | long_500k | 1e-06 | 0.0002 | 0 "
+                        "| memory | 0.50 | 0.0025 | not measured |")
+    assert len(lines) == 6 and lines[-1] == ("2 cells on 16x16; 1 failures "
+                                             "total.")
+    mem = {"argument_size_in_bytes": 1e9, "output_size_in_bytes": 5e8,
+           "peak_bytes_estimate": None}
+    port = dict(rec, memory_analysis=mem, port_home_bytes=3e9,
+                device_peak_bytes=4e9, port_fits_one_card=True)
+    path.write_text(__import__("json").dumps(
+        [port, dict(port, mesh="2x16x16", device_peak_bytes=8e10,
+                    port_fits_one_card=False)]))
+    twin = _load("benchmarks", "torch_emit_experiments_table")
+    twin.port_main(str(path))
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "| arch | decode_32k |"
+    assert lines[2] == "| mamba2-130m | 1.5 / 1.5 · 3 / 3 · 4 / 80 |"
+    assert lines[-2].endswith("within 80 GB: mamba2-130m × decode_32k "
+                              "(16x16).")
+    assert lines[-1] == "1 cells × 2 meshes; 0 failures total."

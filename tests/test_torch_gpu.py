@@ -22,7 +22,8 @@ rows that do not start on a 16-byte boundary (b·d % 4 ≠ 0), straggler and
 ``valid == 0`` lanes, and a ``ValueError`` where B does not divide W.
 The LM serving path (plain PyTorch, no kernel of its own) runs each SMOKE
 architecture and one full-width phi4-mini layer on the card against the
-CPU in float32.
+CPU in float32. The dry run's predicted device peak of one full decode
+cell is held to the card's within ±1 %.
 """
 
 import math
@@ -1446,3 +1447,42 @@ def test_train_step_on_the_card_equals_the_cpu(cuda, no_tf32, family,
         torch.testing.assert_close(mc2["agg_err_sq"].cpu(), m["agg_err_sq"],
                                    rtol=1e-6, atol=0)
         st = new
+
+
+def test_dry_run_predicts_the_card_peak_of_a_decode_cell(cuda):
+    """``launch/dryrun.dry_run_cell`` on fake ``cuda:0`` tensors against
+    the card: mamba2-130m × long_500k at full size on one card, its
+    predicted device peak within ±1 % of the bytes the step adds to the
+    card at its peak (its arguments included)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.train.step import build_serve_step
+    cfg, shape = get_config("mamba2-130m"), SHAPES["long_500k"]
+    rec = dryrun.dry_run_cell(cfg, shape, make_mesh(
+        (1, 1), ("data", "model"), ["cuda:0"]))
+    assert rec["device"] == "cuda:0"
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    # a process's first GEMM allocates cuBLAS's workspace, which then stays:
+    # make it with the SMOKE config's step, so the reading holds the step's
+    # own bytes (chip_smoke's earlier phases do the same for phase 13)
+    small = get_config("mamba2-130m", smoke=True)
+    build_serve_step(small, None)(
+        lm.init_params(small, gen, cuda), lm.init_cache(small, 1, 8, cuda),
+        torch.zeros((1,), dtype=torch.int32, device=cuda), 7)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    params = lm.init_params(cfg, gen, cuda)
+    cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, cuda)
+    tok = torch.zeros((shape.global_batch,), dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    nxt, _ = build_serve_step(cfg, None)(params, cache, tok,
+                                          shape.seq_len - 1)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated(cuda) - base
+    assert nxt.shape == (shape.global_batch,)
+    assert abs(rec["device_peak_bytes"] / measured - 1) <= 0.01, (
+        rec["device_peak_bytes"], measured)

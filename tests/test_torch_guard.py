@@ -401,3 +401,21 @@ def test_lm_training_entry_points_raise_where_there_is_no_card():
     st, m = build_train_step(cfg, tc, mesh)(st, {"tokens": toks,
                                                  "labels": toks})
     assert m["loss"].device.type == "cpu" and int(st.step) == 1
+
+
+def test_dry_run_imports_no_jax_and_nothing_of_the_reference():
+    """``launch/dryrun.py`` counts its own bytes: it imports neither JAX,
+    nor the JAX package, nor ``benchmarks/`` (the reference's roofline)."""
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'roofline', 'hlo_analysis')]\n"
+            "assert not bad, bad\n"
+            "print('PASS')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "PASS" in proc.stdout, proc.stderr
+    roots = _imported_roots(PORT / "launch" / "dryrun.py")
+    assert not roots & {"jax", "jaxlib", "repro", "roofline",
+                        "hlo_analysis"}, roots
