@@ -9,12 +9,14 @@
 The port's records keep the reference's keys: ``roofline`` (here the
 fake run's counts over H100 SXM spec peaks, a model with no card run
 behind it) and ``memory_analysis.peak_bytes_estimate``, which the port
-does not measure (one rank's transients): that column reads "not
-measured". ``--port`` prints the port's own table instead, bytes only: one
-row per arch, one column per shape, each cell with both production meshes
-side by side (16x16 / 2x16x16): the bytes one rank holds of the step's
-arguments and outputs, the port's first-device state, and its one-device
-peak; then the cells whose one-device peak fits a card's 80 GB.
+measures for train cells only (their run with one fake device a rank); a
+serving cell's reads "not measured". ``--port`` prints the port's own
+table instead, bytes only: one row per arch, one column per shape, each
+cell with both production meshes side by side (16x16 / 2x16x16): the bytes
+one rank holds of the step's arguments and outputs, the port's state on
+its fullest device, and its one-device peak, and for train cells one
+rank's peak estimate; then the cells whose one-device peak fits a card's
+80 GB, and the train cells whose rank peak estimate does.
 """
 
 import json
@@ -54,7 +56,7 @@ def port_main(path="dryrun_results.json", meshes=("16x16", "2x16x16")):
     shapes = list(dict.fromkeys(c["shape"] for c in cells))
     print(f"| arch | {' | '.join(shapes)} |")
     print("|---" * (len(shapes) + 1) + "|")
-    fits, n = [], 0
+    fits, rank_fits, n = [], [], 0
     for arch in archs:
         row = []
         for shape in shapes:
@@ -71,17 +73,28 @@ def port_main(path="dryrun_results.json", meshes=("16x16", "2x16x16")):
                 m = c["memory_analysis"]
                 return m["argument_size_in_bytes"] + m["output_size_in_bytes"]
 
-            row.append(f"{col(lambda c: _gb(rank(c)))} · "
-                       f"{col(lambda c: _gb(c['port_home_bytes']))} · "
-                       f"{col(lambda c: _gb(c['device_peak_bytes']))}")
+            text = (f"{col(lambda c: _gb(rank(c)))} · "
+                    f"{col(lambda c: _gb(c['port_home_bytes']))} · "
+                    f"{col(lambda c: _gb(c['device_peak_bytes']))}")
+            est = [c["memory_analysis"]["peak_bytes_estimate"] for c in got]
+            if None not in est:
+                text += f" · {' / '.join(_gb(e) for e in est)}"
+                fit = [m for m, c in zip(meshes, got) if c["fits_one_card"]]
+                if fit:
+                    rank_fits.append(f"{arch} × {shape} ({', '.join(fit)})")
+            row.append(text)
             fit = [m for m, c in zip(meshes, got) if c["port_fits_one_card"]]
             if fit:
                 fits.append(f"{arch} × {shape} ({', '.join(fit)})")
         print(f"| {arch} | {' | '.join(row)} |")
     fails = [c for c in cells if c.get("status") != "ok"]
-    print(f"\nEach cell: rank args + outs GB · port home GB · port "
-          f"one-device peak GB, on {' / '.join(meshes)}. Port one-device "
-          f"peak within 80 GB: {'; '.join(fits) or 'none'}.")
+    print()
+    if rank_fits:
+        print(f"Rank peak estimate within 80 GB: {'; '.join(rank_fits)}.")
+    print(f"Each cell: rank args + outs GB · port fullest-device state GB · "
+          f"port one-device peak GB (train: · rank peak estimate GB), on "
+          f"{' / '.join(meshes)}. Port one-device peak within 80 GB: "
+          f"{'; '.join(fits) or 'none'}.")
     print(f"{n} cells × {len(meshes)} meshes; {len(fails)} failures total.")
 
 

@@ -223,7 +223,25 @@ Phases (any failure exits non-zero and prints no result):
    seeded weights, mamba2-130m × decode_32k and × long_500k always, the
    others until the phase's 60 s run out, each within ±1 % and its ms
    logged; (c) the cells predicted not to fit one card, with their
-   predicted peaks or their arguments' bytes.
+   predicted peaks or their arguments' bytes;
+14. the train state placed by rank on a mesh that mixes the card and the
+   CPU (``train.step.init_state`` on 4 × 1 ranks ``cuda:0, cpu, cpu,
+   cpu``: master, AdamW moments and EF pieces on their ranks' devices,
+   the params whole on ``cuda:0`` and on the CPU) — mamba2-130m at full
+   widths, 4 of 24 layers (``PLACE_WHY``), bf16, the launcher's
+   ``TrainConfig`` defaults (AdamW) and then SGD, batch 8 × 64 random
+   tokens, 3 CL-SIA steps each:
+   every piece on its rank's device after the init and every step; each
+   step's phases 2–3 also run on ``["cuda:0"] * 4`` from the same state
+   and gradient columns, and the gathered placed state must equal it —
+   EF, bits and nnz bit for bit, master and params bit for bit under SGD
+   and to 1e-6 of their scale under AdamW (the CPU ranks round AdamW's
+   ``sqrt``/``pow`` apart from the card); the card's level kernels launch
+   once per level for the card's rank (the CPU ranks run the plain
+   versions); the card's peak over the first AdamW step, less the bytes
+   live before the phase, within ±1 % of ``launch/dryrun.dry_run_cell``'s
+   prediction for ``cuda:0`` on the same mixed mesh; the state bytes on
+   ``cuda:0`` against the whole state's, and the step ms.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -4582,6 +4600,227 @@ def dryrun_path(served: list, trained: list) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the train state placed by rank on a mesh that mixes the card and
+# the CPU
+# ---------------------------------------------------------------------------
+PLACE_ARCH = "mamba2-130m"
+PLACE_CARD = "cuda:0"
+PLACE_DEVICES = (PLACE_CARD, "cpu", "cpu", "cpu")    # data 4 x model 1
+PLACE_LAYERS = 4
+PLACE_WHY = ("num_layers 24 -> 4: with all 24 layers a step took 34.3-38.8 "
+             "s (three clients' bf16 forward and backward and three ranks' "
+             "exact Top-Q over 32 M-entry segments on the CPU), over the 30 "
+             "s a step of this phase may take")
+PLACE_BATCH, PLACE_SEQ = 8, 64     # the launcher's defaults
+PLACE_STEPS = 3
+PLACE_OPT_RTOL = 1e-6              # AdamW: the CPU ranks against the card
+
+
+def placed_pieces_off(state, mesh, m_cols: int) -> list:
+    """Leaves of a placed state with a piece (or replica) off its rank's
+    device."""
+    from repro_torch.train.state import RankPieces, Replicas, state_leaves
+    from repro_torch.train.step import param_devices, rank_device
+
+    bad = []
+    leaves = {"master": state.master, "opt.m": state.opt.m,
+              "opt.v": state.opt.v, "ef": state.ef}
+    for i, e in enumerate(state.stage_ef or ()):
+        leaves[f"stage_ef/{i}"] = e
+    for name, leaf in leaves.items():
+        if leaf is None:
+            continue
+        if not isinstance(leaf, RankPieces):
+            bad.append(name)
+            continue
+        bad += [f"{name}[{r}]" for r, p in enumerate(leaf.pieces)
+                if p.device != rank_device(mesh, *divmod(r, m_cols))]
+    for name, tree in (("params", state.params),
+                       ("tcs_prev", state.tcs_prev)):
+        if tree is None:
+            continue
+        if not (isinstance(tree, Replicas)
+                and tree.devices == param_devices(mesh)):
+            bad.append(name)
+            continue
+        bad += [f"{name}@{d}" for d, t in zip(tree.devices, tree.trees)
+                if {x.device for x in state_leaves(t)} != {d}]
+    return bad
+
+
+def placed_launches(step) -> dict:
+    """``train_launches`` for the card's ranks of a mixed mesh: one level
+    step per level and column for each distinct card among the column's
+    ranks (the CPU ranks run the plain versions)."""
+    cards = len({d for d in step.col_meshes[0].devices if d.type == "cuda"})
+    return {k: v * cards for k, v in train_launches(step).items() if cards}
+
+
+def place_path(level, topq_threshold, cfg=None) -> dict:
+    """Phase 14 (``cfg``: the full-width model unless given); every launch
+    count is set to 0 before the placed run and read after it (the
+    all-card comparisons are taken back out)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+    from repro_torch.train.state import (abstract_like, gather_state,
+                                         state_leaves, state_to)
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(PLACE_ARCH),
+                                  num_layers=PLACE_LAYERS)
+    dev = PLACE_CARD
+    axes = ("data", "model")
+    shape = (len(PLACE_DEVICES), 1)
+    mixed = make_mesh(shape, axes, list(PLACE_DEVICES))
+    one_card = make_mesh(shape, axes, [dev] * len(PLACE_DEVICES))
+    adamw = TrainConfig(opt=OptConfig(lr=3e-4))       # the CLI's defaults
+    t = time.perf_counter()
+    pred = dryrun.dry_run_cell(
+        cfg, ShapeSpec("phase14", PLACE_SEQ, PLACE_BATCH, "train"), mixed,
+        adamw)
+    dry_s = time.perf_counter() - t
+    if pred["device"] != dev or not pred["fits_one_card"]:
+        raise SystemExit(f"FAIL [place] the dry run's record: device "
+                         f"{pred['device']}, fits {pred['fits_one_card']}")
+    # a process's first GEMM allocates a workspace that stays: make it with
+    # the SMOKE config's step, so the reading holds the phase's own bytes
+    small = get_config(PLACE_ARCH, smoke=True)
+    tokens = torch.zeros((8, 16), dtype=torch.int64, device=dev)
+    build_train_step(small, adamw, one_card)(
+        init_state(small, adamw, one_card, torch.Generator(device=dev)),
+        {"tokens": tokens, "labels": tokens})
+    level.reset_launch_counts()
+    rows, total = [], {}
+    gen = torch.Generator().manual_seed(SEED + 14)
+    for name, tc in (("adamw", adamw),
+                     ("sgd", dataclasses.replace(
+                         adamw, opt=OptConfig(name="sgd", lr=3e-4)))):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        state = init_state(cfg, tc, mixed,
+                           torch.Generator(device=dev).manual_seed(SEED))
+        step = build_train_step(cfg, tc, mixed)
+        check = build_train_step(cfg, tc, one_card)
+        want = placed_launches(step)
+        held = {}
+        for t in state_leaves(state):
+            held[str(t.device)] = (held.get(str(t.device), 0)
+                                   + t.numel() * t.element_size())
+        whole = sum(t.numel() * t.element_size() for t in state_leaves(
+            gather_state(abstract_like(state), "meta")))
+        ms, worst, peak = [], 0.0, None
+        for s in range(PLACE_STEPS):
+            off = placed_pieces_off(state, mixed, 1)
+            if off:
+                raise SystemExit(f"FAIL [place] {name} step {s}: pieces off "
+                                 f"their ranks' devices: {off[:8]}")
+            toks = torch.randint(0, cfg.vocab_size,
+                                 (PLACE_BATCH, PLACE_SEQ + 1), generator=gen)
+            batch = {"tokens": toks[:, :-1].to(dev),
+                     "labels": toks[:, 1:].to(dev)}
+            before = launch_counts(level, topq_threshold)
+            torch.cuda.synchronize()
+            if s == 0:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            plain, w, p = step.round_inputs(batch)
+            cols, loss = step.phase1(state, plain)
+            torch.cuda.synchronize()
+            t_phase1 = time.perf_counter() - t
+            # kept for the check, off the clock and off the card
+            kept = [[c.to("cpu", copy=True) for c in row] for row in cols]
+            old = gather_state(state, "cpu")
+            t = time.perf_counter()
+            new, m = step.finish(state, cols, loss, w, p)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (t_phase1 + time.perf_counter() - t))
+            del cols
+            if s == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            got = grown(before, launch_counts(level, topq_threshold))
+            if got != want:
+                raise SystemExit(f"FAIL [place] {name} step {s}: launches "
+                                 f"{got}, predicted {want}")
+            total = add_counts(total, got)
+            # the same phases 2-3 on ranks of the card (a comparison: its
+            # launches are taken back out of the counts)
+            counts = [fn.launches for fn in level.KERNELS]
+            c_ge = topq_threshold.count_ge_cuda.launches
+            ref, mr = check.finish(
+                state_to(old, dev), [[c.to(dev) for c in row]
+                                     for row in kept], loss.to(dev), w, p)
+            torch.cuda.synchronize()
+            for fn, c in zip(level.KERNELS, counts):
+                fn.launches = c
+            topq_threshold.count_ge_cuda.launches = c_ge
+            ref = state_to(ref, "cpu")
+            got_state = gather_state(new, "cpu")
+            exact = (".ef", ".stage_ef", ".step") + (
+                (".master", ".params", ".opt") if name == "sgd" else ())
+            diff = [k for k in train_state_diff(got_state, ref)
+                    if k.split("/")[0] in exact]
+            diff += [k for k in ("agg_bits", "agg_nnz")
+                     if not bitwise_equal(m[k].cpu(), mr[k].cpu())]
+            ok, err = train_close(got_state, ref, PLACE_OPT_RTOL,
+                                  keys=("master", "opt", "params"))
+            if diff or not ok:
+                raise SystemExit(f"FAIL [place] {name} step {s}: the placed "
+                                 f"state against ranks of the card differs "
+                                 f"in {diff}, master/moments/params "
+                                 f"{err:.3e} of scale (limit "
+                                 f"{PLACE_OPT_RTOL})")
+            if not math.isfinite(float(m["loss"])):
+                raise SystemExit(f"FAIL [place] {name}: loss {m['loss']}")
+            worst = max(worst, err)
+            state = new
+            del old, ref, kept, got_state
+        if placed_pieces_off(state, mixed, 1):
+            raise SystemExit(f"FAIL [place] {name}: pieces off their ranks' "
+                             f"devices after the steps")
+        row = dict(opt=name, arch=cfg.name, layers=cfg.num_layers,
+                   reduced=PLACE_WHY, params=cfg.param_count(),
+                   d_flat=step.layout.d_flat, devices=list(PLACE_DEVICES),
+                   batch=PLACE_BATCH, seq=PLACE_SEQ, step_ms_all=ms,
+                   step_ms=statistics.median(ms[1:]), state_bytes=held,
+                   whole_state_bytes=whole, launches_per_step=want,
+                   opt_err=worst)
+        if name == "adamw":
+            row.update(peak_bytes=peak, predicted=pred["device_peak_bytes"],
+                       err=held_peak(f"phase 14's first AdamW step on {dev}",
+                                     pred["device_peak_bytes"], peak),
+                       predicted_rank_peak=pred["rank_peak_bytes"],
+                       predicted_rank_device=pred["rank_peak_device"],
+                       dry_run_s=dry_s)
+        log(f"[place] {cfg.name} ({cfg.num_layers} layers, d_flat "
+            f"{step.layout.d_flat}), {name}, ranks {list(PLACE_DEVICES)}: "
+            f"state on {dev} {held.get(dev, 0) / 1e9:.4f} GB of "
+            f"{whole / 1e9:.4f} GB whole (cpu {held.get('cpu', 0) / 1e9:.4f} "
+            f"GB); {PLACE_STEPS} steps = ranks of the card (EF, bits, nnz bit "
+            f"for bit; master/moments/params "
+            + ("bit for bit" if name == "sgd" else
+               f"{worst:.3e} of scale, limit {PLACE_OPT_RTOL}")
+            + f"); launches/step {want}; step {row['step_ms']:.1f} ms "
+            f"(median of {PLACE_STEPS - 1} after the first, all "
+            f"{[round(x, 1) for x in ms]})"
+            + (f"; peak over step 0 {peak / 1e9:.4f} GB, predicted "
+               f"{pred['device_peak_bytes'] / 1e9:.4f} GB "
+               f"({100 * row['err']:+.2f} %)" if name == "adamw" else "")
+            + f"; {card}")
+        log("[place] " + json.dumps(row))
+        rows.append(row)
+        del state, step, check
+    log(f"[place] phase 14 launches: {total}; the dry run {dry_s:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -4676,6 +4915,8 @@ def main() -> int:
     for name, n in trained.items():
         launches[name] = launches.get(name, 0) + n
     dryrun_path(served, train_rows)
+    for name, n in place_path(level, topq_threshold).items():
+        launches[name] = launches.get(name, 0) + n
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",

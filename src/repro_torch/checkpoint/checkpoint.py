@@ -13,7 +13,11 @@ keep-N GC, in the reference's on-disk format.
 Leaves are walked in ``jax.tree`` order — NamedTuple fields in order
 (path ``.name``), dict keys sorted, tuple entries by index, ``None``
 skipped — and bfloat16 is stored as float32 (npz has no bfloat16), so a
-checkpoint written by either package restores into the other.
+checkpoint written by either package restores into the other. A state
+placed by rank is written in the same global layout (each
+:class:`~repro_torch.train.state.RankPieces` gathered on the CPU, one
+:class:`~repro_torch.train.state.Replicas` tree) and restored onto its
+ranks' devices by ``restore(..., mesh=, specs=)``.
 """
 
 from __future__ import annotations
@@ -26,11 +30,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.train.state import RankPieces, Replicas
+
 _NP_SAVABLE = {"float64", "float32", "float16", "int64", "int32", "int16",
                "int8", "uint8", "uint16", "uint32", "uint64", "bool"}
 
 
 def _numpy(x) -> np.ndarray:
+    if isinstance(x, RankPieces):
+        x = x.gather("cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -52,9 +60,14 @@ def _is_namedtuple(x) -> bool:
 
 
 def _flatten_with_paths(tree: Any, prefix: tuple = ()):
-    """→ [(path parts, leaf)] in the reference's order."""
+    """→ [(path parts, leaf)] in the reference's order (a
+    :class:`RankPieces` is one leaf, a :class:`Replicas` its first tree)."""
     if tree is None:
         return []
+    if isinstance(tree, Replicas):
+        return _flatten_with_paths(tree.trees[0], prefix)
+    if isinstance(tree, RankPieces):
+        return [(prefix, tree)]
     if _is_namedtuple(tree):
         out = []
         for name in tree._fields:
@@ -77,6 +90,8 @@ def _flatten_with_paths(tree: Any, prefix: tuple = ()):
 def _unflatten(template: Any, it) -> Any:
     if template is None:
         return None
+    if isinstance(template, Replicas):
+        return _unflatten(template.trees[0], it)
     if _is_namedtuple(template):
         return type(template)(*(_unflatten(getattr(template, n), it)
                                 for n in template._fields))
@@ -132,13 +147,20 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template: Any, *, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, mesh=None, specs=None) -> Any:
     """Restore into the structure of ``template`` (validates leaf count).
 
     Each leaf takes the template leaf's dtype and lands on ``device``, or
     on the template leaf's device when none is given (a ``meta`` template
-    needs ``device``).
+    needs ``device``). With ``mesh`` and ``specs`` (the reference's
+    ``shardings=``: :func:`~repro_torch.train.step.state_shardings` of the
+    mesh) the template is a train state, whole or placed, and the restored
+    state is placed on ``mesh`` as
+    :func:`~repro_torch.train.step.init_state` places it: each rank's
+    piece lands on its rank's device from the CPU.
     """
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore takes mesh= and specs= together")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -154,11 +176,20 @@ def restore(ckpt_dir: str, template: Any, *, step: Optional[int] = None,
         raise ValueError(
             f"checkpoint has {len(leaves)} leaves, template expects "
             f"{len(t_leaves)} — incompatible TrainConfig?")
+    if mesh is None and any(isinstance(t, RankPieces) for t in t_leaves):
+        raise ValueError("a placed template needs mesh= and specs=")
     out = []
     for tl, arr in zip(t_leaves, leaves):
-        dev = tl.device if device is None else torch.device(device)
+        if mesh is not None:
+            dev = torch.device("cpu")
+        else:
+            dev = tl.device if device is None else torch.device(device)
         if dev.type == "meta":
             raise ValueError("a meta template needs device=")
         out.append(torch.as_tensor(np.array(arr)).to(device=dev,
                                                      dtype=tl.dtype))
-    return _unflatten(template, iter(out))
+    tree = _unflatten(template, iter(out))
+    if mesh is None:
+        return tree
+    from repro_torch.train.step import place_state
+    return place_state(tree, mesh, specs)

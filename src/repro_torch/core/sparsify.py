@@ -53,9 +53,12 @@ def _select_keep(row: Tensor, q: int) -> Tensor:
     if bool(torch.isnan(mag).any()):
         return torch.zeros_like(row, dtype=torch.bool).scatter_(
             -1, _topq_index(row, q), True)
-    kth = torch.topk(mag, q, sorted=False).values.amin()
+    top = torch.topk(mag, q, sorted=False).values
+    kth = top.amin()
     keep = mag > kth
-    rest = q - int(keep.sum())
+    # every entry above the q-th magnitude is among the top q: count them
+    # there (a bool row's sum makes an int64 copy of the row on the card)
+    rest = q - int((top > kth).sum())
     if rest > 0:
         keep[torch.nonzero(mag == kth)[:rest, 0]] = True
     return keep

@@ -6,8 +6,10 @@ fake devices and reads ``memory_analysis``/``cost_analysis``. The port has
 no SPMD compiler; it runs its own step once under ``FakeTensorMode``, at
 the config's full widths and full depth, with every rank on one fake
 device (:func:`fake_device`: ``cuda:0``, or ``cpu`` where torch has no
-CUDA), and counts what that run allocates and computes. Nothing is
-computed on any device, on the CPU or on a card:
+CUDA), and counts what that run allocates and computes; a train cell runs
+once more on a mesh of one fake device per rank (:func:`rank_mesh`), where
+the state is placed by rank, for one rank's bytes. Nothing is computed on
+any device, on the CPU or on a card:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-130m
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \
@@ -28,9 +30,16 @@ A record (:func:`lower_cell`) keeps the reference's keys:
   of the reference's compiled step (``argument_size_in_bytes`` leaves out
   what the reference's ``jax.jit`` drops as unread: a prefill's SSM
   states, an attention-free decode's position). ``alias_size_in_bytes`` is
-  0 (the reference's dry run donates nothing). ``temp_size_in_bytes`` and
-  ``peak_bytes_estimate`` are ``None``, as is ``fits_one_card``: one rank's
-  transients are not measured (the fake run holds every rank on one
+  0 (the reference's dry run donates nothing). For a train cell, among
+  the devices that hold one rank each (every device of
+  :func:`rank_mesh`; ``cuda:0`` of ranks ``cuda:0, cpu, cpu, cpu``) the
+  one with the largest peak gives ``temp_size_in_bytes`` (that peak less
+  its arguments and outputs there), ``peak_bytes_estimate`` (the
+  reference's formula: arguments + outputs + temporaries − aliases) and
+  ``fits_one_card`` (that estimate within 80 GB), and ``rank_peak_bytes``
+  / ``rank_peak_device`` record that device's peak. Where every device
+  holds several ranks they are ``None``: one rank's transients are not
+  measured there (nor for a serving cell, whose step runs on one
   device).
 * ``device_peak_bytes`` — the fake run's peak live bytes on the mesh's
   first device, arguments included: what a card holding the whole mesh
@@ -38,8 +47,10 @@ A record (:func:`lower_cell`) keeps the reference's keys:
   allocator's 512 bytes); ``device_temp_bytes`` — that peak less the
   step's arguments and new outputs there (a serving step updates its
   caches in place); ``port_home_bytes`` (:func:`home_bytes`) — what
-  :func:`~repro_torch.train.step.init_state` puts on that device (train
-  cells; params and cache for the serving cells); ``port_fits_one_card``:
+  :func:`~repro_torch.train.step.init_state` puts on the device that gets
+  the most of the train state (on a mesh of several devices the state is
+  placed by rank; ``port_device_bytes`` lists each device's bytes), or a
+  serving step's params and cache; ``port_fits_one_card``:
   ``device_peak_bytes`` within a card's 80 GB.
 * ``flops`` (``FlopCounterMode``'s formulas), ``bytes_accessed`` (the input and
   output bytes of every non-view aten op: unfused traffic, an upper bound
@@ -57,8 +68,8 @@ data on the host, the run answers with these stand-ins, and only at these
 call sites (any other host read fails the cell with its site named):
 
 * ``core.sparsify._select_keep`` — ``bool(isnan.any())`` → False (no NaN
-  in the row) and ``int(keep.sum())`` → q (q survivors above the q-th
-  magnitude, so no tie is broken);
+  in the row) and ``int((top > kth).sum())`` → q (q survivors above the
+  q-th magnitude, so no tie is broken);
 * ``core.sparsify._compact_rows`` — ``nonzero(row)`` → q nonzeros (the
   first q positions of the row).
 
@@ -99,7 +110,7 @@ from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import model as model_mod
 from repro_torch.models import partition
 from repro_torch.optim.optimizers import OptConfig
-from repro_torch.train.state import TrainConfig, map_state
+from repro_torch.train.state import TrainConfig, map_state, state_leaves
 from repro_torch.train.step import (build_prefill_step, build_serve_step,
                                     build_train_step, dp_size, init_state,
                                     state_shardings)
@@ -174,20 +185,23 @@ def rank_bytes(tree, specs, mesh) -> int:
 
 
 def _leaves(tree) -> list:
-    return [t for t, _ in _pairs(tree, map_state(lambda x: (), tree))]
+    """Every tensor of a tree (a placed state's pieces and replicas)."""
+    return [t for t in state_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def mem_dict(arg: int, out: int) -> dict:
-    """The reference's ``memory_analysis`` keys, per rank; one rank's
-    transients, and so its peak, are not measured (``None``)."""
+def mem_dict(arg: int, out: int, temp: Optional[int] = None) -> dict:
+    """The reference's ``memory_analysis`` keys, per rank; without one
+    rank's transients (``temp``), its peak is not measured (``None``)."""
     return {"argument_size_in_bytes": int(arg),
             "output_size_in_bytes": int(out),
-            "temp_size_in_bytes": None, "alias_size_in_bytes": 0,
-            "peak_bytes_estimate": None}
+            "temp_size_in_bytes": None if temp is None else int(temp),
+            "alias_size_in_bytes": 0,
+            "peak_bytes_estimate": (None if temp is None else
+                                    int(arg) + int(out) + int(temp))}
 
 
 # ---------------------------------------------------------------------------
@@ -587,15 +601,43 @@ def _meta_mesh(mesh):
                      ["meta"] * mesh.size)
 
 
+def rank_mesh(mesh):
+    """``mesh``'s shape and axes with one fake device per rank, ``cpu:r``
+    for rank r (a fake CPU tensor keeps its index; a ``cuda:r`` mesh would
+    need r + 1 cards)."""
+    return make_mesh(tuple(mesh.axis_sizes), mesh.axis_names,
+                     [f"cpu:{r}" for r in range(mesh.size)])
+
+
+def device_state_bytes(cfg: ModelConfig, tc: TrainConfig, mesh,
+                       **init_kw) -> dict:
+    """Bytes of the train state that
+    :func:`~repro_torch.train.step.init_state` (given ``init_kw``:
+    ``topology``, ``cohorts``) puts on each device of ``mesh``
+    (``str(device)`` → bytes, in the mesh's order); on a mesh of several
+    devices from an init on fake tensors (nothing is drawn)."""
+    if len(mesh.distinct()) == 1:
+        return {str(mesh.devices[0]): _nbytes(
+            init_state(cfg, tc, _meta_mesh(mesh), None, **init_kw))}
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    out = {str(d): 0 for d in mesh.distinct()}
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        for t in _leaves(init_state(cfg, tc, mesh, None, **init_kw)):
+            out[str(t.device)] += t.numel() * t.element_size()
+    return out
+
+
 def home_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh,
                tc: Optional[TrainConfig] = None) -> int:
-    """``port_home_bytes`` from specs alone, with no fake run: the bytes of
-    the step's arguments that the port puts on the mesh's first device —
-    the whole train state (:func:`~repro_torch.train.step.init_state`), or
-    a serving step's params and cache. The device peak is at least this."""
+    """``port_home_bytes`` with no fake run of the step: the bytes of the
+    step's arguments that the port puts on one device — the train state on
+    the device that gets the most of it
+    (:func:`~repro_torch.train.step.init_state`; the whole state where the
+    mesh has one device), or a serving step's params and cache. That
+    device's peak is at least this."""
     if shape.kind == "train":
         tc = default_train_config() if tc is None else tc
-        return _nbytes(init_state(cfg, tc, _meta_mesh(mesh), None))
+        return max(device_state_bytes(cfg, tc, mesh).values())
     return _nbytes([model_mod.param_specs(cfg), model_mod.cache_specs(
         cfg, shape.global_batch, shape.seq_len)])
 
@@ -614,7 +656,8 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     ``build_prefill_step``, ``build_serve_step``), built with its plans
     and layout before the fake mode; its arguments are empty tensors of
     the specs' shapes on the mesh's first device, where ``init_state``
-    and the serving loop put them.
+    and the serving loop put them — but for a train state on a mesh of
+    several devices, which ``init_state`` places by rank on fake tensors.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -624,6 +667,11 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
             tc, agg=dataclasses.replace(tc.agg, kernel_mode="ref"))
     home = str(mesh.devices[0])
     rec: dict = {"device": home, "kernel_mode": "ref"}
+    placed = shape.kind == "train" and len(mesh.distinct()) > 1
+    # a device that holds one rank: its transients are that rank's
+    held = collections.Counter(str(d) for d in mesh.devices)
+    solo = ([d for d in held if held[d] == 1] if shape.kind == "train"
+            else [])
     if shape.kind == "train":
         step = build_train_step(cfg, tc, mesh)
         args = [init_state(cfg, tc, _meta_mesh(mesh), None),
@@ -641,12 +689,19 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
               else build_serve_step(cfg, mesh))
         rec["collectives"] = {"collective_permute": 0.0, "count": 0,
                               "format": "none", "total": 0.0}
-    rec["port_home_bytes"] = home_bytes(cfg, shape, mesh, tc)
+    if shape.kind == "train":
+        per_dev = device_state_bytes(cfg, tc, mesh)
+        rec["port_home_bytes"] = max(per_dev.values())
+        rec["port_device_bytes"] = list(per_dev.values())
+    else:
+        rec["port_home_bytes"] = home_bytes(cfg, shape, mesh, tc)
     live = LiveBytes()
     with _own_schedules(), _as_kernels(live), \
             FakeTensorMode(allow_non_fake_inputs=True), live:
         fake = [_materialize(a, home) for a in args]
-        arg_dev = live.live[home]
+        if placed:
+            fake[0] = init_state(cfg, tc, mesh, None)
+        arg_devs = collections.Counter(live.live)
         entry = {id(t.untyped_storage()) for t in _leaves(fake)}
         live.reset()
         if shape.kind == "train":
@@ -661,14 +716,31 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
         del fake
         # the outputs' new storages (a serving step's caches are its
         # arguments, updated in place)
-        new = {id(t.untyped_storage()): t.untyped_storage().nbytes()
-               for t in _leaves(out) if str(t.device) == home}
-        out_dev = sum(n for k, n in new.items() if k not in entry)
-        peak = live.peak[home]
+        new = {id(t.untyped_storage()): (str(t.device),
+                                         t.untyped_storage().nbytes())
+               for t in _leaves(out)}
+        out_devs = collections.Counter()
+        for key, (dev, nb) in new.items():
+            if key not in entry:
+                out_devs[dev] += nb
+        peaks = collections.Counter(live.peak)
+    # a placed output state has the input's global shapes
+    out_global = [kept[0], out[1]] if placed else out
     arg = sum(rank_bytes(a, s, mesh) for a, s in zip(kept, specs))
-    outb = (sum(rank_bytes(o, s, mesh) for o, s in zip(out, out_specs))
-            + TUPLE_ENTRY_BYTES * len(_leaves(out)))
-    rec.update(memory_analysis=mem_dict(arg, outb),
+    outb = (sum(rank_bytes(o, s, mesh) for o, s in zip(out_global,
+                                                        out_specs))
+            + TUPLE_ENTRY_BYTES * len(_leaves(out_global)))
+    temp = None
+    if solo:
+        # one rank's transients, from the rank device with the largest peak
+        top = max(solo, key=peaks.get)
+        temp = max(0, peaks[top] - arg_devs[top] - out_devs[top])
+        rec.update(rank_peak_device=top, rank_peak_bytes=int(peaks[top]))
+    peak, arg_dev, out_dev = peaks[home], arg_devs[home], out_devs[home]
+    mem = mem_dict(arg, outb, temp)
+    if solo:
+        rec["fits_one_card"] = mem["peak_bytes_estimate"] <= CARD_BYTES
+    rec.update(memory_analysis=mem,
                device_peak_bytes=int(peak),
                device_temp_bytes=int(max(0, peak - arg_dev - out_dev)),
                device_argument_bytes=int(arg_dev),
@@ -714,13 +786,20 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     t0 = time.time()
     got = dry_run_cell(cfg, shape, mesh, tc)
     t_trace = time.time() - t0
+    if shape.kind == "train" and mesh.size > 1:
+        # one rank's share: the state placed by rank, one device a rank
+        t1 = time.time()
+        per = dry_run_cell(cfg, shape, rank_mesh(mesh), tc)
+        got.update({k: per[k] for k in (
+            "memory_analysis", "port_home_bytes", "port_device_bytes",
+            "fits_one_card", "rank_peak_bytes", "rank_peak_device")},
+            rank_trace_s=round(time.time() - t1, 1))
     mf = model_flops_for(cfg, shape, shape.kind)
     rl = Roofline(flops=got["flops"] / mesh.size,
                   bytes_accessed=got["bytes_accessed"] / mesh.size,
                   wire_bytes=got["collectives"]["total"],
                   model_flops=mf, chips=mesh.size)
-    rec.update({"trace_s": round(t_trace, 1), **got,
-                "fits_one_card": None,
+    rec.update({"trace_s": round(t_trace, 1), "fits_one_card": None, **got,
                 "port_fits_one_card": got["device_peak_bytes"] <= CARD_BYTES,
                 "roofline": rl.as_dict()})
     if verbose:
@@ -734,6 +813,13 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
               f"spec-peak model: bottleneck={rl.bottleneck}, "
               f"roofline={rl.roofline_fraction:.3f} (trace {t_trace:.0f}s)")
         print(f"  memory_analysis: {mem}")
+        if mem["peak_bytes_estimate"] is not None:
+            print(f"  one rank: fullest device's state "
+                  f"{rec['port_home_bytes'] / 1e9:.2f} GB, peak "
+                  f"{rec['rank_peak_bytes'] / 1e9:.2f} GB on "
+                  f"{rec['rank_peak_device']}, estimate "
+                  f"{mem['peak_bytes_estimate'] / 1e9:.2f} GB, fits one card "
+                  f"{rec['fits_one_card']}")
     return rec
 
 

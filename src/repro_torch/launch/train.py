@@ -8,8 +8,10 @@
 (pod, data, model)). With ``--device`` every rank sits on that device
 (``--device cuda:0 --mesh 4x1``: four ranks on one card; ``--device cpu``:
 on the CPU); without it each rank takes a card of its own, and the mesh
-defaults to one rank per visible card. Resumes from the newest checkpoint
-in ``--ckpt-dir`` if present.
+defaults to one rank per visible card. On a mesh of several devices the
+state is placed by rank (``train.step.init_state``). Resumes from the
+newest checkpoint in ``--ckpt-dir`` if present, each rank's piece restored
+onto its rank's device.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from repro_torch.models.stubs import audio_stub_embeds, vision_stub_embeds
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.runtime.fault import StragglerModel
 from repro_torch.train.state import TrainConfig, abstract_like
-from repro_torch.train.step import build_train_step, dp_size, init_state
+from repro_torch.train.step import (build_train_step, dp_size, init_state,
+                                   state_shardings)
 
 
 def _topology(name: str, k: int):
@@ -126,8 +129,9 @@ def main(argv=None) -> None:
                        torch.Generator(device=home).manual_seed(args.seed),
                        topology=agg_plan)
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-        state = ckpt.restore(args.ckpt_dir, abstract_like(state),
-                             device=home)
+        state = ckpt.restore(args.ckpt_dir, abstract_like(state), mesh=mesh,
+                             specs=state_shardings(cfg, tc, mesh,
+                                                   topology=agg_plan))
         print(f"resumed from step {int(state.step)}")
     step_fn = build_train_step(cfg, tc, mesh, topology=agg_plan)
 

@@ -86,12 +86,16 @@ def _adam_update(cfg: OptConfig, p, m, v, t):
 
 
 def apply_flat(cfg: OptConfig, state: FlatOptState, params: Tensor,
-               grad: Tensor, lr_scale=1.0) -> tuple:
-    """One elementwise update in flat fp32 space → (params, state)."""
+               grad: Tensor, lr_scale=1.0, sq_sum=None) -> tuple:
+    """One elementwise update in flat fp32 space → (params, state).
+
+    ``sq_sum``: the whole gradient's Σ g² for ``grad_clip`` when ``grad``
+    is one piece of it (default: ``grad``'s own)."""
     g = grad.to(torch.float32)
     p = params.to(torch.float32)
     if cfg.grad_clip > 0:
-        g = g * _clip_scale(cfg, torch.sum(g * g))
+        g = g * _clip_scale(cfg, torch.sum(g * g) if sq_sum is None
+                            else sq_sum.to(g.device))
     step = state.step + 1
     lr = (cfg.lr * _f32(lr_scale)).to(p.device)
     if cfg.name == "sgd":

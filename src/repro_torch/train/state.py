@@ -4,6 +4,14 @@ port of :mod:`repro.train.state`).
 The aggregation state (per-client error feedback, TCS previous params) is
 *training state*, exactly like optimizer moments — losing it silently
 changes convergence (the paper's EF banks untransmitted gradient mass).
+
+On a mesh of several devices a state's leaves are placed by rank
+(:func:`repro_torch.train.step.init_state`): a flat leaf is a
+:class:`RankPieces` (one piece per rank, on that rank's device) and the
+params a :class:`Replicas` (the whole tree on each device that computes a
+client). :func:`map_state`, :func:`abstract_like` and :func:`state_to`
+keep that structure; :func:`gather_state` gives the reference's global
+layout, whole tensors on one device.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.core.algorithms import AggConfig, AggKind
+from repro_torch.device import to_device
 from repro_torch.optim.optimizers import FlatOptState, OptConfig
 
 Tensor = torch.Tensor
@@ -52,11 +61,65 @@ class TrainState(NamedTuple):
     stage_ef: Optional[tuple] = None
 
 
+class RankPieces:
+    """A flat leaf placed by rank: ``pieces[r]`` is rank r's piece on that
+    rank's device (r = k·M + m for DP rank k and model column m), and
+    ``index[r]`` where it sits in the global leaf — ``(slice,)`` along the
+    last axis (master, moments, aggregate) or ``(row, slice)`` (EF, stage
+    EF). ``tail`` is the global leaf's shape past the axes every piece
+    keeps whole (a cohort axis leads each piece)."""
+
+    __slots__ = ("pieces", "index", "tail")
+
+    def __init__(self, pieces, index, tail):
+        self.pieces, self.index, self.tail = (tuple(pieces), tuple(index),
+                                              tuple(tail))
+
+    def map(self, fn) -> "RankPieces":
+        return RankPieces([fn(p) for p in self.pieces], self.index,
+                          self.tail)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    @property
+    def shape(self) -> tuple:
+        """The global leaf's shape."""
+        return tuple(self.pieces[0].shape[:-1]) + self.tail
+
+    def gather(self, device) -> Tensor:
+        """The global leaf on ``device``."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for p, ix in zip(self.pieces, self.index):
+            out[(Ellipsis,) + ix] = to_device(p, out.device)
+        return out
+
+
+class Replicas:
+    """A tree held whole on each of several devices: ``trees[i]`` on
+    ``devices[i]``."""
+
+    __slots__ = ("devices", "trees")
+
+    def __init__(self, devices, trees):
+        self.devices, self.trees = tuple(devices), tuple(trees)
+
+    def on(self, device) -> Any:
+        return self.trees[self.devices.index(torch.device(device))]
+
+    def map(self, fn) -> "Replicas":
+        return Replicas(self.devices, [map_state(fn, t) for t in self.trees])
+
+
 def map_state(fn, tree: Any) -> Any:
-    """``fn`` on every tensor of a state tree (NamedTuples, dicts, tuples;
-    ``None`` stays ``None``), keeping its structure."""
+    """``fn`` on every tensor of a state tree (NamedTuples, dicts, tuples,
+    :class:`RankPieces` and :class:`Replicas`; ``None`` stays ``None``),
+    keeping its structure."""
     if tree is None:
         return None
+    if isinstance(tree, (RankPieces, Replicas)):
+        return tree.map(fn)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(map_state(fn, v) for v in tree))
     if isinstance(tree, dict):
@@ -64,6 +127,13 @@ def map_state(fn, tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(map_state(fn, v) for v in tree)
     return fn(tree)
+
+
+def state_leaves(tree: Any) -> list:
+    """Every tensor of a state tree, each piece and replica included."""
+    out: list = []
+    map_state(out.append, tree)
+    return out
 
 
 def abstract_like(tree: Any) -> Any:
@@ -75,5 +145,25 @@ def abstract_like(tree: Any) -> Any:
 
 def state_to(tree: Any, device) -> Any:
     """The same tree with every tensor copied to ``device`` (the
-    reference's ``jax.device_put`` of a whole state)."""
+    reference's ``jax.device_put`` of a whole state; a placed state keeps
+    its pieces, all on ``device``)."""
     return map_state(lambda x: x.to(device), tree)
+
+
+def gather_state(tree: Any, device) -> Any:
+    """A placed state in the reference's global layout: each
+    :class:`RankPieces` gathered whole and one :class:`Replicas` tree,
+    every tensor on ``device``."""
+    if tree is None:
+        return None
+    if isinstance(tree, RankPieces):
+        return tree.gather(device)
+    if isinstance(tree, Replicas):
+        return gather_state(tree.trees[0], device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(gather_state(v, device) for v in tree))
+    if isinstance(tree, dict):
+        return {k: gather_state(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(gather_state(v, device) for v in tree)
+    return to_device(tree, torch.device(device))

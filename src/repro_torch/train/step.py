@@ -9,7 +9,7 @@ of local devices and runs the same three phases as named methods of
   1. :meth:`TrainStep.phase1` (the reference's ``per_client``; one client
      is :meth:`TrainStep.client_grad`) — per-client gradients: for each DP
      rank k, ``loss_fn`` + autograd on that rank's slice of the batch, on
-     the device of rank (k, 0), with one params copy per distinct device.
+     the device of rank (k, 0), which holds the params.
      The model axis computes nothing of its own: the (k, m) ranks of one
      client share that client's gradient (the one-process counterpart of
      the reference's TP compute, with the same numbers). The reported loss
@@ -27,21 +27,48 @@ of local devices and runs the same three phases as named methods of
      in a fixed pairwise order;
   3. :meth:`TrainStep.update` — the flat optimizer on the fp32 master
      (``grad_est = agg / max(Σ w·p, 1e-9)``, :func:`lr_schedule`,
-     :func:`apply_flat`), the downlink (flat master → param tree), and the
-     TCS reference refresh.
+     :func:`apply_flat`; on a placed state piece by piece, each on its
+     rank's device), the downlink (flat master → param tree), and the TCS
+     reference refresh.
 
-The :class:`~repro_torch.train.state.TrainState` keeps the reference's
-global layout: ``master [d_flat]``, ``ef [K_dp, d_flat]`` (row k, column
-block m is rank (k, m)'s EF) and ``stage_ef``. Rank (k, m) owns segment
-``_owned_segment(k)`` of column m — its DP rank for flat topologies, its
+Rank (k, m) is DP rank k in model column m. It owns segment
+``_owned_segment(k)`` of column m: its DP rank for flat topologies, its
 position in stage order (reversed DP axes) for nested ones. The global
-vectors do not depend on that order; only the ownership does. The state
-lives on the mesh's first device: where every rank shares one device
-(``["cuda:0"] * K``, ``["cpu"] * K``) each rank's piece is a view of it,
-and on a mesh of several devices each piece is copied to its rank's device
-for the round and back. Placement is still decided by :func:`init_state`
-(the whole state on the mesh's first device); :func:`state_shardings` gives
-what each rank owns under the reference's program, as spec data.
+vectors do not depend on that order; only the ownership does. Where every
+rank shares one device (``["cuda:0"] * K``, ``["cpu"] * K``) the
+:class:`~repro_torch.train.state.TrainState` keeps the reference's global
+layout, whole tensors on that device, and each rank's piece is a view of
+it. On a mesh of several devices :func:`init_state` places the state by
+rank (:func:`place_state` places a whole one,
+:func:`~repro_torch.train.state.gather_state` gathers it back), by the
+specs of :func:`state_shardings`:
+
+  ================================  ===================  ==================
+  leaf                              spec                 where it lives
+  ================================  ===================  ==================
+  ``master``, ``opt.m``, ``opt.v``  :func:`flat_spec`    rank (k, m): its
+                                    (nested:             owned segment of
+                                    :func:`nested_flat_  column m, ``seg``
+                                    spec`)               long
+  ``ef``, each ``stage_ef`` tier    ``(dp, "model")``    rank (k, m): row k,
+                                                         column block m
+  ``params``                        ``param_pspecs``     whole, on each
+                                                         distinct device of
+                                                         the ranks (k, 0)
+  ``tcs_prev``                      ``param_pspecs``     with the params
+  ``step``, ``opt.step``            replicated           the mesh's first
+                                                         device
+  ================================  ===================  ==================
+
+The flat leaves are :class:`~repro_torch.train.state.RankPieces`, the
+params and ``tcs_prev`` :class:`~repro_torch.train.state.Replicas`. The
+params are whole where the reference shards them over ``model``: phase 1
+computes client k's whole gradient on rank (k, 0) (the model axis computes
+nothing of its own), so each (k, 0) device holds the params, and that is
+the one gap to the reference's per-rank bytes. ``tcs_prev`` stays with
+them: the TCS mask's Δ reads both on rank (0, 0)'s device, and its refresh
+is a cast of the old params on each device, with no copy between devices
+(the reference holds column m's share on rank (k, m)).
 """
 
 from __future__ import annotations
@@ -66,8 +93,8 @@ from repro_torch.models import partition
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.optim import optimizers as opt_mod
 from repro_torch.optim.schedule import lr_schedule
-from repro_torch.train.state import (TrainConfig, TrainState,
-                                    map_state)
+from repro_torch.train.state import (RankPieces, Replicas, TrainConfig,
+                                    TrainState, map_state, state_to)
 
 Tensor = torch.Tensor
 
@@ -243,6 +270,104 @@ def _home(mesh) -> torch.device:
     return mesh.devices[0]
 
 
+def _placed(mesh) -> bool:
+    """Does ``mesh`` place its state by rank (several devices)?"""
+    return len(mesh.distinct()) > 1
+
+
+def param_devices(mesh) -> tuple:
+    """The distinct devices of the ranks (k, 0), in DP order: each holds
+    the params (the mesh's first device first)."""
+    return tuple(dict.fromkeys(rank_device(mesh, k, 0)
+                               for k in range(dp_size(mesh))))
+
+
+def _block(mesh, coords: dict, entry) -> tuple:
+    """(block index, block count) of a spec entry at rank ``coords``: the
+    row-major index over the entry's axes."""
+    idx, n = 0, 1
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        if a not in mesh.shape:
+            continue
+        idx = idx * mesh.shape[a] + coords[a]
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def _shard_index(mesh, spec: tuple, shape: tuple, k: int, m: int) -> tuple:
+    """Rank (k, m)'s index into a leaf of ``shape`` under ``spec`` (the
+    leading ``None`` entries kept whole); a sharded axis with one entry a
+    rank, not the last, is indexed by its position."""
+    spec = tuple(spec)
+    lead = 0
+    while lead < len(spec) and spec[lead] is None:
+        lead += 1
+    if lead == len(spec) or any(e is None for e in spec[lead:]) \
+            or len(spec) != len(shape):
+        raise ValueError(f"spec {spec} does not place a piece of {shape} "
+                         f"per rank")
+    coords = _dp_coords(mesh, k)
+    coords["model"] = m
+    ix = []
+    for i, entry in enumerate(spec[lead:], lead):
+        b, n = _block(mesh, coords, entry)
+        size = shape[i] // n
+        if size == 1 and i < len(shape) - 1:
+            ix.append(b)
+        else:
+            ix.append(slice(b * size, (b + 1) * size))
+    return tuple(ix), tuple(shape[lead:])
+
+
+def _ranks(mesh) -> list:
+    """(k, m) in rank order."""
+    return [(k, m) for k in range(dp_size(mesh))
+            for m in range(model_size(mesh))]
+
+
+def _put(x: Tensor, dev) -> Tensor:
+    """A copy of ``x`` of its own on ``dev``."""
+    return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+
+
+def _on(x: Tensor, dev) -> Tensor:
+    """``x`` on exactly ``dev`` (``cpu`` and ``cpu:0`` are two mesh
+    devices): itself if it is there, else a copy."""
+    return x if x.device == torch.device(dev) else _put(x, dev)
+
+
+def shard_leaf(x: Tensor, spec: tuple, mesh) -> RankPieces:
+    """A whole leaf → its rank pieces under ``spec``, each copied to its
+    rank's device."""
+    pieces, index, tail = [], [], None
+    for k, m in _ranks(mesh):
+        ix, tail = _shard_index(mesh, spec, tuple(x.shape), k, m)
+        pieces.append(_put(x[(Ellipsis,) + ix], rank_device(mesh, k, m)))
+        index.append(ix)
+    return RankPieces(pieces, index, tail)
+
+
+def zeros_leaf(shape: tuple, dtype: torch.dtype, spec: tuple,
+               mesh) -> RankPieces:
+    """Zero rank pieces of a leaf of ``shape`` under ``spec``, each made on
+    its rank's device."""
+    pieces, index, tail = [], [], None
+    probe = torch.empty(shape, dtype=dtype, device="meta")
+    for k, m in _ranks(mesh):
+        ix, tail = _shard_index(mesh, spec, tuple(shape), k, m)
+        pieces.append(torch.zeros(probe[(Ellipsis,) + ix].shape, dtype=dtype,
+                                  device=rank_device(mesh, k, m)))
+        index.append(ix)
+    return RankPieces(pieces, index, tail)
+
+
+def _replicate(tree, devices) -> Replicas:
+    """``tree`` whole on each of ``devices`` (its own tensors where they
+    already are there)."""
+    return Replicas(devices, [tree_map(lambda x: _on(x, d), tree)
+                              for d in devices])
+
+
 # ---------------------------------------------------------------------------
 # State init
 # ---------------------------------------------------------------------------
@@ -266,8 +391,10 @@ def _master_from_params(cfg: ModelConfig, mesh, layout: FlatLayout, params,
 def init_state(cfg: ModelConfig, tc: TrainConfig, mesh,
                generator: Optional[torch.Generator],
                topology: Any = None, cohorts: int = 1) -> TrainState:
-    """Materializing init on the mesh's first device (params drawn from
-    ``generator``, as :func:`repro_torch.models.model.init_params`).
+    """Materializing init (params drawn from ``generator`` on the mesh's
+    first device, as :func:`repro_torch.models.model.init_params`), placed
+    as the module docstring says: whole on a mesh of one device, by rank on
+    a mesh of several.
 
     ``topology`` must match the one later given to
     :func:`build_train_step`: a nested topology adds the upper EF tiers
@@ -288,20 +415,67 @@ def init_state(cfg: ModelConfig, tc: TrainConfig, mesh,
     params = model_mod.init_params(cfg, generator, home)
     order = None if nested is None else _stage_order(n_axes)
     master = _master_from_params(cfg, mesh, layout, params, order=order)
-    opt = opt_mod.init_flat(tc.opt, layout.d_flat, like=master)
-    ef = torch.zeros((k_dp, layout.d_flat), dtype=_dtype(tc.ef_dtype),
-                     device=home)
-    stage_ef = None
-    if nested is not None:
-        stage_ef = tuple(
-            torch.zeros((k_dp, dim), dtype=_dtype(tc.ef_dtype), device=home)
-            for dim in _stage_ef_dims(mesh, n_axes, layout.d_flat))
+    ef_dt = _dtype(tc.ef_dtype)
+    tier_dims = (() if nested is None else
+                 _stage_ef_dims(mesh, n_axes, layout.d_flat))
     tcs_prev = None
     if tc.needs_tcs():
         tcs_prev = tree_map(lambda p: p.to(_dtype(tc.agg_dtype)), params)
-    return TrainState(step=torch.zeros((), dtype=torch.int32, device=home),
-                      params=params, master=master, opt=opt, ef=ef,
-                      tcs_prev=tcs_prev, stage_ef=stage_ef)
+    step = torch.zeros((), dtype=torch.int32, device=home)
+    if not _placed(mesh):
+        opt = opt_mod.init_flat(tc.opt, layout.d_flat, like=master)
+        ef = torch.zeros((k_dp, layout.d_flat), dtype=ef_dt, device=home)
+        stage_ef = None
+        if nested is not None:
+            stage_ef = tuple(
+                torch.zeros((k_dp, dim), dtype=ef_dt, device=home)
+                for dim in tier_dims)
+        return TrainState(step=step, params=params, master=master, opt=opt,
+                          ef=ef, tcs_prev=tcs_prev, stage_ef=stage_ef)
+    specs = state_shardings(cfg, tc, mesh, topology)
+    devs = param_devices(mesh)
+    flat = (layout.d_flat,)
+    opt = opt_mod.FlatOptState(
+        step=torch.zeros((), dtype=torch.int32, device=home),
+        m=(None if specs.opt.m is None else
+           zeros_leaf(flat, torch.float32, specs.opt.m, mesh)),
+        v=(None if specs.opt.v is None else
+           zeros_leaf(flat, torch.float32, specs.opt.v, mesh)))
+    return TrainState(
+        step=step, params=_replicate(params, devs),
+        master=shard_leaf(master, specs.master, mesh), opt=opt,
+        ef=zeros_leaf((k_dp, layout.d_flat), ef_dt, specs.ef, mesh),
+        tcs_prev=None if tcs_prev is None else _replicate(tcs_prev, devs),
+        stage_ef=None if nested is None else tuple(
+            zeros_leaf((k_dp, dim), ef_dt, spec, mesh)
+            for dim, spec in zip(tier_dims, specs.stage_ef)))
+
+
+def place_state(state: TrainState, mesh, specs: TrainState) -> TrainState:
+    """A state of whole tensors (the reference's global layout, on any
+    device) placed on ``mesh`` as :func:`init_state` places it: by the
+    specs of :func:`state_shardings` (``specs``) on a mesh of several
+    devices, whole on the device of a mesh of one."""
+    home = _home(mesh)
+    if not _placed(mesh):
+        return state_to(state, home)
+    devs = param_devices(mesh)
+
+    def shard(x, spec):
+        return None if x is None else shard_leaf(x, spec, mesh)
+
+    return TrainState(
+        step=_on(state.step, home),
+        params=_replicate(state.params, devs),
+        master=shard(state.master, specs.master),
+        opt=opt_mod.FlatOptState(step=_on(state.opt.step, home),
+                                 m=shard(state.opt.m, specs.opt.m),
+                                 v=shard(state.opt.v, specs.opt.v)),
+        ef=shard(state.ef, specs.ef),
+        tcs_prev=(None if state.tcs_prev is None else
+                  _replicate(state.tcs_prev, devs)),
+        stage_ef=None if state.stage_ef is None else tuple(
+            shard(e, sp) for e, sp in zip(state.stage_ef, specs.stage_ef)))
 
 
 def _stack_states(states: list):
@@ -309,6 +483,14 @@ def _stack_states(states: list):
     first = states[0]
     if first is None:
         return None
+    if isinstance(first, RankPieces):
+        return RankPieces([torch.stack([s.pieces[r] for s in states])
+                           for r in range(len(first.pieces))],
+                          first.index, first.tail)
+    if isinstance(first, Replicas):
+        return Replicas(first.devices, [
+            _stack_states([s.trees[i] for s in states])
+            for i in range(len(first.trees))])
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(_stack_states([getattr(s, f) for s in states])
                              for f in first._fields))
@@ -430,26 +612,42 @@ class TrainStep:
                                        for k in range(k_dp)])
             for m in range(self.m)]
         self.structure = tree_structure(model_mod.param_specs(cfg))
+        self.placed = _placed(mesh)
+        self.param_devs = param_devices(mesh)
+        # rank (k, m)'s piece of a flat leaf (and of the aggregate)
+        n = layout.n_local
+        self.flat_index = [
+            (slice(m * n + self.owned[k] * self.seg,
+                   m * n + (self.owned[k] + 1) * self.seg),)
+            for k, m in _ranks(mesh)]
 
     # ---- phase 1: per-client gradients ---------------------------------
-    def _params_on(self, params, copies: dict, dev):
-        if dev not in copies:
-            copies[dev] = [to_device(p, dev) for p in tree_leaves(params)]
-        return copies[dev]
+    def _at_home(self, tree):
+        """The copy of the params (or ``tcs_prev``) on the first device."""
+        return tree.on(self.home) if isinstance(tree, Replicas) else tree
 
-    def client_grad(self, params, batch: dict, k: int,
-                    copies: Optional[dict] = None) -> tuple:
+    def _check_form(self, state: TrainState) -> None:
+        if isinstance(state.master, RankPieces) != self.placed:
+            raise ValueError(
+                "a mesh of several devices takes a state placed by rank, a "
+                "mesh of one a whole state (init_state and place_state "
+                "give the mesh's form)")
+
+    def client_grad(self, params, batch: dict, k: int) -> tuple:
         """Client k's ``(gradient leaves, loss)`` on its slice of the
-        global batch, on the device of rank (k, 0)."""
-        copies = {} if copies is None else copies
+        global batch, on the device of rank (k, 0) (``params`` whole on the
+        mesh's one device, or :class:`~repro_torch.train.state.Replicas`
+        holding them there)."""
         dev = rank_device(self.mesh, k, 0)
+        if isinstance(params, Replicas):
+            params = params.on(dev)
         b = batch["tokens"].shape[0]
         if b % self.k_dp:
             raise ValueError(f"global batch {b} does not split over "
                              f"{self.k_dp} DP ranks")
         per = b // self.k_dp
-        leaves = [p.detach().requires_grad_(True)
-                  for p in self._params_on(params, copies, dev)]
+        leaves = [to_device(p, dev).detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
         local = {name: to_device(v[k * per:(k + 1) * per], dev)
                  for name, v in batch.items()}
         with torch.enable_grad():
@@ -479,6 +677,7 @@ class TrainStep:
         sharded search over the M columns with counts from
         :func:`~repro_torch.kernels.ops.count_ge`."""
         acfg = self.agg_cfg
+        params, prev = self._at_home(params), self._at_home(prev)
         deltas = []
         for m in range(self.m):
             dev = rank_device(self.mesh, 0, m)
@@ -499,32 +698,44 @@ class TrainStep:
             masks.append(keep.to(self.agg_dt))
         return masks
 
-    def aggregate(self, cols: list, ef: Tensor, stage_ef, weights,
+    def aggregate(self, cols: list, ef, stage_ef, weights,
                   participate, masks: Optional[list] = None) -> tuple:
         """Phase 2. ``cols[k][m]``: rank (k, m)'s ``[n_local]`` column;
-        ``ef [K_dp, d_flat]``; ``weights``/``participate`` K_dp values.
+        ``ef [K_dp, d_flat]`` (or its rank pieces); ``weights``/
+        ``participate`` K_dp values.
 
         → ``(agg [d_flat] f32, ef [K_dp, d_flat], stage_ef, RingStats
-        summed over every rank, relay bits or None)``.
+        summed over every rank, relay bits or None)``; for a placed ``ef``
+        the aggregate, EF and stage EF come back as rank pieces, each on
+        its rank's device (the aggregate's piece is the rank's owned
+        segment).
         """
         from repro_torch.agg.device import (run_nested_segments_local,
                                             run_plan_segments_local)
-        n, k_dp = self.layout.n_local, self.k_dp
+        n, k_dp, m_cols = self.layout.n_local, self.k_dp, self.m
         seg = self.seg
-        agg = torch.empty((self.layout.d_flat,), dtype=torch.float32,
-                          device=self.home)
-        ef_new = torch.empty_like(ef)
-        se_new = (None if stage_ef is None else
-                  tuple(torch.empty_like(e) for e in stage_ef))
+        placed = isinstance(ef, RankPieces)
+        if placed:
+            agg_p, ef_p = [None] * (k_dp * m_cols), [None] * (k_dp * m_cols)
+            se_p = [[None] * (k_dp * m_cols) for _ in stage_ef or ()]
+        else:
+            agg = torch.empty((self.layout.d_flat,), dtype=torch.float32,
+                              device=self.home)
+            ef_new = torch.empty_like(ef)
+            se_new = (None if stage_ef is None else
+                      tuple(torch.empty_like(e) for e in stage_ef))
         w = [float(x) for x in weights]
         p = [float(x) for x in participate]
         rank_stats, relay = [], []
-        for m in range(self.m):
+        for m in range(m_cols):
             cmesh = self.col_meshes[m]
             devs = cmesh.devices
             flat = [cols[k][m] for k in range(k_dp)]
-            ef_l = [to_device(ef[k, m * n:(m + 1) * n], devs[k])
-                    for k in range(k_dp)]
+            if placed:
+                ef_l = [ef.pieces[k * m_cols + m] for k in range(k_dp)]
+            else:
+                ef_l = [to_device(ef[k, m * n:(m + 1) * n], devs[k])
+                        for k in range(k_dp)]
             gm = (None if masks is None else
                   [to_device(masks[m], devs[k]) for k in range(k_dp)])
             if self.nested is None:
@@ -532,17 +743,24 @@ class TrainStep:
                     self.agg_cfg, self.plan, cmesh, flat, ef_l, w,
                     global_mask=gm, participate=p, transport="static")
             else:
-                se_l = [[to_device(e[k, m * (e.shape[1] // self.m):
-                                     (m + 1) * (e.shape[1] // self.m)],
-                                   devs[k]) for k in range(k_dp)]
-                        for e in stage_ef]
+                if placed:
+                    se_l = [[e.pieces[k * m_cols + m] for k in range(k_dp)]
+                            for e in stage_ef]
+                else:
+                    se_l = [[to_device(
+                        e[k, m * (e.shape[1] // m_cols):
+                          (m + 1) * (e.shape[1] // m_cols)], devs[k])
+                        for k in range(k_dp)] for e in stage_ef]
                 final, e_out, s_out, st_s = run_nested_segments_local(
                     self.agg_cfg, self.plan, cmesh, flat, ef_l, se_l, w,
                     sizes=self.sizes, global_mask=gm, participate=p)
-                for e_dst, tier in zip(se_new, s_out):
-                    width = e_dst.shape[1] // self.m
+                for t, tier in enumerate(s_out):
                     for k in range(k_dp):
-                        e_dst[k, m * width:(m + 1) * width] = tier[k]
+                        if placed:
+                            se_p[t][k * m_cols + m] = tier[k]
+                        else:
+                            width = se_new[t].shape[1] // m_cols
+                            se_new[t][k, m * width:(m + 1) * width] = tier[k]
                 sts = [ring_mod.RingStats(
                     bits=sum(st[k].bits for st in st_s),
                     nnz=sum(st[k].nnz for st in st_s),
@@ -550,17 +768,31 @@ class TrainStep:
                     for k in range(k_dp)]
                 relay.append([st_s[-1][k].bits for k in range(k_dp)])
             for k in range(k_dp):
-                off = m * n + self.owned[k] * seg
-                agg[off:off + seg] = final[k]
-                ef_new[k, m * n:(m + 1) * n] = e_out[k]
+                if placed:
+                    agg_p[k * m_cols + m] = final[k]
+                    ef_p[k * m_cols + m] = e_out[k]
+                else:
+                    off = m * n + self.owned[k] * seg
+                    agg[off:off + seg] = final[k]
+                    ef_new[k, m * n:(m + 1) * n] = e_out[k]
             rank_stats.append(sts)
             del final, e_out, flat, ef_l
-        # every rank's stats, rank order (k, m), summed pairwise
-        order = [(k, m) for k in range(k_dp) for m in range(self.m)]
+        if placed:
+            agg = RankPieces(agg_p, self.flat_index, (self.layout.d_flat,))
+            ef_new = RankPieces(ef_p, ef.index, ef.tail)
+            se_new = (None if stage_ef is None else tuple(
+                RankPieces(pieces, e.index, e.tail)
+                for pieces, e in zip(se_p, stage_ef)))
+        stats, relay_bits = self._sum_stats(rank_stats, relay)
+        return agg, ef_new, se_new, stats, relay_bits
+
+    def _sum_stats(self, rank_stats: list, relay: list) -> tuple:
+        """Every rank's stats, rank order (k, m), summed pairwise on the
+        first device → (RingStats, relay bits or None)."""
+        order = _ranks(self.mesh)
         stacked = torch.stack([torch.stack([
-            to_device(rank_stats[m][k].bits, self.home).to(torch.float32),
-            to_device(rank_stats[m][k].nnz, self.home).to(torch.float32),
-            to_device(rank_stats[m][k].err_sq, self.home).to(torch.float32)])
+            to_device(getattr(rank_stats[m][k], f), self.home).to(
+                torch.float32) for f in ("bits", "nnz", "err_sq")])
             for k, m in order], -1)
         tot = _slot_sum(stacked)
         stats = ring_mod.RingStats(bits=tot[0], nnz=tot[1], err_sq=tot[2])
@@ -569,12 +801,14 @@ class TrainStep:
             relay_bits = _slot_sum(torch.stack(
                 [to_device(relay[m][k], self.home).to(torch.float32)
                  for k, m in order]))
-        return agg, ef_new, se_new, stats, relay_bits
+        return stats, relay_bits
 
     # ---- phase 3: flat optimizer + downlink ----------------------------
-    def update(self, state: TrainState, agg: Tensor, weights,
+    def update(self, state: TrainState, agg, weights,
                participate) -> tuple:
-        """Phase 3 → ``(master, opt state, params, tcs_prev, lr_scale)``."""
+        """Phase 3 → ``(master, opt state, params, tcs_prev, lr_scale)``.
+        A placed state updates piece by piece, each on its rank's device
+        (``grad_clip``'s Σ g² summed over the pieces in rank order)."""
         tc = self.tc
         terms = (torch.tensor(weights, dtype=torch.float32)
                  * torch.tensor(participate, dtype=torch.float32))
@@ -582,22 +816,93 @@ class TrainStep:
         for t in terms[1:]:
             total = total + t
         total_w = torch.clamp(total, min=1e-9).to(self.home)
-        grad_est = agg.to(torch.float32) / total_w
         lr_scale = lr_schedule(state.step, warmup=tc.lr_warmup,
                                decay_steps=tc.lr_decay_steps)
-        master, opt = opt_mod.apply_flat(tc.opt, state.opt, state.master,
-                                         grad_est, lr_scale)
-        del grad_est
+        if not isinstance(agg, RankPieces):
+            grad_est = agg.to(torch.float32) / total_w
+            master, opt = opt_mod.apply_flat(tc.opt, state.opt, state.master,
+                                             grad_est, lr_scale)
+            del grad_est
+        else:
+            master, opt = self._update_pieces(state, agg, total_w, lr_scale)
         params = self.downlink(master)
         tcs_prev = state.tcs_prev
         if self.needs_tcs:
-            tcs_prev = tree_map(lambda x: x.to(self.agg_dt), state.params)
+            tcs_prev = map_state(lambda x: x.to(self.agg_dt), state.params)
         return master, opt, params, tcs_prev, lr_scale
 
-    def downlink(self, master: Tensor):
-        """Flat master → param tree (the w^{t+1} broadcast)."""
+    def _update_pieces(self, state: TrainState, agg: RankPieces, total_w,
+                       lr_scale) -> tuple:
+        ocfg, opt = self.tc.opt, state.opt
+
+        def grad(r):
+            a = agg.pieces[r]
+            return a.to(torch.float32) / to_device(total_w, a.device)
+
+        sq = None
+        if ocfg.grad_clip > 0:
+            sq = _slot_sum(torch.stack([
+                to_device(torch.sum(g * g), self.home)
+                for g in map(grad, range(len(agg.pieces)))]))
+        masters, ms, vs = [], [], []
+        for r, p in enumerate(state.master.pieces):
+            dev = p.device
+            piece = opt_mod.FlatOptState(
+                to_device(opt.step, dev),
+                None if opt.m is None else opt.m.pieces[r],
+                None if opt.v is None else opt.v.pieces[r])
+            new_p, new_o = opt_mod.apply_flat(
+                ocfg, piece, p, grad(r), lr_scale,
+                sq_sum=None if sq is None else to_device(sq, dev))
+            masters.append(new_p)
+            ms.append(new_o.m)
+            vs.append(new_o.v)
+        master = RankPieces(masters, state.master.index, state.master.tail)
+        new_opt = opt_mod.FlatOptState(
+            opt.step + 1,
+            None if opt.m is None else RankPieces(ms, opt.m.index,
+                                                  opt.m.tail),
+            None if opt.v is None else RankPieces(vs, opt.v.index,
+                                                  opt.v.tail))
+        return master, new_opt
+
+    def downlink(self, master):
+        """Flat master → param tree (the w^{t+1} broadcast). From rank
+        pieces: the master gathered on the first device (a whole f32
+        master there, 4 bytes a parameter, for the unflatten), the tree
+        made there and copied to the other (k, 0) devices."""
+        if isinstance(master, RankPieces):
+            whole = master.gather(self.home)
+            tree = tree_unflatten(self.structure,
+                                  self.layout.unflatten(whole))
+            del whole
+            return _replicate(tree, self.param_devs)
         return tree_unflatten(self.structure,
                               self.layout.unflatten(master))
+
+    def _ef_telemetry(self, ef_new: RankPieces, se_new,
+                      participate) -> tuple:
+        """``(ef_mass, ef_dead_mass)`` over rank pieces: each piece's
+        ‖·‖₁ in float32 on the first device, summed in rank order (a cohort
+        axis leads)."""
+        from repro_torch.runtime.fault import dead_banked_mass
+
+        def rows(leaf):                      # [..., K_dp]
+            per = [to_device(torch.sum(torch.abs(p).to(torch.float32),
+                                       dim=-1), self.home)
+                   for p in leaf.pieces]
+            return torch.stack([_slot_sum(torch.stack(
+                per[k * self.m:(k + 1) * self.m], -1))
+                for k in range(self.k_dp)], -1)
+
+        row = rows(ef_new)
+        mass = _slot_sum(row)
+        for se in se_new or ():
+            mass = mass + _slot_sum(rows(se))
+        part = to_device(torch.tensor(participate, dtype=torch.float32),
+                         self.home).expand(row.shape)
+        dead = dead_banked_mass(row.unsqueeze(-1), part)
+        return mass.to(ef_new.dtype), dead.to(ef_new.dtype)
 
     # ---- the step -------------------------------------------------------
     def round_inputs(self, batch: dict) -> tuple:
@@ -626,11 +931,11 @@ class TrainStep:
         → ``(cols, loss)``: ``cols[k][m]`` is rank (k, m)'s column
         ``[n_local]`` (``[B, n_local]`` for cohorts, tenant-major) and
         ``loss`` the mean client loss (``[B]`` for cohorts)."""
+        self._check_form(state)
         if self.cohorts == 1:
-            copies: dict = {}
             cols, losses = [], []
             for k in range(self.k_dp):
-                g, loss = self.client_grad(state.params, batch, k, copies)
+                g, loss = self.client_grad(state.params, batch, k)
                 cols.append(self.flatten_grads(g, k))
                 losses.append(loss)
                 del g
@@ -640,10 +945,9 @@ class TrainStep:
         for i in range(self.cohorts):
             params_i = _cohort(state.params, i)
             batch_i = {name: v[i] for name, v in batch.items()}
-            copies = {}
             l_i = []
             for k in range(self.k_dp):
-                g, loss = self.client_grad(params_i, batch_i, k, copies)
+                g, loss = self.client_grad(params_i, batch_i, k)
                 for m, c in enumerate(self.flatten_grads(g, k)):
                     per[k][m].append(c)
                 l_i.append(loss)
@@ -657,6 +961,7 @@ class TrainStep:
         """Phases 2 and 3 on the flattened per-client gradients
         (``cols[k]`` from :meth:`flatten_grads`, or :meth:`phase1`) →
         ``(state, metrics)``."""
+        self._check_form(state)
         if self.cohorts > 1:
             return self._cohort_finish(state, cols, loss, weights,
                                        participate)
@@ -673,7 +978,10 @@ class TrainStep:
         if relay_bits is not None:
             # the scarce-link tier (pod seam / inter-cluster relay)
             metrics["agg_bits_relay"] = relay_bits
-        if self.telemetry:
+        if self.telemetry and self.placed:
+            metrics["ef_mass"], metrics["ef_dead_mass"] = \
+                self._ef_telemetry(ef_new, se_new, participate)
+        elif self.telemetry:
             from repro_torch.runtime.fault import dead_banked_mass
             mass = torch.sum(torch.abs(ef_new))
             for se in se_new or ():
@@ -698,16 +1006,23 @@ class TrainStep:
                                  _cohort(state.tcs_prev, i))
                   for i in range(b_coh)] if self.needs_tcs else [])
         # phase 2 — every tenant of a column in one batched round
-        agg = torch.empty((b_coh, self.layout.d_flat), dtype=torch.float32,
-                          device=self.home)
-        ef_new = torch.empty_like(state.ef)
+        placed = self.placed
+        if placed:
+            agg_p, ef_p = [None] * (k_dp * self.m), [None] * (k_dp * self.m)
+        else:
+            agg = torch.empty((b_coh, self.layout.d_flat),
+                              dtype=torch.float32, device=self.home)
+            ef_new = torch.empty_like(state.ef)
         rank_stats = []
         for m in range(self.m):
             cmesh = self.col_meshes[m]
             devs = cmesh.devices
             flat = [cols[k][m] for k in range(k_dp)]
-            ef_l = [to_device(state.ef[:, k, m * n:(m + 1) * n], devs[k])
-                    for k in range(k_dp)]
+            if placed:
+                ef_l = [state.ef.pieces[k * self.m + m] for k in range(k_dp)]
+            else:
+                ef_l = [to_device(state.ef[:, k, m * n:(m + 1) * n], devs[k])
+                        for k in range(k_dp)]
             gm = (None if not masks else
                   [to_device(torch.stack([mk[m] for mk in masks]), devs[k])
                    for k in range(k_dp)])
@@ -718,29 +1033,35 @@ class TrainStep:
                 participate=[[participate[k]] * b_coh for k in range(k_dp)],
                 transport="static")
             for k in range(k_dp):
-                off = m * n + self.owned[k] * seg
-                agg[:, off:off + seg] = final[k]
-                ef_new[:, k, m * n:(m + 1) * n] = e_out[k]
+                if placed:
+                    agg_p[k * self.m + m] = final[k]
+                    ef_p[k * self.m + m] = e_out[k]
+                else:
+                    off = m * n + self.owned[k] * seg
+                    agg[:, off:off + seg] = final[k]
+                    ef_new[:, k, m * n:(m + 1) * n] = e_out[k]
             rank_stats.append(sts)
-        order = [(k, m) for k in range(k_dp) for m in range(self.m)]
-        stacked = torch.stack([torch.stack([
-            to_device(getattr(rank_stats[m][k], f), self.home).to(
-                torch.float32) for f in ("bits", "nnz", "err_sq")])
-            for k, m in order], -1)
-        tot = _slot_sum(stacked)                            # [3, B]
+        if placed:
+            agg = RankPieces(agg_p, self.flat_index, (self.layout.d_flat,))
+            ef_new = RankPieces(ef_p, state.ef.index, state.ef.tail)
+        tot, _ = self._sum_stats(rank_stats, [])           # each [B]
         # phase 3 — per tenant
-        outs = [self.update(_cohort(state, i), agg[i], weights, participate)
+        outs = [self.update(_cohort(state, i), _cohort(agg, i), weights,
+                            participate)
                 for i in range(b_coh)]
-        master = torch.stack([o[0] for o in outs])
+        master = _stack_states([o[0] for o in outs])
         opt = _stack_states([o[1] for o in outs])
         params = _stack_states([o[2] for o in outs])
         tcs_prev = (_stack_states([o[3] for o in outs]) if self.needs_tcs
                     else state.tcs_prev)
         lr_scale = torch.stack([o[4] for o in outs])
-        metrics = {"loss": loss, "agg_bits": tot[0],
-                   "agg_nnz": tot[1], "agg_err_sq": tot[2],
+        metrics = {"loss": loss, "agg_bits": tot.bits,
+                   "agg_nnz": tot.nnz, "agg_err_sq": tot.err_sq,
                    "lr_scale": lr_scale}
-        if self.telemetry:
+        if self.telemetry and placed:
+            metrics["ef_mass"], metrics["ef_dead_mass"] = \
+                self._ef_telemetry(ef_new, None, participate)
+        elif self.telemetry:
             from repro_torch.runtime.fault import dead_banked_mass
             part = torch.tensor(participate, dtype=torch.float32,
                                 device=self.home).expand(b_coh, k_dp)

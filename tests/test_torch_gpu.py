@@ -23,7 +23,9 @@ rows that do not start on a 16-byte boundary (b·d % 4 ≠ 0), straggler and
 The LM serving path (plain PyTorch, no kernel of its own) runs each SMOKE
 architecture and one full-width phi4-mini layer on the card against the
 CPU in float32. The dry run's predicted device peak of one full decode
-cell is held to the card's within ±1 %.
+cell is held to the card's within ±1 %. A train state placed by rank on a
+mesh that mixes the card and the CPU keeps its pieces on their ranks'
+devices and equals the same steps on ranks of the card.
 """
 
 import math
@@ -1486,3 +1488,101 @@ def test_dry_run_predicts_the_card_peak_of_a_decode_cell(cuda):
     assert nxt.shape == (shape.global_batch,)
     assert abs(rec["device_peak_bytes"] / measured - 1) <= 0.01, (
         rec["device_peak_bytes"], measured)
+
+
+@pytest.mark.parametrize("opt,topq", [("sgd", "exact"), ("adamw", "exact"),
+                                      ("adamw", "threshold")])
+def test_placed_state_on_a_mesh_of_the_card_and_the_cpu(cuda, no_tf32, opt,
+                                                        topq):
+    """Chip_smoke phase 14 at SMOKE size: mamba2-130m in float32 on 4 × 1
+    ranks ``cuda:0, cpu, cpu, cpu``, 3 CL-SIA steps: every piece on its
+    rank's device; each step's phases 2–3 also on ``["cuda:0"] * 4`` from
+    the same state and gradient columns — EF, bits and nnz bit for bit,
+    master, moments and params bit for bit under SGD and to 1e-6 of their
+    scale under AdamW; the card's level kernels launch once per level (the
+    CPU ranks run the plain versions). Under threshold Top-Q the card's
+    peak over the first step is also held within ±1 % of the dry run's
+    prediction for ``cuda:0``; exact Top-Q takes a stable sort on these
+    short segments, whose scratch inside the sort a fake run does not
+    see (phase 14's segments, over 2^22, take the per-row select)."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+    from repro_torch.train.state import (RankPieces, gather_state,
+                                         state_to)
+    from repro_torch.train.step import rank_device
+    cfg = dataclasses.replace(get_config("mamba2-130m", smoke=True),
+                              param_dtype="float32")
+    agg = (dict(topq_impl="threshold", tau_impl="hist", hist_rounds=2)
+           if topq == "threshold" else {})
+    tc = TrainConfig(agg=AggConfig(kind=AggKind.CL_SIA, q=1, **agg),
+                     opt=OptConfig(name=opt, lr=1e-2), q_frac=0.05,
+                     agg_dtype="float32", ef_dtype="float32")
+    mixed = make_mesh((4, 1), ("data", "model"),
+                      ["cuda:0", "cpu", "cpu", "cpu"])
+    card = make_mesh((4, 1), ("data", "model"), ["cuda:0"] * 4)
+    pred = dryrun.dry_run_cell(cfg, ShapeSpec("placed", 16, 8, "train"),
+                               mixed, tc)
+    step, check = build_train_step(cfg, tc, mixed), build_train_step(
+        cfg, tc, card)
+    want = _train_launches(step)
+    # a first step warms cuBLAS's workspace, which then stays
+    warm = init_state(cfg, tc, card, torch.Generator(device=cuda))
+    toks = torch.zeros((8, 16), dtype=torch.int64, device=cuda)
+    check(warm, {"tokens": toks, "labels": toks})
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    state = init_state(cfg, tc, mixed,
+                       torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    for s in range(3):
+        for leaf in (state.master, state.opt.m, state.opt.v, state.ef):
+            if leaf is not None:
+                assert isinstance(leaf, RankPieces)
+                assert [p.device for p in leaf.pieces] == [
+                    rank_device(mixed, k) for k in range(4)]
+        toks = torch.randint(0, cfg.vocab_size, (8, 16), generator=gen)
+        batch = {"tokens": toks.to(cuda), "labels": toks.roll(-1, -1).to(
+            cuda)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        before = [fn.launches for fn in level.KERNELS]
+        plain, w, p = step.round_inputs(batch)
+        cols, loss = step.phase1(state, plain)
+        kept = [[c.to("cpu", copy=True) for c in row] for row in cols]
+        old = gather_state(state, "cpu")
+        new, m = step.finish(state, cols, loss, w, p)
+        torch.cuda.synchronize()
+        if s == 0 and topq == "threshold":
+            measured = torch.cuda.max_memory_allocated(cuda) - base
+            assert abs(pred["device_peak_bytes"] / measured - 1) <= 0.01, (
+                pred["device_peak_bytes"], measured)
+        grown = {fn.__name__.replace("_cuda", ""): fn.launches - b
+                 for fn, b in zip(level.KERNELS, before)
+                 if fn.launches - b}
+        assert grown == want, (grown, want)
+        del cols
+        ref, mr = check.finish(state_to(old, cuda),
+                               [[c.to(cuda) for c in row] for row in kept],
+                               loss.to(cuda), w, p)
+        got = gather_state(new, "cpu")
+        for (pa, a), (pb, b) in zip(_flatten_with_paths(got),
+                                    _flatten_with_paths(ref)):
+            assert pa == pb
+            if pa[0] in (".ef", ".step") or opt == "sgd":
+                _same(a, b)
+            else:
+                scale = float(b.float().abs().max())
+                torch.testing.assert_close(a, b.cpu(), rtol=1e-6,
+                                           atol=1e-6 * scale)
+        for key in ("agg_bits", "agg_nnz"):
+            _same(m[key], mr[key])
+        state = new
