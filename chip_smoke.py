@@ -241,7 +241,28 @@ Phases (any failure exits non-zero and prints no result):
    versions); the card's peak over the first AdamW step, less the bytes
    live before the phase, within ±1 % of ``launch/dryrun.dry_run_cell``'s
    prediction for ``cuda:0`` on the same mixed mesh; the state bytes on
-   ``cuda:0`` against the whole state's, and the step ms.
+   ``cuda:0`` against the whole state's, and the step ms;
+15. tensor-parallel client compute over ``model`` (phase 12 (b) runs it
+   too: a mesh with ``model > 1`` splits phase 1) — (a) phi4-mini-3.8b at
+   full widths, 2 of 32 layers (``TRAIN_FULL_WHY``), 2 × 2 ranks of
+   ``cuda:0``, bf16, AdamW, batch 8 × 512, CL-SIA exact and CL-TC-SIA
+   threshold: M = 2 divides the heads, kv heads, ``d_ff`` and the padded
+   vocabulary, so every leaf but the norms' scales is split; 1 + 3 steps
+   with phase 1 timed apart, the launches as predicted, one profiled step
+   (device ops, busy ms), the peak of the init and the timed steps within
+   ±1 % of ``dry_run_cell``'s prediction (phase 13's gate); each client's
+   TP columns against its whole-model autograd gradient through
+   ``local_flatten(·, m)`` (bf16 norm check, ``TP_GRAD_TOL``), and the
+   step fed the TP columns against the same step fed the whole-model ones
+   (``flat_step_error``: the change's relative L2 off the support swaps,
+   ``TP_STEP_TOL``, and ``assert_step_close``'s max rule logged); (b)
+   ranks ``cuda:0, cpu, cuda:0, cpu`` (each client's rank 1 on the CPU, so
+   the TP sums and the batch-over-model reduction cross devices) with the
+   phi4 SMOKE model (tied, pad slots in its vocabulary; tensor-parallel)
+   and the mamba2 SMOKE model (batch over model), f32, SGD, 3 CL-SIA steps
+   each from the all-card step's state: the change within 1e-6 of the
+   all-card step's scale, the loss to 1e-5, the card's level kernels once
+   per level for each column's card.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -4618,10 +4639,10 @@ PLACE_OPT_RTOL = 1e-6              # AdamW: the CPU ranks against the card
 
 
 def placed_pieces_off(state, mesh, m_cols: int) -> list:
-    """Leaves of a placed state with a piece (or replica) off its rank's
-    device."""
-    from repro_torch.train.state import RankPieces, Replicas, state_leaves
-    from repro_torch.train.step import param_devices, rank_device
+    """Leaves of a placed state with a piece (or a rank's param tree) off
+    its rank's device."""
+    from repro_torch.train.state import RankPieces, RankShards, state_leaves
+    from repro_torch.train.step import param_places, rank_device
 
     bad = []
     leaves = {"master": state.master, "opt.m": state.opt.m,
@@ -4640,8 +4661,8 @@ def placed_pieces_off(state, mesh, m_cols: int) -> list:
                        ("tcs_prev", state.tcs_prev)):
         if tree is None:
             continue
-        if not (isinstance(tree, Replicas)
-                and tree.devices == param_devices(mesh)):
+        if not (isinstance(tree, RankShards) and list(
+                zip(tree.devices, tree.cols)) == list(param_places(mesh))):
             bad.append(name)
             continue
         bad += [f"{name}@{d}" for d, t in zip(tree.devices, tree.trees)
@@ -4653,8 +4674,10 @@ def placed_launches(step) -> dict:
     """``train_launches`` for the card's ranks of a mixed mesh: one level
     step per level and column for each distinct card among the column's
     ranks (the CPU ranks run the plain versions)."""
-    cards = len({d for d in step.col_meshes[0].devices if d.type == "cuda"})
-    return {k: v * cards for k, v in train_launches(step).items() if cards}
+    cards = sum(len({d for d in cm.devices if d.type == "cuda"})
+                for cm in step.col_meshes)
+    return {k: v // step.m * cards for k, v in train_launches(step).items()
+            if cards}
 
 
 def place_path(level, topq_threshold, cfg=None) -> dict:
@@ -4821,6 +4844,346 @@ def place_path(level, topq_threshold, cfg=None) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: tensor-parallel client compute over `model`
+# ---------------------------------------------------------------------------
+TP_KINDS = (("cl_sia", {}), ("cl_tc_sia", dict(topq_impl="threshold")))
+TP_STEPS = 3                       # (a) timed steps per kind, after one
+TP_GRAD_TOL = 2e-2                 # (a) bf16: a TP column against the
+                                   # whole-model column, relative L2
+TP_LOSS_TOL = 1e-2                 # (a) bf16: the TP loss, relative
+TP_STEP_TOL = 5e-2                 # (a) bf16: the change fed TP columns
+                                   # vs fed whole-model columns, relative
+                                   # L2 off the support swaps
+TP_MIXED_DEVICES = ("cuda:0", "cpu", "cuda:0", "cpu")   # data 2 x model 2
+TP_MIXED_MODELS = (("phi4-mini-3.8b",
+                    dict(tie_embeddings=True, vocab_size=500)),
+                   ("mamba2-130m", {}))
+TP_MIXED_STEPS = 3
+TP_MIXED_RTOL = 1e-6               # (b) f32: mixed mesh = all-card mesh, of
+                                   # the step's scale
+
+
+def flat_parts(step, old, new) -> dict:
+    """What :func:`flat_step_error` reads of a new state, on the card:
+    its master, its transmitted support (``ef == 0``), and under AdamW
+    where its first moment left the decay ``b1·m`` and where ``√v̂`` is
+    below 1e3·eps."""
+    opt = step.tc.opt
+    out = {"master": new.master, "ef0": new.ef == 0}
+    if opt.name == "adamw":
+        decayed = old.opt.m * torch.tensor(opt.b1, dtype=torch.float32)
+        out["moved"] = new.opt.m != decayed
+        root = (new.opt.v.double()
+                / (1 - opt.b2 ** float(new.opt.step))).sqrt()
+        out["small"] = (new.opt.v > 0) & (root < 1e3 * opt.eps)
+    return out
+
+
+def flat_step_error(old, a: dict, b: dict, slack: float) -> tuple:
+    """Two steps from ``old`` (their :func:`flat_parts`) compared on the
+    flat master (the params are its casts), where a and b agree on the
+    support and AdamW's ``√v̂`` is not below 1e3·eps
+    (``loose_coordinates``): (the relative L2 distance of their changes,
+    ``‖Δa − Δb‖ / ‖Δb‖`` — a norm check, as bf16 asks; and
+    ``assert_step_close``'s rule, the largest ``|Δa − Δb| / (|Δb| + max
+    |Δb|)`` over the coordinates where the difference exceeds
+    ``2·eps_f32·|b|`` and, at the loose ones, ``slack``). Chunked, in
+    float64."""
+    loose = (a["ef0"] != b["ef0"]).any(dim=0)
+    if "moved" in b:
+        loose |= (a["moved"] != b["moved"]) | b["small"]
+    o = old.master
+    top = float((b["master"].double() - o.double()).abs().max())
+    worst, num, den = 0.0, 0.0, 0.0
+    for lo in range(0, o.numel(), 1 << 26):
+        sl = slice(lo, lo + (1 << 26))
+        db = b["master"][sl].double() - o[sl].double()
+        diff = (a["master"][sl].double() - o[sl].double()) - db
+        err = diff.abs()
+        num += float((diff * ~loose[sl]).square().sum())
+        den += float(db.square().sum())
+        free = (2 * torch.finfo(torch.float32).eps
+                * b["master"][sl].double().abs() + slack * loose[sl])
+        over = err > free
+        if bool(over.any()):
+            worst = max(worst, float((err[over] / (db.abs()[over] + top)
+                                      .clamp(min=1e-300)).max()))
+    return math.sqrt(num / max(den, 1e-300)), worst
+
+
+def tp_full(level, topq_threshold, card: str) -> tuple:
+    """(a) phi4-mini at full widths on 2 x 2 ranks of ``cuda:0``: every
+    leaf split over M = 2; steps timed with phase 1 apart, the peak held
+    to the dry run's prediction (phase 13's gate), each client's TP
+    columns against its whole-model columns through ``local_flatten(·,
+    m)``, and the step fed the TP columns against the same step fed the
+    whole-model ones. The comparisons' launches are taken back out."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+
+    cfg = dataclasses.replace(get_config(TRAIN_FULL_ARCH),
+                              num_layers=TRAIN_FULL_LAYERS)
+    mesh = make_mesh(TRAIN_FULL_MESH, ("data", "model"),
+                     ["cuda:0"] * math.prod(TRAIN_FULL_MESH))
+    tc = TrainConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def batch():
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                             generator=gen, device="cuda")
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_state(cfg, tc, mesh,
+                       torch.Generator(device="cuda").manual_seed(SEED))
+    rows, total = [], {}
+    for kind, agg in TP_KINDS:
+        tc_k = dataclasses.replace(
+            tc, agg=AggConfig(kind=AggKind(kind), q=1, **agg))
+        step = build_train_step(cfg, tc_k, mesh)
+        what = f"{cfg.name} {kind}"
+        # every leaf split but the norms' scales
+        whole = [path[-1] for (path, _), plan in zip(
+            _flatten_with_paths(model_mod.param_specs(cfg)),
+            step.layout.plans) if plan.model_dim is None]
+        if (step.phase1_form(batch()) != "tensor_parallel"
+                or set(whole) - {"ln1", "ln2", "final_norm"}):
+            raise SystemExit(f"FAIL [tp] {what}: phase 1 form "
+                             f"{step.phase1_form(batch())}, replicated "
+                             f"leaves {whole}")
+        if step.needs_tcs and state.tcs_prev is None:
+            state = state._replace(tcs_prev=tree_map(
+                lambda p: p.to(step.agg_dt), state.params))
+        want = train_launches(step)
+        ms, p1 = [], []
+        for i in range(1 + TP_STEPS):
+            b = batch()
+            before = launch_counts(level, topq_threshold)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plain, w, p = step.round_inputs(b)
+            cols, loss = step.phase1(state, plain)
+            torch.cuda.synchronize()
+            p1.append(1e3 * (time.perf_counter() - t))
+            state, m = step.finish(state, cols, loss, w, p)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            del cols
+            got = grown(before, launch_counts(level, topq_threshold))
+            if got != want:
+                raise SystemExit(f"FAIL [tp] {what} step {i}: launches "
+                                 f"{got}, predicted {want}")
+            total = add_counts(total, got)
+            if not math.isfinite(float(m["loss"])):
+                raise SystemExit(f"FAIL [tp] {what}: loss {m['loss']}")
+        row = dict(arch=cfg.name, layers=cfg.num_layers,
+                   reduced=TRAIN_FULL_WHY, mesh=list(TRAIN_FULL_MESH),
+                   kind=kind, topq=step.agg_cfg.topq_impl,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, form="tensor_parallel",
+                   step_ms=statistics.median(ms[1:]), step_ms_all=ms,
+                   phase1_ms=statistics.median(p1[1:]), phase1_ms_all=p1,
+                   launches_per_step=want)
+        if kind == "cl_sia":
+            # init and the timed steps, as phase 13 reads phase 12's cell
+            measured = torch.cuda.max_memory_allocated() - base
+            t = time.perf_counter()
+            pred = dryrun.dry_run_cell(
+                cfg, ShapeSpec("phase15", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                mesh, tc_k)
+            row.update(peak_bytes=measured,
+                       predicted=pred["device_peak_bytes"],
+                       dry_run_s=time.perf_counter() - t,
+                       peak_err=held_peak("phase 15's phi4 TP cell",
+                                          pred["device_peak_bytes"],
+                                          measured))
+        holder = [state]
+
+        def one():
+            holder[0], _ = step(holder[0], batch())
+
+        prof = profile_calls(f"{what} TP train step", one, 1)
+        state = holder[0]
+        row.update(profiled_ms=prof[0], device_busy_ms=prof[1],
+                   device_ops=prof[2], top_kernels=prof[3])
+        # the TP columns against the whole-model ones, and the step fed
+        # each (comparisons: their launches are taken back out)
+        counts = [fn.launches for fn in level.KERNELS]
+        c_ge = topq_threshold.count_ge_cuda.launches
+        plain, w, p = step.round_inputs(batch())
+        tp_cols, whole_cols, tp_loss, whole_loss = [], [], [], []
+        grad_err, loss_err = 0.0, 0.0
+        for k in range(step.k_dp):
+            c, loss_k = step.client_cols(state.params, plain, k)
+            g, want_k = step.client_grad(state.params, plain, k)
+            ref_k = [step.layout.local_flatten(g, m_, step.agg_dt)
+                     for m_ in range(step.m)]
+            del g
+            for a_, b_ in zip(c, ref_k):
+                grad_err = max(grad_err, float(
+                    (a_.float() - b_.float()).norm() / b_.float().norm()))
+            loss_err = max(loss_err, abs(float(loss_k) / float(want_k) - 1))
+            tp_cols.append(c)
+            whole_cols.append(ref_k)
+            tp_loss.append(loss_k)
+            whole_loss.append(want_k)
+        if grad_err > TP_GRAD_TOL or loss_err > TP_LOSS_TOL:
+            raise SystemExit(f"FAIL [tp] {what}: TP columns {grad_err:.3e} "
+                             f"(limit {TP_GRAD_TOL}), loss {loss_err:.3e} "
+                             f"(limit {TP_LOSS_TOL}) from the whole-model "
+                             f"client")
+        parts = []
+        for cols, losses in ((whole_cols, whole_loss), (tp_cols, tp_loss)):
+            new, mt = step.finish(state, cols, step._mean_loss(losses), w, p)
+            parts.append(flat_parts(step, state, new))
+            del new
+        del tp_cols, whole_cols
+        step_err, step_max = flat_step_error(
+            state, parts[1], parts[0], 3 * tc_k.opt.lr * float(
+                mt["lr_scale"]))
+        loose = int((parts[0]["ef0"] != parts[1]["ef0"]).any(dim=0).sum())
+        del parts
+        torch.cuda.synchronize()
+        for fn, c in zip(level.KERNELS, counts):
+            fn.launches = c
+        topq_threshold.count_ge_cuda.launches = c_ge
+        row.update(grad_rel_l2=grad_err, loss_rel=loss_err,
+                   step_rel_l2=step_err, step_max_rule=step_max,
+                   support_differs=loose)
+        log("[tp] " + json.dumps(row))
+        if step_err > TP_STEP_TOL:
+            raise SystemExit(f"FAIL [tp] {what}: the step fed the TP "
+                             f"columns is {step_err:.3e} (relative L2 of the "
+                             f"change) from the step fed the whole-model "
+                             f"columns (limit {TP_STEP_TOL})")
+        log(f"[tp] (a) {what} ({cfg.num_layers} of 32 layers; reduced: "
+            f"{TRAIN_FULL_WHY}) on {step.k_dp}x{step.m} ranks of cuda:0, "
+            f"every leaf split over M = {step.m}, bf16, batch {TRAIN_BATCH} "
+            f"x {TRAIN_SEQ}: step {row['step_ms']:.2f} ms, phase 1 "
+            f"{row['phase1_ms']:.2f} ms (medians of {TP_STEPS}), "
+            f"{prof[2]:.0f} device ops, {prof[1]:.2f} ms busy a step; "
+            + (f"peak {row['peak_bytes'] / 1e9:.4f} GB, dry run "
+               f"{row['predicted'] / 1e9:.4f} GB "
+               f"({100 * row['peak_err']:+.2f} %); " if "peak_err" in row
+               else "")
+            + f"TP columns = whole-model columns to {grad_err:.3e} rel L2 "
+            f"(limit {TP_GRAD_TOL}), loss {loss_err:.3e}; the step fed "
+            f"either set: change {step_err:.3e} rel L2 apart off the "
+            f"{loose} coordinates whose support differs (limit "
+            f"{TP_STEP_TOL}; assert_step_close's max rule {step_max:.3e}); "
+            f"launches/step {want}; {card}")
+        rows.append(row)
+        del step
+    del state
+    torch.cuda.empty_cache()
+    return rows, total
+
+
+def tp_mixed(level, topq_threshold, card: str) -> tuple:
+    """(b) ranks ``cuda:0, cpu, cuda:0, cpu`` (data 2 x model 2): each
+    client's two ranks on the card and the CPU, so the TP sums and the
+    batch-over-model reduction cross devices; f32 SMOKE models, each step
+    from the all-card step's state before it, held to the all-card step's
+    change to ``TP_MIXED_RTOL`` of its scale. SGD, whose change is the
+    aggregated gradient itself (AdamW's normalisation turns a last-bit
+    difference of a near-cancelling first moment into 1.2e-6 of the
+    change's scale: the first chip call of this phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (TrainConfig, build_train_step, init_state,
+                                   state_shardings)
+    from repro_torch.train.state import gather_state, state_to
+    from repro_torch.train.step import place_state
+
+    axes, shape = ("data", "model"), (2, 2)
+    mixed = make_mesh(shape, axes, list(TP_MIXED_DEVICES))
+    one_card = make_mesh(shape, axes, ["cuda:0"] * 4)
+    tc = TrainConfig(agg=AggConfig(kind=AggKind.CL_SIA, q=1),
+                     opt=OptConfig(name="sgd", lr=1e-2), q_frac=0.05,
+                     agg_dtype="float32", ef_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 16)
+    rows, total = [], {}
+    for arch, over in TP_MIXED_MODELS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  param_dtype="float32", **over)
+        step = build_train_step(cfg, tc, mixed)
+        check = build_train_step(cfg, tc, one_card)
+        specs = state_shardings(cfg, tc, mixed)
+        want = placed_launches(step)
+        state = init_state(cfg, tc, one_card,
+                           torch.Generator(device="cuda").manual_seed(SEED))
+        worst, loss_err = 0.0, 0.0
+        for s in range(TP_MIXED_STEPS):
+            toks = torch.randint(0, cfg.vocab_size, (8, 17), generator=gen)
+            b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            form = step.phase1_form(b)
+            if form != check.phase1_form(b) or form == "whole":
+                raise SystemExit(f"FAIL [tp] (b) {cfg.name}: form {form}")
+            old = state_to(state, "cpu")
+            before = launch_counts(level, topq_threshold)
+            new, m = step(place_state(old, mixed, specs),
+                          {k: v.to("cuda:0") for k, v in b.items()})
+            got = grown(before, launch_counts(level, topq_threshold))
+            if got != want:
+                raise SystemExit(f"FAIL [tp] (b) {cfg.name} step {s}: "
+                                 f"launches {got}, predicted {want}")
+            total = add_counts(total, got)
+            counts = [fn.launches for fn in level.KERNELS]
+            c_ge = topq_threshold.count_ge_cuda.launches
+            state, mc = check(state, {k: v.to("cuda:0") for k, v in b.items()})
+            torch.cuda.synchronize()
+            for fn, c in zip(level.KERNELS, counts):
+                fn.launches = c
+            topq_threshold.count_ge_cuda.launches = c_ge
+            err = train_step_error(check, old, gather_state(new, "cpu"),
+                                   state_to(state, "cpu"),
+                                   3 * tc.opt.lr * float(mc["lr_scale"]))
+            loss_err = max(loss_err, abs(float(m["loss"]) / float(mc["loss"])
+                                         - 1))
+            worst = max(worst, err)
+            if err > TP_MIXED_RTOL or loss_err > 1e-5:
+                raise SystemExit(f"FAIL [tp] (b) {cfg.name} step {s}: the "
+                                 f"mixed mesh is {err:.3e} of the step's "
+                                 f"scale from the all-card mesh (limit "
+                                 f"{TP_MIXED_RTOL}), loss {loss_err:.3e}")
+        rows.append(dict(arch=cfg.name, devices=list(TP_MIXED_DEVICES),
+                         form=form, steps=TP_MIXED_STEPS, step_err=worst,
+                         loss_rel=loss_err, launches_per_step=want))
+        log(f"[tp] (b) {cfg.name} SMOKE f32 SGD ({form}) on ranks "
+            f"{list(TP_MIXED_DEVICES)}: {TP_MIXED_STEPS} steps = the "
+            f"all-card steps to {worst:.3e} of the step's scale (limit "
+            f"{TP_MIXED_RTOL}), loss {loss_err:.3e}; launches/step {want}; "
+            f"{card}")
+    return rows, total
+
+
+def tp_path(level, topq_threshold) -> dict:
+    """Phase 15: tensor-parallel client compute. Every launch count is set
+    to 0 before each of the phase's two drives and read after it."""
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    level.reset_launch_counts()
+    full, total = tp_full(level, topq_threshold, card)
+    level.reset_launch_counts()
+    mixed, more = tp_mixed(level, topq_threshold, card)
+    total = add_counts(total, more)
+    log("[tp] " + json.dumps(dict(full=full, mixed=mixed)))
+    log(f"[tp] phase 15 launches: {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -4916,6 +5279,8 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     dryrun_path(served, train_rows)
     for name, n in place_path(level, topq_threshold).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in tp_path(level, topq_threshold).items():
         launches[name] = launches.get(name, 0) + n
 
     csrc = "src/repro_torch/kernels/csrc/"

@@ -15,9 +15,11 @@ Leaves are walked in ``jax.tree`` order — NamedTuple fields in order
 skipped — and bfloat16 is stored as float32 (npz has no bfloat16), so a
 checkpoint written by either package restores into the other. A state
 placed by rank is written in the same global layout (each
-:class:`~repro_torch.train.state.RankPieces` gathered on the CPU, one
-:class:`~repro_torch.train.state.Replicas` tree) and restored onto its
-ranks' devices by ``restore(..., mesh=, specs=)``.
+:class:`~repro_torch.train.state.RankPieces` and
+:class:`~repro_torch.train.state.RankShards` gathered whole on the CPU)
+and restored onto its ranks' devices by ``restore(..., mesh=, specs=)``:
+the params and ``tcs_prev`` by their ``param_pspecs``, the flat leaves by
+rank.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.train.state import RankPieces, Replicas
+from repro_torch.train.state import RankPieces, RankShards
 
 _NP_SAVABLE = {"float64", "float32", "float16", "int64", "int32", "int16",
                "int8", "uint8", "uint16", "uint32", "uint64", "bool"}
@@ -61,11 +63,14 @@ def _is_namedtuple(x) -> bool:
 
 def _flatten_with_paths(tree: Any, prefix: tuple = ()):
     """→ [(path parts, leaf)] in the reference's order (a
-    :class:`RankPieces` is one leaf, a :class:`Replicas` its first tree)."""
+    :class:`RankPieces` is one leaf, a :class:`RankShards` its whole tree,
+    gathered on the CPU, or on ``meta`` for an abstract one)."""
     if tree is None:
         return []
-    if isinstance(tree, Replicas):
-        return _flatten_with_paths(tree.trees[0], prefix)
+    if isinstance(tree, RankShards):
+        first = _flatten_with_paths(tree.trees[0])[0][1]
+        return _flatten_with_paths(
+            tree.gather("meta" if first.is_meta else "cpu"), prefix)
     if isinstance(tree, RankPieces):
         return [(prefix, tree)]
     if _is_namedtuple(tree):
@@ -90,7 +95,7 @@ def _flatten_with_paths(tree: Any, prefix: tuple = ()):
 def _unflatten(template: Any, it) -> Any:
     if template is None:
         return None
-    if isinstance(template, Replicas):
+    if isinstance(template, RankShards):
         return _unflatten(template.trees[0], it)
     if _is_namedtuple(template):
         return type(template)(*(_unflatten(getattr(template, n), it)

@@ -43,6 +43,22 @@ def lm_params(tree: Mapping, device: DeviceLike = None) -> dict:
     return _tree(tree, resolve_device(device))
 
 
+def placed_params(tree: Mapping, cfg, mesh):
+    """The reference's LM params tree (numpy leaves) → the port's params
+    placed on ``mesh`` as :func:`~repro_torch.train.step.init_state`
+    places them: a :class:`~repro_torch.train.state.RankShards` (rank
+    (k, m)'s shard of each leaf by ``param_pspecs``, the replicated leaves
+    whole, on its device) on a mesh of several devices, the whole tree on
+    the device of a mesh of one."""
+    from repro_torch.models.partition import param_pspecs
+    from repro_torch.train.step import shard_params
+
+    if len(mesh.distinct()) == 1:
+        return _tree(tree, mesh.devices[0])
+    return shard_params(_tree(tree, torch.device("cpu")),
+                        param_pspecs(cfg, mesh), mesh)
+
+
 def lm_cache(tree: Mapping, device: DeviceLike = None) -> dict:
     """The reference's decode cache (numpy leaves) → the port's cache
     (:func:`repro_torch.models.model.init_cache`)."""
@@ -90,7 +106,8 @@ def train_state(state, device: DeviceLike = None):
     (``step``/``m``/``v``), ``ef``, ``tcs_prev`` and ``stage_ef``
     attributes (numpy-convertible leaves, bfloat16 carried through
     float32) → :class:`~repro_torch.train.state.TrainState` on ``device``,
-    leaf for leaf. Cohort-stacked states keep their leading axis."""
+    leaf for leaf. Cohort-stacked states keep their leading axis
+    (:func:`~repro_torch.train.step.place_state` places it on a mesh)."""
     from repro_torch.optim.optimizers import FlatOptState
     from repro_torch.train.state import TrainState
 

@@ -32,6 +32,7 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import to_device
 from repro_torch.models.transformer import tree_leaves
 
 Tensor = torch.Tensor
@@ -121,8 +122,9 @@ class FlatLayout:
     # Per-column transforms
     # ------------------------------------------------------------------
 
-    def _piece(self, plan: LeafPlan, leaf: Tensor, m_idx: int,
-               dtype) -> Tensor:
+    def piece(self, plan: LeafPlan, leaf: Tensor, m_idx: int,
+              dtype) -> Tensor:
+        """One leaf's column ``m_idx`` piece, raveled, in ``dtype``."""
         if plan.model_dim is None:
             flat = leaf.reshape(-1).to(dtype)
             if plan.pad:
@@ -135,18 +137,26 @@ class FlatLayout:
         return leaf.reshape(-1).to(dtype)
 
     def local_flatten(self, leaves_local: Sequence[Tensor], m_idx: int,
-                      dtype=torch.float32) -> Tensor:
-        """Leaves → column ``m_idx``'s ``[n_local]`` flat piece.
+                      dtype=torch.float32, device=None) -> Tensor:
+        """Leaves → column ``m_idx``'s ``[n_local]`` flat piece (on
+        ``device``, each leaf's piece moved there, or on the leaves' own).
 
         A model-sharded leaf may arrive as its column shard (the
         reference's view inside ``shard_map``) or whole (it is sliced);
         replicated leaves arrive whole.
         """
-        parts = [self._piece(plan, leaf, int(m_idx), dtype)
+        parts = [self.piece(plan, leaf, int(m_idx), dtype)
                  for plan, leaf in zip(self.plans, leaves_local)]
+        if device is not None:
+            parts = [to_device(p, torch.device(device)) for p in parts]
+        return self.join(parts, dtype)
+
+    def join(self, parts: Sequence[Tensor], dtype=torch.float32) -> Tensor:
+        """Each leaf's column piece, in leaf order → the ``[n_local]``
+        column (the tail padded with zeros)."""
         if not parts:
             return torch.zeros((self.n_local,), dtype=dtype)
-        col = torch.cat(parts)
+        col = torch.cat(list(parts))
         if self.tail_pad:
             col = F.pad(col, (0, self.tail_pad))
         return col

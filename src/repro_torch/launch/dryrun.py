@@ -8,7 +8,9 @@ the config's full widths and full depth, with every rank on one fake
 device (:func:`fake_device`: ``cuda:0``, or ``cpu`` where torch has no
 CUDA), and counts what that run allocates and computes; a train cell runs
 once more on a mesh of one fake device per rank (:func:`rank_mesh`), where
-the state is placed by rank, for one rank's bytes. Nothing is computed on
+the state is placed by rank (rank (k, m) holds its shard of the params by
+``param_pspecs``) and phase 1 splits each client's work over its M ranks
+(tensor-parallel, or batch over model), for one rank's bytes. Nothing is computed on
 any device, on the CPU or on a card:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-130m
@@ -604,9 +606,41 @@ def _meta_mesh(mesh):
 def rank_mesh(mesh):
     """``mesh``'s shape and axes with one fake device per rank, ``cpu:r``
     for rank r (a fake CPU tensor keeps its index; a ``cuda:r`` mesh would
-    need r + 1 cards)."""
+    need r + 1 cards). A device index is 8 bits (``cpu:256`` is ``cpu:0``,
+    ``cpu:255`` is ``cpu``), so ranks from the 256th on share ``cpu`` with
+    rank 255: on 2 × 16 × 16 the first pod's ranks but its last hold one
+    rank each, rank (0, 0) among them."""
     return make_mesh(tuple(mesh.axis_sizes), mesh.axis_names,
-                     [f"cpu:{r}" for r in range(mesh.size)])
+                     [f"cpu:{r}" if r < 255 else "cpu"
+                      for r in range(mesh.size)])
+
+
+def _phase1_once(step, state, batch, live) -> tuple:
+    """``step.phase1`` on fake tensors with client 0's work run once: every
+    client runs the same shapes, so each client's transients and counts
+    are client 0's. The other clients' gradient columns are allocated
+    first, as their own phase 1 leaves them, so a device that holds every
+    rank holds them all at client 0's peak, as at the last client's; the
+    FLOPs and op traffic count client 0's K_dp times. Peaks and FLOPs equal
+    the full phase 1's; so does the traffic on a mesh of one device, where
+    on several it misses each other client's batch copy to its rank (k, 0)
+    (client 0's batch is on that device already: 512 bytes a client at
+    SMOKE size, of 1.3 GB)."""
+    from repro_torch.train.step import rank_device
+
+    traffic = live.bytes_accessed
+    cols = [None] + [[torch.empty((step.layout.n_local,), dtype=step.agg_dt,
+                                  device=rank_device(step.mesh, k, m))
+                      for m in range(step.m)] for k in range(1, step.k_dp)]
+    losses = [None] + [torch.empty((), dtype=torch.float32,
+                                   device=rank_device(step.mesh, k, 0))
+                       for k in range(1, step.k_dp)]
+    live.bytes_accessed = traffic
+    flops = live.flops
+    cols[0], losses[0] = step.client_cols(state.params, batch, 0)
+    live.flops += (step.k_dp - 1) * (live.flops - flops)
+    live.bytes_accessed += (step.k_dp - 1) * (live.bytes_accessed - traffic)
+    return cols, step._mean_loss(losses)
 
 
 def device_state_bytes(cfg: ModelConfig, tc: TrainConfig, mesh,
@@ -705,7 +739,7 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
         entry = {id(t.untyped_storage()) for t in _leaves(fake)}
         live.reset()
         if shape.kind == "train":
-            cols, loss = step.phase1(*fake)
+            cols, loss = _phase1_once(step, *fake, live)
             out = step.finish(fake[0], cols, loss, weights, participate)
             del cols, loss
             out_specs = [specs[0], {k: () for k in out[1]}]

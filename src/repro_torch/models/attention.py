@@ -9,6 +9,8 @@ mesh and are the identity on one process, so they have no counterpart.
 
 Caches are updated in place: a K/V cache passed to :func:`run_attention`
 is consumed (its slot or prefix is overwritten) and returned.
+:func:`run_attention_tp` is the training sub-layer split by heads over a
+client's ranks (:mod:`repro_torch.models.tp`).
 """
 
 from __future__ import annotations
@@ -117,23 +119,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # Full attention sub-layer (projections + RoPE + cache plumbing)
 # ---------------------------------------------------------------------------
 
+def _project(x: torch.Tensor, w: torch.Tensor, bias, heads: int,
+             head_dim: int, positions, rope_theta: float) -> torch.Tensor:
+    """One of ``attn_project_qkv``'s projections, ``[B, S, heads, Dh]``;
+    RoPE applied unless ``positions`` is ``None`` (v)."""
+    b, s, _ = x.shape
+    y = x @ w
+    if bias is not None:
+        y = y + bias
+    y = y.reshape(b, s, heads, head_dim)
+    return y if positions is None else apply_rope(y, positions, rope_theta)
+
+
 def attn_project_qkv(params, x: torch.Tensor, *, num_heads: int,
                      num_kv: int, head_dim: int, rope_theta: float,
                      positions: torch.Tensor):
     """x: [B, S, D] → q [B,S,Hq,Dh], k,v [B,S,Hkv,Dh], RoPE applied."""
-    b, s, _ = x.shape
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    q = q.reshape(b, s, num_heads, head_dim)
-    k = k.reshape(b, s, num_kv, head_dim)
-    v = v.reshape(b, s, num_kv, head_dim)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    q = _project(x, params["wq"], params.get("bq"), num_heads, head_dim,
+                 positions, rope_theta)
+    k = _project(x, params["wk"], params.get("bk"), num_kv, head_dim,
+                 positions, rope_theta)
+    v = _project(x, params["wv"], params.get("bv"), num_kv, head_dim, None,
+                 rope_theta)
     return q, k, v
 
 
@@ -198,3 +205,75 @@ def run_attention(params, x: torch.Tensor, *, cfg_heads: int, cfg_kv: int,
             cache["k"][:, :s] = k
             cache["v"][:, :s] = v
     return attn_out(params, o), cache
+
+
+def _kv_heads(m: int, hq_local: int, group: int, device) -> torch.Tensor:
+    """The kv heads rank m's q heads ``[m·hq_local, (m+1)·hq_local)`` use,
+    in an order that keeps ``_split_gqa``'s grouping: a contiguous run
+    where the q heads cover whole groups or sit in one, else one kv head
+    per q head (groups of one)."""
+    lo = m * hq_local
+    if hq_local % group == 0:
+        return torch.arange(lo // group, (lo + hq_local) // group,
+                            device=device)
+    if group % hq_local == 0:
+        return torch.arange(lo // group, lo // group + 1, device=device)
+    return torch.arange(lo, lo + hq_local, device=device) // group
+
+
+def run_attention_tp(ps: list, x: torch.Tensor, tp, *, cfg_heads: int,
+                     cfg_kv: int, head_dim: int, rope_theta: float,
+                     window: int, blocked_threshold: int = 8192,
+                     q_chunk: int = 1024, k_chunk: int = 1024
+                     ) -> torch.Tensor:
+    """The training sub-layer (causal, no cache) split by heads over
+    ``tp``'s ranks: ``ps[m]`` is rank m's attention tree, ``x`` the
+    replicated input on rank 0's device → the output there.
+
+    Column-parallel ``wq/wk/wv`` (and biases) by heads, the attention of
+    each rank's heads on its device, row-parallel ``wo`` summed over the
+    ranks. Where the kv heads do not divide the ranks (``param_pspecs``
+    replicates ``wk/wv``), k and v are projected once on rank 0's device
+    and each rank takes the kv heads its q heads use; where the q heads do
+    not divide, the sub-layer runs whole there."""
+    from repro_torch.models.tp import check_shape
+    q_ok, hq = tp.split(cfg_heads)
+    if not q_ok:
+        return run_attention(ps[0], x, cfg_heads=cfg_heads, cfg_kv=cfg_kv,
+                             head_dim=head_dim, rope_theta=rope_theta,
+                             window=window,
+                             blocked_threshold=blocked_threshold,
+                             q_chunk=q_chunk, k_chunk=k_chunk)[0]
+    kv_ok, hkv = tp.split(cfg_kv)
+    b, s, d = x.shape
+    xs = tp.scatter(x)
+    if not kv_ok:
+        pos = torch.arange(s, device=x.device)[None, :]
+        ks = tp.scatter(_project(x, ps[0]["wk"], ps[0].get("bk"), cfg_kv,
+                                 head_dim, pos, rope_theta))
+        vs = tp.scatter(_project(x, ps[0]["wv"], ps[0].get("bv"), cfg_kv,
+                                 head_dim, None, rope_theta))
+    parts = []
+    for m, (p, xm) in enumerate(zip(ps, xs)):
+        pos = torch.arange(s, device=xm.device)[None, :]
+        check_shape(p["wq"], (d, hq * head_dim), "wq")
+        check_shape(p["wo"], (hq * head_dim, d), "wo")
+        q = _project(xm, p["wq"], p.get("bq"), hq, head_dim, pos,
+                     rope_theta)
+        if kv_ok:
+            check_shape(p["wk"], (d, hkv * head_dim), "wk")
+            k = _project(xm, p["wk"], p.get("bk"), hkv, head_dim, pos,
+                         rope_theta)
+            v = _project(xm, p["wv"], p.get("bv"), hkv, head_dim, None,
+                         rope_theta)
+        else:
+            idx = _kv_heads(m, hq, cfg_heads // cfg_kv, xm.device)
+            k = ks[m].index_select(2, idx)
+            v = vs[m].index_select(2, idx)
+        if s >= blocked_threshold:
+            o = blocked_attention(q, k, v, causal=True, window=window,
+                                  q_chunk=q_chunk, k_chunk=k_chunk)
+        else:
+            o = plain_attention(q, k, v, causal=True, window=window)
+        parts.append(attn_out(p, o))
+    return tp.reduce(parts)

@@ -29,11 +29,24 @@ def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
+def expert_ffn(params, hin: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over their capacity buffers, ``hin [E, n, D]``
+    → ``[E, n, D]`` (a ``d_ff`` shard of the weights gives its partial
+    sum)."""
+    gate = F.silu(torch.einsum("ecd,edf->ecf", hin, params["w_gate"]))
+    up = torch.einsum("ecd,edf->ecf", hin, params["w_up"])
+    return torch.einsum("ecf,efd->ecd", gate * up, params["w_down"])
+
+
 def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
-            capacity_factor: float, group_size: int = GROUP_SIZE):
+            capacity_factor: float, group_size: int = GROUP_SIZE,
+            experts=None):
     """x: [B, S, D] → (y [B, S, D], aux_loss scalar).
 
     params: router [D, E]; w_gate, w_up [E, D, F]; w_down [E, F, D].
+    ``experts`` (``hin [E, n, D]`` → ``[E, n, D]``) replaces
+    :func:`expert_ffn` on ``params`` (the tensor-parallel experts of
+    :mod:`repro_torch.models.tp`: the routing runs here, once).
     """
     b, s, d = x.shape
     t = b * s
@@ -77,9 +90,7 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
 
     # expert SwiGLU over [E, ng·cap, D]
     hin = buf.movedim(1, 0).reshape(e, ng * cap, d)
-    gate = F.silu(torch.einsum("ecd,edf->ecf", hin, params["w_gate"]))
-    up = torch.einsum("ecd,edf->ecf", hin, params["w_up"])
-    hout = torch.einsum("ecf,efd->ecd", gate * up, params["w_down"])
+    hout = (expert_ffn(params, hin) if experts is None else experts(hin))
     hout = hout.reshape(e, ng, cap, d).movedim(0, 1)      # [ng, E, cap, D]
 
     # combine with router weights on kept slots

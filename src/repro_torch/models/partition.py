@@ -11,7 +11,10 @@ KV-cache sequence dim over ``data`` (split-K decode).
 
 The port has no GSPMD: these specs are data. The flat layout
 (:mod:`repro_torch.core.flat_layout`) reads them to decide which leaves a
-model column slices and which it replicates.
+model column slices and which it replicates; :func:`shard` takes rank m's
+piece of a leaf by its spec and :func:`rank_params` rank m's whole tree
+(:mod:`repro_torch.models.tp` computes on those trees;
+:class:`~repro_torch.train.state.RankShards` gathers them back).
 """
 
 from __future__ import annotations
@@ -118,6 +121,37 @@ def param_pspecs(cfg: ModelConfig, mesh) -> Any:
         }
         specs["layers"] = _stack(layer)
     return specs
+
+
+def model_dim(spec, shape, m_size: int) -> Any:
+    """The dimension of a leaf of ``shape`` that ``spec`` shards over a
+    ``model`` axis of ``m_size`` (``None`` where the leaf is replicated: no
+    ``model`` entry, or a dimension that the axis does not divide — the
+    flat layout's rule)."""
+    for i, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names:
+            return None if shape[i] % m_size else i
+    return None
+
+
+def shard(x, spec, m: int, m_size: int):
+    """Rank m's piece of the leaf ``x`` under ``spec`` over a ``model``
+    axis of ``m_size``: a view of block m along its model dimension, or
+    ``x`` itself where the leaf is replicated."""
+    dim = model_dim(spec, tuple(x.shape), m_size)
+    if dim is None or m_size == 1:
+        return x
+    width = x.shape[dim] // m_size
+    return x.narrow(dim, m * width, width)
+
+
+def rank_params(params, specs, m: int, m_size: int):
+    """Rank m's param tree: :func:`shard` of every leaf (views)."""
+    if isinstance(params, dict):
+        return {k: rank_params(params[k], specs[k], m, m_size)
+                for k in params}
+    return shard(params, specs, m, m_size)
 
 
 def batch_pspecs(cfg: ModelConfig, mesh, global_batch: int) -> Any:

@@ -16,6 +16,12 @@ reference's ``jax.checkpoint`` over its ``lax.scan`` body
 (``cfg.remat``): each layer runs under ``torch.utils.checkpoint``, and
 with ``cfg.nested_remat`` the layers go in √L groups, each group
 checkpointed as a whole too. Values do not change; memory does.
+
+:func:`run_stack_tp` is the training path split over a client's ranks
+(:mod:`repro_torch.models.tp`): ``_dense_layer_tp`` and
+``_shared_block_tp`` run attention and MLP (or the MoE experts) on every
+rank's shards, the norms, residual adds and mamba blocks once on rank 0's
+device. The remat wraps the same layer bodies, cross-device sums included.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ssm
-from repro_torch.models.attention import run_attention
+from repro_torch.models.attention import run_attention, run_attention_tp
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
 from repro_torch.models.moe import moe_ffn
 
@@ -52,6 +58,9 @@ def tree_leaves(tree) -> list:
 
 
 def _at(tree, i: int):
+    """Layer i of a stacked tree (of each rank's tree, for a list)."""
+    if isinstance(tree, list):
+        return [_at(t, i) for t in tree]
     return tree_map(lambda a: a[i], tree)
 
 
@@ -97,6 +106,41 @@ def _mlp_apply(cfg: ModelConfig, params, x):
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]
+
+
+def _mlp_apply_tp(cfg: ModelConfig, ps: list, x, tp):
+    """The MLP split by ``d_ff``: column-parallel ``w_gate/w_up``,
+    row-parallel ``w_down`` summed over the ranks (whole on rank 0's
+    device where ``d_ff`` does not divide)."""
+    from repro_torch.models.tp import check_shape
+    f_ok, f = tp.split(cfg.d_ff)
+    if not f_ok:
+        return _mlp_apply(cfg, ps[0], x)
+    xs = tp.scatter(x)
+    for p in ps:
+        check_shape(p["w_up"], (cfg.d_model, f), "w_up")
+    return tp.reduce([_mlp_apply(cfg, p, xm) for p, xm in zip(ps, xs)])
+
+
+def _moe_apply_tp(cfg: ModelConfig, ps: list, x, tp):
+    """The MoE FFN with the router and its dispatch once on rank 0's
+    device and the experts split by ``d_ff`` (``w_down`` row-parallel,
+    summed over the ranks)."""
+    from repro_torch.models.moe import expert_ffn
+    from repro_torch.models.tp import check_shape
+    f_ok, f = tp.split(cfg.d_ff)
+    experts = None
+    if f_ok:
+        for p in ps:
+            check_shape(p["w_up"], (cfg.num_experts, cfg.d_model, f),
+                        "w_up")
+
+        def experts(hin):
+            hs = tp.scatter(hin)
+            return tp.reduce([expert_ffn(p, h) for p, h in zip(ps, hs)])
+    return moe_ffn(ps[0], x, num_experts=cfg.num_experts,
+                   top_k=cfg.num_experts_per_tok,
+                   capacity_factor=cfg.capacity_factor, experts=experts)
 
 
 def _moe_init(gen, cfg: ModelConfig, dtype, device, lead=()):
@@ -151,6 +195,28 @@ def _dense_layer(cfg: ModelConfig, params, h, cache=None, pos=None):
     return h + y, cache, aux
 
 
+def _attention_tp(cfg: ModelConfig, ps: list, x, tp):
+    return run_attention_tp(
+        ps, x, tp, cfg_heads=cfg.num_heads, cfg_kv=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window)
+
+
+def _dense_layer_tp(cfg: ModelConfig, ps: list, h, tp):
+    """:func:`_dense_layer`'s training form over ``tp``'s ranks (``ps[m]``
+    rank m's layer tree); returns (h, aux)."""
+    p0 = ps[0]
+    x = rms_norm(h, p0["ln1"], cfg.norm_eps)
+    h = h + _attention_tp(cfg, [p["attn"] for p in ps], x, tp)
+    x = rms_norm(h, p0["ln2"], cfg.norm_eps)
+    mlps = [p["mlp"] for p in ps]
+    if cfg.family == "moe":
+        y, aux = _moe_apply_tp(cfg, mlps, x, tp)
+    else:
+        y, aux = _mlp_apply_tp(cfg, mlps, x, tp), None
+    return h + y, aux
+
+
 def _mamba_layer(cfg: ModelConfig, params, h, cache=None):
     x = rms_norm(h, params["ln"], cfg.norm_eps)
     y, cache = ssm.mamba2_block(params["mamba"], cfg, x, cache)
@@ -167,6 +233,15 @@ def _shared_block(cfg: ModelConfig, params, h, cache=None, pos=None):
     h = h + o
     x = rms_norm(h, params["ln2"], cfg.norm_eps)
     return h + _mlp_apply(cfg, params["mlp"], x), cache
+
+
+def _shared_block_tp(cfg: ModelConfig, ps: list, h, tp):
+    """:func:`_shared_block`'s training form over ``tp``'s ranks."""
+    p0 = ps[0]
+    x = rms_norm(h, p0["ln1"], cfg.norm_eps)
+    h = h + _attention_tp(cfg, [p["attn"] for p in ps], x, tp)
+    x = rms_norm(h, p0["ln2"], cfg.norm_eps)
+    return h + _mlp_apply_tp(cfg, [p["mlp"] for p in ps], x, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +371,8 @@ def _scan_layers(cfg: ModelConfig, body, carry, stacked):
     """Loop ``carry = body(carry, layer_params)`` over stacked layer params
     with the optional √L nested remat (the no-cache training path, where
     only the carry matters)."""
-    num_layers = tree_leaves(stacked)[0].shape[0]
+    first = stacked[0] if isinstance(stacked, list) else stacked
+    num_layers = tree_leaves(first)[0].shape[0]
     g = _remat_groups(cfg, num_layers)
     layer = _maybe_remat(lambda c, i: body(c, _at(stacked, i)), cfg)
 
@@ -369,3 +445,36 @@ def run_stack(cfg: ModelConfig, params, h: torch.Tensor, cache=None,
         if a is not None:
             aux_total = aux_total + a
     return h, cache, aux_total
+
+
+def run_stack_tp(cfg: ModelConfig, ranks: list, h: torch.Tensor, tp):
+    """:func:`run_stack`'s training path (no cache) over ``tp``'s ranks:
+    ``ranks[m]`` is rank m's param tree, ``h`` the embeddings on rank 0's
+    device → (h, aux) there. The mamba blocks (their leaves are
+    replicated) run once on rank 0's device."""
+    p0 = ranks[0]
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def mamba_body(hh, p_j):
+        return _mamba_layer(cfg, p_j, hh, None)[0]
+    if cfg.family == "ssm":
+        return _scan_layers(cfg, mamba_body, h, p0["layers"]), aux_total
+    if cfg.family == "hybrid":
+        n_sites = cfg.num_layers // cfg.attn_every
+        trailing = cfg.num_layers - n_sites * cfg.attn_every
+        mamba = _maybe_remat(mamba_body, cfg)
+        shared = [r["shared_attn"] for r in ranks]
+        for site in range(n_sites):
+            for j in range(cfg.attn_every):
+                h = mamba(h, _at(_at(p0["layers"], site), j))
+            h = _shared_block_tp(cfg, shared, h, tp)
+        for i in range(trailing):
+            h = mamba(h, _at(p0["trailing"], i))
+        return h, aux_total
+
+    def body(carry, p_is):
+        hh, aux = carry
+        hh, a = _dense_layer_tp(cfg, p_is, hh, tp)
+        return (hh, aux if a is None else aux + a)
+    return _scan_layers(cfg, body, (h, aux_total),
+                        [r["layers"] for r in ranks])

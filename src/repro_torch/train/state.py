@@ -8,10 +8,11 @@ changes convergence (the paper's EF banks untransmitted gradient mass).
 On a mesh of several devices a state's leaves are placed by rank
 (:func:`repro_torch.train.step.init_state`): a flat leaf is a
 :class:`RankPieces` (one piece per rank, on that rank's device) and the
-params a :class:`Replicas` (the whole tree on each device that computes a
-client). :func:`map_state`, :func:`abstract_like` and :func:`state_to`
-keep that structure; :func:`gather_state` gives the reference's global
-layout, whole tensors on one device.
+params and ``tcs_prev`` a :class:`RankShards` (rank (k, m)'s tree: its
+shard of each model-sharded leaf by ``param_pspecs``, the replicated leaves
+whole, on its device). :func:`map_state`, :func:`abstract_like` and
+:func:`state_to` keep that structure; :func:`gather_state` gives the
+reference's global layout, whole tensors on one device.
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ class TrainConfig:
     ef_dtype: str = "bfloat16"
     lr_warmup: int = 100
     lr_decay_steps: int = 10_000
-    # FSDP-style compute in the reference (the local batch sharded over
-    # `model` too); the port's clients compute whole, so it changes
-    # nothing here but is kept for configuration parity
+    # FSDP-style compute: each client's batch split over `model` (its
+    # ranks gather the model-sharded params whole), as the reference's
+    # ssm/hybrid archs always run (train.step, phase 1)
     fsdp_compute: bool = False
 
     def needs_tcs(self) -> bool:
@@ -96,29 +97,59 @@ class RankPieces:
         return out
 
 
-class Replicas:
-    """A tree held whole on each of several devices: ``trees[i]`` on
-    ``devices[i]``."""
+class RankShards:
+    """A param tree placed by rank: rank (k, m) holds column m's tree —
+    shard m of each model-sharded leaf (by ``param_pspecs``), the
+    replicated leaves whole — on its device. Ranks that share a device and
+    a column share one tree: ``trees[i]`` is column ``cols[i]``'s tree on
+    ``devices[i]``. ``dims[j]`` is the model dimension of leaf j (in
+    ``tree_leaves`` order; ``None`` for a replicated leaf)."""
 
-    __slots__ = ("devices", "trees")
+    __slots__ = ("devices", "cols", "trees", "dims")
 
-    def __init__(self, devices, trees):
-        self.devices, self.trees = tuple(devices), tuple(trees)
+    def __init__(self, devices, cols, trees, dims):
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.cols, self.trees, self.dims = (tuple(cols), tuple(trees),
+                                            tuple(dims))
 
-    def on(self, device) -> Any:
-        return self.trees[self.devices.index(torch.device(device))]
+    def on(self, device, m: int) -> Any:
+        """Column m's tree on ``device``."""
+        key = (torch.device(device), m)
+        for dev, col, tree in zip(self.devices, self.cols, self.trees):
+            if (dev, col) == key:
+                return tree
+        raise KeyError(f"no column-{m} tree on {device}")
 
-    def map(self, fn) -> "Replicas":
-        return Replicas(self.devices, [map_state(fn, t) for t in self.trees])
+    def column(self, m: int) -> Any:
+        """Column m's first tree."""
+        return self.trees[self.cols.index(m)]
+
+    def map(self, fn) -> "RankShards":
+        return RankShards(self.devices, self.cols,
+                          [map_state(fn, t) for t in self.trees], self.dims)
+
+    def gather(self, device) -> Any:
+        """The whole tree on ``device`` (each sharded leaf's columns
+        concatenated along its model dimension)."""
+        from repro_torch.core.flat_layout import (tree_structure,
+                                                  tree_unflatten)
+        from repro_torch.models.transformer import tree_leaves
+        dev = torch.device(device)
+        cols = [tree_leaves(self.column(m))
+                for m in range(max(self.cols) + 1)]
+        out = [to_device(cols[0][j], dev) if dim is None else
+               torch.cat([to_device(c[j], dev) for c in cols], dim)
+               for j, dim in enumerate(self.dims)]
+        return tree_unflatten(tree_structure(self.trees[0]), out)
 
 
 def map_state(fn, tree: Any) -> Any:
     """``fn`` on every tensor of a state tree (NamedTuples, dicts, tuples,
-    :class:`RankPieces` and :class:`Replicas`; ``None`` stays ``None``),
+    :class:`RankPieces` and :class:`RankShards`; ``None`` stays ``None``),
     keeping its structure."""
     if tree is None:
         return None
-    if isinstance(tree, (RankPieces, Replicas)):
+    if isinstance(tree, (RankPieces, RankShards)):
         return tree.map(fn)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(map_state(fn, v) for v in tree))
@@ -152,14 +183,12 @@ def state_to(tree: Any, device) -> Any:
 
 def gather_state(tree: Any, device) -> Any:
     """A placed state in the reference's global layout: each
-    :class:`RankPieces` gathered whole and one :class:`Replicas` tree,
-    every tensor on ``device``."""
+    :class:`RankPieces` and :class:`RankShards` gathered whole, every
+    tensor on ``device``."""
     if tree is None:
         return None
-    if isinstance(tree, RankPieces):
+    if isinstance(tree, (RankPieces, RankShards)):
         return tree.gather(device)
-    if isinstance(tree, Replicas):
-        return gather_state(tree.trees[0], device)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(gather_state(v, device) for v in tree))
     if isinstance(tree, dict):

@@ -7,13 +7,31 @@ of local devices and runs the same three phases as named methods of
 :class:`TrainStep`, so each can be held alone:
 
   1. :meth:`TrainStep.phase1` (the reference's ``per_client``; one client
-     is :meth:`TrainStep.client_grad`) — per-client gradients: for each DP
-     rank k, ``loss_fn`` + autograd on that rank's slice of the batch, on
-     the device of rank (k, 0), which holds the params.
-     The model axis computes nothing of its own: the (k, m) ranks of one
-     client share that client's gradient (the one-process counterpart of
-     the reference's TP compute, with the same numbers). The reported loss
-     is the mean of the per-client losses, summed in client order;
+     is :meth:`TrainStep.client_cols`) — per-client gradients, flattened
+     to their M model columns. On a mesh with ``model == 1`` client k runs
+     ``loss_fn`` + autograd whole on rank (k, 0)'s device
+     (:meth:`TrainStep.client_grad`). With ``model > 1`` its M ranks split
+     the work in the form the reference chooses
+     (``batch_over_model = family in ("ssm", "hybrid") or
+     tc.fsdp_compute``, and the client's batch divides M):
+
+     * **tensor-parallel** (:mod:`repro_torch.models.tp`,
+       :func:`~repro_torch.models.model.loss_fn_tp`): rank (k, m) computes
+       on its shards of the params by ``param_pspecs``, on its device, and
+       one autograd runs across the ranks' devices; its gradients are
+       column m's pieces (a replicated leaf's whole gradient sits on rank
+       (k, 0), which computes the replicated work, and rank m takes its
+       column's piece);
+     * **batch over model**: rank (k, m) takes sub-batch m of the client's
+       slice, gathers the model-sharded leaves whole onto its device
+       (FSDP-style) and runs ``loss_fn`` + autograd there; the client's
+       gradient is the mean over m, summed so that rank (k, m) keeps only
+       column m's piece (a reduce-scatter).
+
+     Every cross-rank sum runs in float32 in a fixed pairwise order (the
+     reference's program promotes its bf16 all-reduces to f32). The
+     reported loss is the mean of the per-client losses, summed in client
+     order;
   2. :meth:`TrainStep.aggregate` — sparse incremental aggregation in the
      shard-aligned flat space (:mod:`repro_torch.core.flat_layout`): each
      (k, m) rank flattens its client's gradient to ``agg_dtype``
@@ -52,29 +70,30 @@ specs of :func:`state_shardings`:
                                     spec`)               long
   ``ef``, each ``stage_ef`` tier    ``(dp, "model")``    rank (k, m): row k,
                                                          column block m
-  ``params``                        ``param_pspecs``     whole, on each
-                                                         distinct device of
-                                                         the ranks (k, 0)
-  ``tcs_prev``                      ``param_pspecs``     with the params
+  ``params``                        ``param_pspecs``     rank (k, m): shard
+                                                         m of each sharded
+                                                         leaf, replicated
+                                                         leaves whole
+  ``tcs_prev``                      ``param_pspecs``     as the params
   ``step``, ``opt.step``            replicated           the mesh's first
                                                          device
   ================================  ===================  ==================
 
 The flat leaves are :class:`~repro_torch.train.state.RankPieces`, the
-params and ``tcs_prev`` :class:`~repro_torch.train.state.Replicas`. The
-params are whole where the reference shards them over ``model``: phase 1
-computes client k's whole gradient on rank (k, 0) (the model axis computes
-nothing of its own), so each (k, 0) device holds the params, and that is
-the one gap to the reference's per-rank bytes. ``tcs_prev`` stays with
-them: the TCS mask's Δ reads both on rank (0, 0)'s device, and its refresh
-is a cast of the old params on each device, with no copy between devices
-(the reference holds column m's share on rank (k, m)).
+params and ``tcs_prev`` :class:`~repro_torch.train.state.RankShards` (one
+tree per distinct (device, column) of the ranks). Phase 1 reads each
+rank's tree; the TCS mask's Δ for column m is made on rank (0, m)'s device
+from that rank's params and ``tcs_prev``; the downlink rebuilds each
+rank's tree from column m's K_dp master segments (a replicated leaf's
+other columns gathered over m), leaf by leaf, so no device holds a whole
+f32 master; the ``tcs_prev`` refresh casts each rank's own tree.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Optional
 
 import torch
@@ -90,10 +109,11 @@ from repro_torch.device import to_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as model_mod
 from repro_torch.models import partition
+from repro_torch.models.tp import TP, sum_to
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.optim import optimizers as opt_mod
 from repro_torch.optim.schedule import lr_schedule
-from repro_torch.train.state import (RankPieces, Replicas, TrainConfig,
+from repro_torch.train.state import (RankPieces, RankShards, TrainConfig,
                                     TrainState, map_state, state_to)
 
 Tensor = torch.Tensor
@@ -275,11 +295,11 @@ def _placed(mesh) -> bool:
     return len(mesh.distinct()) > 1
 
 
-def param_devices(mesh) -> tuple:
-    """The distinct devices of the ranks (k, 0), in DP order: each holds
-    the params (the mesh's first device first)."""
-    return tuple(dict.fromkeys(rank_device(mesh, k, 0)
-                               for k in range(dp_size(mesh))))
+def param_places(mesh) -> tuple:
+    """The distinct (device, model column) pairs of the ranks, in rank
+    order: each holds one column's param tree."""
+    return tuple(dict.fromkeys((rank_device(mesh, k, m), m)
+                               for k, m in _ranks(mesh)))
 
 
 def _block(mesh, coords: dict, entry) -> tuple:
@@ -361,11 +381,22 @@ def zeros_leaf(shape: tuple, dtype: torch.dtype, spec: tuple,
     return RankPieces(pieces, index, tail)
 
 
-def _replicate(tree, devices) -> Replicas:
-    """``tree`` whole on each of ``devices`` (its own tensors where they
-    already are there)."""
-    return Replicas(devices, [tree_map(lambda x: _on(x, d), tree)
-                              for d in devices])
+def shard_params(tree, specs, mesh) -> RankShards:
+    """A whole param tree (or ``tcs_prev``) → its :class:`~repro_torch.
+    train.state.RankShards` on ``mesh``: each (device, column) of the
+    ranks gets its column's tree (:func:`~repro_torch.models.partition.
+    shard` of every leaf by ``specs``), copied to that device."""
+    m_size = model_size(mesh)
+    structure = tree_structure(tree)
+    leaves, spec_l = tree_leaves(tree), tree_leaves(specs)
+    dims = [partition.model_dim(sp, tuple(x.shape), m_size)
+            for x, sp in zip(leaves, spec_l)]
+    places = param_places(mesh)
+    trees = [tree_unflatten(structure, [
+        _put(partition.shard(x, sp, m, m_size), dev)
+        for x, sp in zip(leaves, spec_l)]) for dev, m in places]
+    return RankShards([d for d, _ in places], [m for _, m in places], trees,
+                      dims)
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +464,6 @@ def init_state(cfg: ModelConfig, tc: TrainConfig, mesh,
         return TrainState(step=step, params=params, master=master, opt=opt,
                           ef=ef, tcs_prev=tcs_prev, stage_ef=stage_ef)
     specs = state_shardings(cfg, tc, mesh, topology)
-    devs = param_devices(mesh)
     flat = (layout.d_flat,)
     opt = opt_mod.FlatOptState(
         step=torch.zeros((), dtype=torch.int32, device=home),
@@ -442,10 +472,11 @@ def init_state(cfg: ModelConfig, tc: TrainConfig, mesh,
         v=(None if specs.opt.v is None else
            zeros_leaf(flat, torch.float32, specs.opt.v, mesh)))
     return TrainState(
-        step=step, params=_replicate(params, devs),
+        step=step, params=shard_params(params, specs.params, mesh),
         master=shard_leaf(master, specs.master, mesh), opt=opt,
         ef=zeros_leaf((k_dp, layout.d_flat), ef_dt, specs.ef, mesh),
-        tcs_prev=None if tcs_prev is None else _replicate(tcs_prev, devs),
+        tcs_prev=(None if tcs_prev is None else
+                  shard_params(tcs_prev, specs.tcs_prev, mesh)),
         stage_ef=None if nested is None else tuple(
             zeros_leaf((k_dp, dim), ef_dt, spec, mesh)
             for dim, spec in zip(tier_dims, specs.stage_ef)))
@@ -459,21 +490,20 @@ def place_state(state: TrainState, mesh, specs: TrainState) -> TrainState:
     home = _home(mesh)
     if not _placed(mesh):
         return state_to(state, home)
-    devs = param_devices(mesh)
 
     def shard(x, spec):
         return None if x is None else shard_leaf(x, spec, mesh)
 
     return TrainState(
         step=_on(state.step, home),
-        params=_replicate(state.params, devs),
+        params=shard_params(state.params, specs.params, mesh),
         master=shard(state.master, specs.master),
         opt=opt_mod.FlatOptState(step=_on(state.opt.step, home),
                                  m=shard(state.opt.m, specs.opt.m),
                                  v=shard(state.opt.v, specs.opt.v)),
         ef=shard(state.ef, specs.ef),
         tcs_prev=(None if state.tcs_prev is None else
-                  _replicate(state.tcs_prev, devs)),
+                  shard_params(state.tcs_prev, specs.tcs_prev, mesh)),
         stage_ef=None if state.stage_ef is None else tuple(
             shard(e, sp) for e, sp in zip(state.stage_ef, specs.stage_ef)))
 
@@ -487,10 +517,11 @@ def _stack_states(states: list):
         return RankPieces([torch.stack([s.pieces[r] for s in states])
                            for r in range(len(first.pieces))],
                           first.index, first.tail)
-    if isinstance(first, Replicas):
-        return Replicas(first.devices, [
+    if isinstance(first, RankShards):
+        return RankShards(first.devices, first.cols, [
             _stack_states([s.trees[i] for s in states])
-            for i in range(len(first.trees))])
+            for i in range(len(first.trees))],
+            [None if d is None else d + 1 for d in first.dims])
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(_stack_states([getattr(s, f) for s in states])
                              for f in first._fields))
@@ -613,7 +644,16 @@ class TrainStep:
             for m in range(self.m)]
         self.structure = tree_structure(model_mod.param_specs(cfg))
         self.placed = _placed(mesh)
-        self.param_devs = param_devices(mesh)
+        self.p_specs = partition.param_pspecs(cfg, mesh)
+        self.places = param_places(mesh)
+        # the reference's choice of phase-1 form (repro/train/step.py)
+        self.batch_over_model = (cfg.family in ("ssm", "hybrid")
+                                 or tc.fsdp_compute)
+        if self.m > 1 and tc.fsdp_compute and cfg.family == "moe":
+            raise ValueError(
+                "fsdp_compute splits each client's batch over `model`; an "
+                "MoE's load-balancing loss couples the client's tokens, so "
+                "the split would change the loss")
         # rank (k, m)'s piece of a flat leaf (and of the aggregate)
         n = layout.n_local
         self.flat_index = [
@@ -622,10 +662,6 @@ class TrainStep:
             for k, m in _ranks(mesh)]
 
     # ---- phase 1: per-client gradients ---------------------------------
-    def _at_home(self, tree):
-        """The copy of the params (or ``tcs_prev``) on the first device."""
-        return tree.on(self.home) if isinstance(tree, Replicas) else tree
-
     def _check_form(self, state: TrainState) -> None:
         if isinstance(state.master, RankPieces) != self.placed:
             raise ValueError(
@@ -633,28 +669,146 @@ class TrainStep:
                 "mesh of one a whole state (init_state and place_state "
                 "give the mesh's form)")
 
-    def client_grad(self, params, batch: dict, k: int) -> tuple:
-        """Client k's ``(gradient leaves, loss)`` on its slice of the
-        global batch, on the device of rank (k, 0) (``params`` whole on the
-        mesh's one device, or :class:`~repro_torch.train.state.Replicas`
-        holding them there)."""
-        dev = rank_device(self.mesh, k, 0)
-        if isinstance(params, Replicas):
-            params = params.on(dev)
+    def _rank_trees(self, params, k: int) -> list:
+        """Rank (k, m)'s param tree for each m: its tree of a
+        :class:`~repro_torch.train.state.RankShards`, or views of the whole
+        params of a mesh of one device."""
+        if isinstance(params, RankShards):
+            return [params.on(rank_device(self.mesh, k, m), m)
+                    for m in range(self.m)]
+        return [partition.rank_params(params, self.p_specs, m, self.m)
+                for m in range(self.m)]
+
+    def _client_slice(self, batch: dict, k: int) -> tuple:
         b = batch["tokens"].shape[0]
         if b % self.k_dp:
             raise ValueError(f"global batch {b} does not split over "
                              f"{self.k_dp} DP ranks")
         per = b // self.k_dp
+        return per, {name: v[k * per:(k + 1) * per]
+                     for name, v in batch.items()}
+
+    def client_grad(self, params, batch: dict, k: int) -> tuple:
+        """Client k's ``(gradient leaves, loss)`` on its slice of the
+        global batch, whole on the device of rank (k, 0): the form of a
+        mesh with ``model == 1``, and with ``model > 1`` the whole-model
+        gradient that the split forms are held to (the params gathered
+        there)."""
+        dev = rank_device(self.mesh, k, 0)
+        if isinstance(params, RankShards):
+            params = (params.on(dev, 0) if self.m == 1 else
+                      params.gather(dev))
+        _, local = self._client_slice(batch, k)
         leaves = [to_device(p, dev).detach().requires_grad_(True)
                   for p in tree_leaves(params)]
-        local = {name: to_device(v[k * per:(k + 1) * per], dev)
-                 for name, v in batch.items()}
+        local = {name: to_device(v, dev) for name, v in local.items()}
         with torch.enable_grad():
             loss, _ = model_mod.loss_fn(
                 self.cfg, tree_unflatten(self.structure, leaves), local)
             grads = torch.autograd.grad(loss, leaves)
         return list(grads), loss.detach()
+
+    def phase1_form(self, batch: dict) -> str:
+        """``"whole"`` (``model == 1``), ``"batch_over_model"`` or
+        ``"tensor_parallel"``: the reference's choice, by family,
+        ``fsdp_compute`` and whether the client's batch divides M."""
+        if self.m == 1:
+            return "whole"
+        per = batch["tokens"].shape[-2] // self.k_dp
+        if self.batch_over_model and per % self.m == 0:
+            return "batch_over_model"
+        return "tensor_parallel"
+
+    def client_cols(self, params, batch: dict, k: int) -> tuple:
+        """Client k's ``(M column pieces [n_local] in agg_dtype, column m
+        on rank (k, m)'s device; loss)`` in the form of
+        :meth:`phase1_form`."""
+        form = self.phase1_form(batch)
+        if form == "whole":
+            g, loss = self.client_grad(params, batch, k)
+            return self.flatten_grads(g, k), loss
+        if form == "batch_over_model":
+            return self._client_batch_over_model(params, batch, k)
+        return self._client_tensor_parallel(params, batch, k)
+
+    def _devices(self, k: int) -> list:
+        return [rank_device(self.mesh, k, m) for m in range(self.m)]
+
+    def _client_tensor_parallel(self, params, batch: dict, k: int) -> tuple:
+        """Client k's loss and autograd over its M ranks, each on its own
+        shards (:func:`~repro_torch.models.model.loss_fn_tp`); rank (k, m)'s
+        gradients are column m's pieces."""
+        devs = self._devices(k)
+        leaves = [[x.detach().requires_grad_(True) for x in tree_leaves(t)]
+                  for t in self._rank_trees(params, k)]
+        _, local = self._client_slice(batch, k)
+        # one thread runs the backward of every device: the layer remat's
+        # recompute is not safe from two devices' autograd threads at once
+        with torch.enable_grad(), \
+                torch.autograd.set_multithreading_enabled(False):
+            loss, _ = model_mod.loss_fn_tp(
+                self.cfg, [tree_unflatten(self.structure, lv)
+                           for lv in leaves], local, TP(devs))
+            grads = torch.autograd.grad(
+                loss, [x for lv in leaves for x in lv], allow_unused=True)
+        n = len(leaves[0])
+        cols = []
+        for m, dev in enumerate(devs):
+            mine = []
+            for j, plan in enumerate(self.layout.plans):
+                # a replicated leaf's gradient is whole on rank (k, 0)
+                g = grads[(0 if plan.model_dim is None else m) * n + j]
+                if g is None:
+                    raise ValueError(f"rank ({k}, {m}) made no gradient for "
+                                     f"leaf {j}")
+                mine.append(g)
+            cols.append(self.layout.local_flatten(mine, m, self.agg_dt,
+                                                  device=dev))
+        return cols, loss.detach()
+
+    def _client_batch_over_model(self, params, batch: dict, k: int
+                                 ) -> tuple:
+        """Client k's slice split into M sub-batches: rank (k, m) gathers
+        the model-sharded leaves whole on its device and runs ``loss_fn`` +
+        autograd on sub-batch m; column m sums every rank's column-m piece
+        of each leaf (f32, fixed order, the mean's 1/M in each rank's
+        backward)."""
+        devs = self._devices(k)
+        per, local = self._client_slice(batch, k)
+        sub = per // self.m
+        if isinstance(params, RankShards):
+            shards = [tree_leaves(t) for t in self._rank_trees(params, k)]
+        scale = 1.0 / self.m
+        grads, losses = [], []
+        for m, dev in enumerate(devs):
+            if isinstance(params, RankShards):
+                # the model-sharded leaves gathered whole (FSDP-style)
+                own = [to_device(shards[m][j], dev)
+                       if plan.model_dim is None else
+                       torch.cat([to_device(c[j], dev) for c in shards],
+                                 plan.model_dim)
+                       for j, plan in enumerate(self.layout.plans)]
+            else:
+                own = [to_device(x, dev) for x in tree_leaves(params)]
+            leaves = [x.detach().requires_grad_(True) for x in own]
+            mine = {name: to_device(v[m * sub:(m + 1) * sub], dev)
+                    for name, v in local.items()}
+            with torch.enable_grad():
+                loss, _ = model_mod.loss_fn(
+                    self.cfg, tree_unflatten(self.structure, leaves), mine)
+                g = torch.autograd.grad(
+                    loss, leaves, grad_outputs=torch.full_like(loss, scale))
+            grads.append(g)
+            losses.append(loss.detach())
+            del own, leaves
+        cols = []
+        for m, dev in enumerate(devs):
+            parts = [sum_to([self.layout.piece(plan, g[j], m, g[j].dtype)
+                             for g in grads], dev)
+                     for j, plan in enumerate(self.layout.plans)]
+            cols.append(self.layout.join([p.to(self.agg_dt) for p in parts],
+                                         self.agg_dt))
+        return cols, sum_to(losses, devs[0]) * scale
 
     def _mean_loss(self, losses: list) -> Tensor:
         total = to_device(losses[0], self.home).to(torch.float32)
@@ -677,15 +831,16 @@ class TrainStep:
         sharded search over the M columns with counts from
         :func:`~repro_torch.kernels.ops.count_ge`."""
         acfg = self.agg_cfg
-        params, prev = self._at_home(params), self._at_home(prev)
+        p_trees, q_trees = self._rank_trees(params, 0), self._rank_trees(
+            prev, 0)
         deltas = []
-        for m in range(self.m):
-            dev = rank_device(self.mesh, 0, m)
-            p_col = self.layout.local_flatten(tree_leaves(params), m,
-                                              torch.float32)
-            q_col = self.layout.local_flatten(tree_leaves(prev), m,
-                                              torch.float32)
-            deltas.append(to_device(p_col - q_col, dev))
+        for m, dev in enumerate(self._devices(0)):
+            # column m's Δ on rank (0, m)'s device, from that rank's trees
+            p_col = self.layout.local_flatten(tree_leaves(p_trees[m]), m,
+                                              torch.float32, device=dev)
+            q_col = self.layout.local_flatten(tree_leaves(q_trees[m]), m,
+                                              torch.float32, device=dev)
+            deltas.append(p_col - q_col)
             del p_col, q_col
         tau = sp.threshold_for_topq(
             deltas, self.qg_total, branch=acfg.hist_branch,
@@ -867,18 +1022,50 @@ class TrainStep:
         return master, new_opt
 
     def downlink(self, master):
-        """Flat master → param tree (the w^{t+1} broadcast). From rank
-        pieces: the master gathered on the first device (a whole f32
-        master there, 4 bytes a parameter, for the unflatten), the tree
-        made there and copied to the other (k, 0) devices."""
-        if isinstance(master, RankPieces):
-            whole = master.gather(self.home)
-            tree = tree_unflatten(self.structure,
-                                  self.layout.unflatten(whole))
-            del whole
-            return _replicate(tree, self.param_devs)
-        return tree_unflatten(self.structure,
-                              self.layout.unflatten(master))
+        """Flat master → param tree (the w^{t+1} broadcast): whole from a
+        whole master; from rank pieces a
+        :class:`~repro_torch.train.state.RankShards`, each (device, column
+        m) tree rebuilt leaf by leaf from column m's K_dp master segments
+        (a replicated leaf's other columns gathered over m), each part cast
+        to the leaf's dtype where it lies and moved there — no device holds
+        a whole f32 master."""
+        if not isinstance(master, RankPieces):
+            return tree_unflatten(self.structure,
+                                  self.layout.unflatten(master))
+        trees = [tree_unflatten(self.structure,
+                                self._column_leaves(master, dev, m))
+                 for dev, m in self.places]
+        return RankShards([d for d, _ in self.places],
+                          [m for _, m in self.places], trees,
+                          [p.model_dim for p in self.layout.plans])
+
+    def _flat_range(self, master: RankPieces, col: int, lo: int, size: int,
+                    dtype, dev) -> Tensor:
+        """Column ``col``'s flat entries ``[lo, lo + size)`` on ``dev`` in
+        ``dtype``, from the segments of the ranks that own them."""
+        seg, parts = self.seg, []
+        for j in range(lo // seg, (lo + size - 1) // seg + 1):
+            k = self.owned.index(j)
+            a, b = max(lo, j * seg), min(lo + size, (j + 1) * seg)
+            piece = master.pieces[k * self.m + col][a - j * seg:b - j * seg]
+            parts.append(to_device(piece.to(dtype), dev))
+        return torch.cat(parts)
+
+    def _column_leaves(self, master: RankPieces, dev, m: int) -> list:
+        out, off = [], 0
+        for plan in self.layout.plans:
+            size = plan.local_size
+            if plan.model_dim is None:
+                full = torch.cat([self._flat_range(master, c, off, size,
+                                                   plan.dtype, dev)
+                                  for c in range(self.m)])
+                numel = math.prod(plan.global_shape)
+                out.append(full[:numel].reshape(plan.global_shape))
+            else:
+                out.append(self._flat_range(master, m, off, size, plan.dtype,
+                                            dev).reshape(plan.local_shape))
+            off += size
+        return out
 
     def _ef_telemetry(self, ef_new: RankPieces, se_new,
                       participate) -> tuple:
@@ -935,10 +1122,10 @@ class TrainStep:
         if self.cohorts == 1:
             cols, losses = [], []
             for k in range(self.k_dp):
-                g, loss = self.client_grad(state.params, batch, k)
-                cols.append(self.flatten_grads(g, k))
+                c, loss = self.client_cols(state.params, batch, k)
+                cols.append(c)
                 losses.append(loss)
-                del g
+                del c
             return cols, self._mean_loss(losses)
         per = [[[] for _ in range(self.m)] for _ in range(self.k_dp)]
         losses = []
@@ -947,11 +1134,11 @@ class TrainStep:
             batch_i = {name: v[i] for name, v in batch.items()}
             l_i = []
             for k in range(self.k_dp):
-                g, loss = self.client_grad(params_i, batch_i, k)
-                for m, c in enumerate(self.flatten_grads(g, k)):
+                c_k, loss = self.client_cols(params_i, batch_i, k)
+                for m, c in enumerate(c_k):
                     per[k][m].append(c)
                 l_i.append(loss)
-                del g
+                del c_k
             losses.append(self._mean_loss(l_i))
         cols = [[torch.stack(c) for c in row] for row in per]
         return cols, torch.stack(losses)

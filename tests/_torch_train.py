@@ -88,13 +88,14 @@ for c in json.loads(CASES):
     name = c["name"]
     mesh = compat.make_mesh(tuple(c["mesh"]), tuple(c["axes"]))
     cfg = (dataclasses.replace(get_config(c["arch"], smoke=True),
-                               param_dtype="float32")
+                               param_dtype="float32", **c.get("over", {}))
            if "arch" in c else ModelConfig(**c["tiny"]))
     t = c["tc"]
     tc = TrainConfig(agg=AggConfig(kind=AggKind(t["kind"]), q=1,
                                    kernel_mode="ref"),
                      opt=OptConfig(**t["opt"]), q_frac=t["q_frac"],
-                     agg_dtype="float32", ef_dtype="float32")
+                     agg_dtype="float32", ef_dtype="float32",
+                     fsdp_compute=t.get("fsdp", False))
     topo = topology(c["topology"], mesh)
     coh = c["cohorts"]
     with compat.set_mesh(mesh):
@@ -125,13 +126,16 @@ for c in json.loads(CASES):
             if c.get("fake_grads"):
                 for q in paths:
                     batch["G/" + q] = jnp.asarray(inp[f"{name}/G/{i}/{q}"])
-            if f"{name}/participate/{i}" in inp:
-                batch["participate"] = jnp.asarray(
-                    inp[f"{name}/participate/{i}"])
+            for key in ("participate", "frontend_embeds", "frontend_mask"):
+                if f"{name}/{key}/{i}" in inp:
+                    batch[key] = jnp.asarray(inp[f"{name}/{key}/{i}"])
             st, m = step(st, batch)
             save(f"{name}/{i}/state/", st)
             for k, v in m.items():
                 out[f"{name}/{i}/metrics/{k}"] = np.asarray(v)
+        if c.get("ckpt"):
+            from repro.checkpoint import save as save_checkpoint
+            save_checkpoint(c["ckpt"], c["steps"], st)
     mm.loss_fn = real_loss
     print(name, "done", flush=True)
 np.savez(OUTPUTS, **out)
@@ -172,19 +176,22 @@ def start_reference(cases: list, inputs: dict):
 
 def case(name, *, mesh=(4, 2), axes=("data", "model"), arch=None,
          kind="cl_sia", opt=None, topology=None, cohorts=1, steps=2,
-         fake_grads=False, tcs_delta=False) -> dict:
-    """One reference case (the tiny dense model unless ``arch``), q_frac
-    0.05, f32 storage."""
+         fake_grads=False, tcs_delta=False, over=None, fsdp=False) -> dict:
+    """One reference case (the tiny dense model unless ``arch``; ``over``
+    replaces fields of the arch's SMOKE config), q_frac 0.05, f32
+    storage, ``fsdp_compute=fsdp``."""
     c = dict(name=name, mesh=list(mesh), axes=list(axes),
              tc=dict(kind=kind, opt=opt or dict(name="adamw", lr=1e-3,
                                                 weight_decay=0.01),
-                     q_frac=0.05),
+                     q_frac=0.05, fsdp=fsdp),
              topology=topology, cohorts=cohorts, steps=steps,
              fake_grads=fake_grads, tcs_delta=tcs_delta)
     if arch is None:
         c["tiny"] = TINY
     else:
         c["arch"] = arch
+    if over:
+        c["over"] = over
     return c
 
 
@@ -265,9 +272,31 @@ def bits(x: np.ndarray) -> np.ndarray:
 def batch_of(inputs: dict, name: str, i: int, device="cpu") -> dict:
     b = {"tokens": torch.as_tensor(inputs[f"{name}/tokens/{i}"]).long(),
          "labels": torch.as_tensor(inputs[f"{name}/labels/{i}"]).long()}
-    if f"{name}/participate/{i}" in inputs:
-        b["participate"] = torch.as_tensor(inputs[f"{name}/participate/{i}"])
+    for key in ("participate", "frontend_embeds", "frontend_mask"):
+        if f"{name}/{key}/{i}" in inputs:
+            b[key] = torch.as_tensor(inputs[f"{name}/{key}/{i}"])
     return {k: v.to(device) for k, v in b.items()}
+
+
+def assert_same_support(got, want, what):
+    """The transmitted support (``ef == 0``) is equal, or differs only by
+    swaps at a tie: per EF row, as many coordinates kept by the port alone
+    as by the reference alone, the magnitudes each side left in its EF
+    there equal to rtol 1e-5 (two candidates tied at the Q-th magnitude).
+    Anything else fails, with the gap between the swapped magnitudes."""
+    for k in range(got.shape[0]):
+        only_port = np.nonzero((got[k] == 0) & (want[k] != 0))[0]
+        only_ref = np.nonzero((want[k] == 0) & (got[k] != 0))[0]
+        if not only_port.size and not only_ref.size:
+            continue
+        a = np.sort(np.abs(want[k, only_port]))
+        b = np.sort(np.abs(got[k, only_ref]))
+        gap = (np.abs(a - b).max() / max(a.max(), 1e-30)
+               if a.size == b.size else np.inf)
+        assert a.size == b.size and gap <= 1e-5, (
+            f"{what}: row {k}: {only_port.size} coordinates kept by the "
+            f"port alone, {only_ref.size} by the reference alone; relative "
+            f"gap between the swapped magnitudes {gap:.3e}")
 
 
 def loose_coordinates(step, old: dict, got: dict, want: dict) -> dict:

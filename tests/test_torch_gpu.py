@@ -25,7 +25,10 @@ architecture and one full-width phi4-mini layer on the card against the
 CPU in float32. The dry run's predicted device peak of one full decode
 cell is held to the card's within ±1 %. A train state placed by rank on a
 mesh that mixes the card and the CPU keeps its pieces on their ranks'
-devices and equals the same steps on ranks of the card.
+devices and equals the same steps on ranks of the card. Phase 1 split
+over ``model`` (tensor-parallel, or batch over model) on ranks of the card
+equals the same split step on ranks of the CPU, and its columns equal the
+whole-model gradient's.
 """
 
 import math
@@ -1586,3 +1589,172 @@ def test_placed_state_on_a_mesh_of_the_card_and_the_cpu(cuda, no_tf32, opt,
         for key in ("agg_bits", "agg_nnz"):
             _same(m[key], mr[key])
         state = new
+
+
+# name → (arch, config fields, mesh, fsdp_compute)
+TP_CASES = {
+    "dense tied": ("phi4-mini-3.8b", dict(tie_embeddings=True,
+                                          vocab_size=500), (4, 2), False),
+    "dense untied gqa": ("granite-34b", {}, (4, 2), False),
+    "moe": ("mixtral-8x7b", {}, (4, 2), False),
+    "ssm": ("mamba2-130m", {}, (4, 2), False),
+    "hybrid": ("zamba2-1.2b", {}, (4, 2), False),
+    "vlm": ("internvl2-26b", {}, (4, 2), False),
+    "audio": ("musicgen-medium", {}, (4, 2), False),
+    "dense fsdp_compute": ("codeqwen1.5-7b", {}, (4, 2), True),
+    "2x4 dense": ("phi4-mini-3.8b", {}, (2, 4), False),
+}
+
+
+def _tp_setup(name):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.train import TrainConfig
+    arch, over, mesh, fsdp = TP_CASES[name]
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              param_dtype="float32", **over)
+    tc = TrainConfig(agg=AggConfig(kind=AggKind.CL_SIA, q=1), q_frac=0.05,
+                     agg_dtype="float32", ef_dtype="float32",
+                     fsdp_compute=fsdp)
+    return cfg, tc, mesh
+
+
+def _tp_batch(cfg, gen, device):
+    toks = torch.randint(0, cfg.vocab_size, (8, 16), generator=gen)
+    batch = {"tokens": toks, "labels": toks.roll(-1, -1)}
+    if cfg.frontend == "vision":
+        batch["frontend_embeds"] = torch.randn(8, 16, cfg.d_model,
+                                               generator=gen)
+        batch["frontend_mask"] = torch.rand(8, 16, generator=gen) < 0.3
+    elif cfg.frontend == "audio":
+        batch["frontend_embeds"] = 0.1 * torch.randn(8, 16, cfg.d_model,
+                                                     generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_split_step_on_the_card_equals_the_cpu(cuda, no_tf32, name):
+    """The CPU test ``test_torch_train_tp.py::test_split_step_equals_the_
+    reference`` on the card: phase 1 split over ``model`` (tensor-parallel,
+    or batch over model for SSM, hybrid and ``fsdp_compute``) on ranks of
+    ``cuda:0`` against the same split step on ranks of the CPU, each of 2
+    steps from the CPU's state before it: the loss to rtol 1e-5, the
+    support equal but for tie swaps, the change of master and params to
+    1e-3 of its scale, the level kernels launched once per level and
+    column."""
+    import math as _math
+    from _torch_train import (assert_step_close, loose_coordinates,
+                              port_leaves)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import build_train_step, init_state
+    from repro_torch.train.state import state_to
+    cfg, tc, shape = _tp_setup(name)
+    n = _math.prod(shape)
+    steps = {d: build_train_step(cfg, tc, make_mesh(
+        shape, ("data", "model"), [d] * n)) for d in ("cpu", "cuda:0")}
+    cpu_step, card_step = steps["cpu"], steps["cuda:0"]
+    st = init_state(cfg, tc, cpu_step.mesh, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    for s in range(2):
+        batch = _tp_batch(cfg, gen, "cpu")
+        assert card_step.phase1_form(batch) == cpu_step.phase1_form(batch) \
+            != "whole"
+        before = [fn.launches for fn in level.KERNELS]
+        card, mc = card_step(state_to(st, cuda),
+                             {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        grown = {fn.__name__.replace("_cuda", ""): fn.launches - b
+                 for fn, b in zip(level.KERNELS, before)
+                 if fn.launches - b}
+        assert grown == _train_launches(card_step), (grown, s)
+        new, m = cpu_step(st, batch)
+        torch.testing.assert_close(mc["loss"].cpu(), m["loss"], rtol=1e-5,
+                                   atol=0)
+        what = f"{name} step {s}"
+        _same_support(card.ef, new.ef, what)
+        old = port_leaves(st)
+        got, want = port_leaves(card), port_leaves(new)
+        assert_step_close(what, old, got, want, 1e-3,
+                          loose_coordinates(cpu_step, old, got, want),
+                          3 * tc.opt.lr * float(m["lr_scale"].max()))
+        st = new
+
+
+def test_split_columns_on_the_card_equal_the_whole_model_columns(cuda,
+                                                                 no_tf32):
+    """Chip_smoke phase 15 (a) at SMOKE size in float32: phi4 (tied, with
+    pad slots) on 2 × 2 ranks of ``cuda:0``, every leaf but the norms
+    split: each client's tensor-parallel columns against its whole-model
+    autograd gradient through ``local_flatten(·, m)`` (2e-6 of the
+    largest entry, the loss to 1e-6), and the step fed the TP columns
+    against the same step fed the whole-model columns (1e-3 of its
+    change's scale, ``assert_step_close``'s rule)."""
+    from _torch_train import (assert_step_close, loose_coordinates,
+                              port_leaves)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import build_train_step, init_state
+    cfg, tc, _ = _tp_setup("dense tied")
+    step = build_train_step(cfg, tc, make_mesh((2, 2), ("data", "model"),
+                                               ["cuda:0"] * 4))
+    st = init_state(cfg, tc, step.mesh,
+                    torch.Generator(device=cuda).manual_seed(0))
+    plain, w, p = step.round_inputs(
+        _tp_batch(cfg, torch.Generator().manual_seed(2), cuda))
+    assert step.phase1_form(plain) == "tensor_parallel"
+    tp_cols, whole_cols, tp_loss, whole_loss = [], [], [], []
+    for k in range(step.k_dp):
+        cols, loss = step.client_cols(st.params, plain, k)
+        g, want = step.client_grad(st.params, plain, k)
+        ref_k = [step.layout.local_flatten(g, m_, torch.float32)
+                 for m_ in range(step.m)]
+        torch.testing.assert_close(loss, want, rtol=1e-6, atol=0)
+        for a, b in zip(cols, ref_k):
+            assert float((a - b).abs().max() / b.abs().max()) <= 2e-6
+        tp_cols.append(cols)
+        whole_cols.append(ref_k)
+        tp_loss.append(loss)
+        whole_loss.append(want)
+    got, _ = step.finish(st, tp_cols, step._mean_loss(tp_loss), w, p)
+    want, m = step.finish(st, whole_cols, step._mean_loss(whole_loss), w, p)
+    old, a, b = port_leaves(st), port_leaves(got), port_leaves(want)
+    assert_step_close("phase 15 (a) at SMOKE size", old, a, b, 1e-3,
+                      loose_coordinates(step, old, a, b),
+                      3 * tc.opt.lr * float(m["lr_scale"]))
+
+
+@pytest.mark.parametrize("name", ["dense tied", "ssm"])
+def test_split_step_on_a_mesh_of_the_card_and_the_cpu(cuda, no_tf32, name):
+    """Chip_smoke phase 15 (b) at (4, 2): each client's rank 0 on the card
+    and rank 1 on the CPU, so the tensor-parallel sums (or the batch over
+    model's reduction) cross devices, with the layer remat on: 2 steps,
+    each from the all-card step's state before it, equal the all-card
+    steps to 1e-6 of the change's scale and the loss to 1e-5."""
+    from _torch_train import (assert_step_close, loose_coordinates,
+                              port_leaves)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import (build_train_step, init_state,
+                                   state_shardings)
+    from repro_torch.train.state import gather_state, state_to
+    from repro_torch.train.step import place_state
+    cfg, tc, shape = _tp_setup(name)
+    assert cfg.remat
+    mixed = make_mesh(shape, ("data", "model"), ["cuda:0", "cpu"] * 4)
+    card = make_mesh(shape, ("data", "model"), ["cuda:0"] * 8)
+    step, check = (build_train_step(cfg, tc, mixed),
+                   build_train_step(cfg, tc, card))
+    specs = state_shardings(cfg, tc, mixed)
+    st = init_state(cfg, tc, card, torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator().manual_seed(3)
+    for s in range(2):
+        batch = _tp_batch(cfg, gen, cuda)
+        old = state_to(st, "cpu")
+        new, m = step(place_state(old, mixed, specs), batch)
+        st, mc = check(st, batch)
+        torch.testing.assert_close(m["loss"].cpu(), mc["loss"].cpu(),
+                                   rtol=1e-5, atol=0)
+        o, got, want = (port_leaves(old), port_leaves(gather_state(
+            new, "cpu")), port_leaves(state_to(st, "cpu")))
+        assert_step_close(f"{name} mixed step {s}", o, got, want, 1e-6,
+                          loose_coordinates(check, o, got, want),
+                          3 * tc.opt.lr * float(mc["lr_scale"]))

@@ -6,10 +6,11 @@ specs=)``), on SMOKE configs:
 * on meshes of one fake CPU device a rank (``cpu:r``: a fake tensor keeps
   its device index) — 4 × 1, 2 × 2, 2 × 2 × 1 nested and ``cohorts=2`` —
   every piece of master, moments, EF and stage EF sits on its rank's
-  device, the params only on the (k, 0) devices, and each device holds
-  of master, moments and EF what one rank holds of them under
-  ``state_shardings`` (``dryrun.rank_bytes``); a whole step under
-  ``FakeTensorMode`` keeps that placement, and so does a restore;
+  device, rank (k, m)'s param and ``tcs_prev`` tree (shard m by
+  ``param_pspecs``, the replicated leaves whole) on its device, and each
+  device holds of master, moments, EF and the params what one rank holds
+  of them under ``state_shardings`` (``dryrun.rank_bytes``); a whole step
+  under ``FakeTensorMode`` keeps that placement, and so does a restore;
 * on real CPU meshes whose ranks alternate between ``cpu`` and ``cpu:0``
   (two mesh devices, one memory), three steps in ring, routed, nested and
   cohort forms, gathered with ``gather_state``, equal the same steps on
@@ -40,9 +41,9 @@ from repro_torch.optim import OptConfig
 from repro_torch.topo.tree import star_tree
 from repro_torch.train import (TrainConfig, build_train_step, init_state,
                                state_shardings)
-from repro_torch.train.state import (RankPieces, Replicas, abstract_like,
+from repro_torch.train.state import (RankPieces, RankShards, abstract_like,
                                      gather_state, state_leaves)
-from repro_torch.train.step import place_state, rank_device
+from repro_torch.train.step import param_places, place_state, rank_device
 
 torch.set_num_threads(1)
 
@@ -82,12 +83,12 @@ def _assert_placed(state, mesh, m_cols: int) -> None:
         for r, piece in enumerate(leaf.pieces):
             assert piece.device == rank_device(mesh, *divmod(r, m_cols)), (
                 name, r, piece.device)
-    col0 = list(dict.fromkeys(rank_device(mesh, k, 0)
-                              for k in range(len(state.ef.pieces) // m_cols)))
+    places = list(param_places(mesh))
     for tree in (state.params, state.tcs_prev):
         if tree is None:
             continue
-        assert isinstance(tree, Replicas) and list(tree.devices) == col0
+        assert isinstance(tree, RankShards)
+        assert list(zip(tree.devices, tree.cols)) == places
         for dev, t in zip(tree.devices, tree.trees):
             assert {x.device for x in state_leaves(t)} == {dev}
     assert state.step.device == mesh.devices[0]
@@ -114,6 +115,11 @@ def test_init_state_places_each_piece_on_its_rank(name):
         want = dryrun.rank_bytes(glob, spec, mesh)
         for piece in leaf.pieces:
             assert piece.numel() * piece.element_size() == want, leaf_name
+    # each rank's param tree: one rank's bytes of the params
+    want = dryrun.rank_bytes(whole.params, specs.params, mesh)
+    for t in state.params.trees:
+        assert sum(x.numel() * x.element_size()
+                   for x in state_leaves(t)) == want
     held = {str(d): 0 for d in mesh.distinct()}   # the dry run's count
     for t in state_leaves(state):
         held[str(t.device)] += t.numel() * t.element_size()
@@ -184,6 +190,7 @@ def _assert_same(a, b) -> None:
         pairs = [(gather_state(a, "cpu"), gather_state(b, "cpu"))]
         for x, y in ((a.params, b.params), (a.tcs_prev, b.tcs_prev)):
             if x is not None:
+                assert (x.devices, x.cols) == (y.devices, y.cols)
                 pairs += list(zip(x.trees, y.trees))
         for x, y in zip(_flat_leaves(a).values(), _flat_leaves(b).values()):
             assert x.index == y.index

@@ -47,9 +47,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_train import (SMOKE_FAMILIES, TINY, assert_step_close, batch_of,
-                          bits, case, loose_coordinates, port_leaves,
-                          ref_state, start_reference, tokens)
+from _torch_train import (SMOKE_FAMILIES, TINY, assert_same_support,
+                          assert_step_close, batch_of, bits, case,
+                          loose_coordinates, port_leaves, ref_state,
+                          start_reference, tokens)
 from repro_torch.checkpoint.checkpoint import _flatten_with_paths
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
@@ -189,27 +190,6 @@ def test_phases_2_3_equal_the_reference_bit_for_bit(reference, name):
                                  "auto", True)
 
 
-def _assert_same_support(got, want, what):
-    """The transmitted support (``ef == 0``) is equal, or differs only by
-    swaps at a tie: per EF row, as many coordinates kept by the port alone
-    as by the reference alone, the magnitudes each side left in its EF
-    there equal to rtol 1e-5 (two candidates tied at the Q-th magnitude).
-    Anything else fails, with the gap between the swapped magnitudes."""
-    for k in range(got.shape[0]):
-        only_port = np.nonzero((got[k] == 0) & (want[k] != 0))[0]
-        only_ref = np.nonzero((want[k] == 0) & (got[k] != 0))[0]
-        if not only_port.size and not only_ref.size:
-            continue
-        a = np.sort(np.abs(want[k, only_port]))
-        b = np.sort(np.abs(got[k, only_ref]))
-        gap = (np.abs(a - b).max() / max(a.max(), 1e-30)
-               if a.size == b.size else np.inf)
-        assert a.size == b.size and gap <= 1e-5, (
-            f"{what}: row {k}: {only_port.size} coordinates kept by the "
-            f"port alone, {only_ref.size} by the reference alone; relative "
-            f"gap between the swapped magnitudes {gap:.3e}")
-
-
 @pytest.mark.parametrize("family", list(SMOKE_FAMILIES))
 def test_whole_step_equals_the_reference(reference, family):
     inp, futs = reference
@@ -232,7 +212,7 @@ def test_whole_step_equals_the_reference(reference, family):
                                    rtol=LOSS_RTOL, err_msg=f"{name} {s}")
         got = port_leaves(st)
         want = {k: out[f"{name}/{s}/state/{k}"] for k in got}
-        _assert_same_support(got[".ef"], want[".ef"], f"{name} step {s}")
+        assert_same_support(got[".ef"], want[".ef"], f"{name} step {s}")
         for key in ("agg_nnz", "agg_bits"):
             assert np.array_equal(m[key].numpy(),
                                   out[f"{name}/{s}/metrics/{key}"]), key
@@ -269,7 +249,7 @@ def test_whole_step_check_catches_a_wrong_update(reference, monkeypatch,
     if fault == "no update":
         got.update({k: old[k] for k in got
                     if k.startswith((".master", ".params"))})
-    _assert_same_support(got[".ef"], want[".ef"], fault)
+    assert_same_support(got[".ef"], want[".ef"], fault)
     for key in ("agg_nnz", "agg_bits"):
         assert np.array_equal(m[key].numpy(), out[f"{name}/0/metrics/{key}"])
     with pytest.raises(AssertionError, match="the step's change is off"):

@@ -93,8 +93,8 @@ def _close(name, key, got, want):
 
 
 def _same_support(got, want, what):
-    from test_torch_train_step import _assert_same_support
-    _assert_same_support(got.reshape(-1, got.shape[-1]),
+    from _torch_train import assert_same_support
+    assert_same_support(got.reshape(-1, got.shape[-1]),
                          want.reshape(-1, want.shape[-1]), what)
 
 
