@@ -9,14 +9,16 @@
 The port's records keep the reference's keys: ``roofline`` (here the
 fake run's counts over H100 SXM spec peaks, a model with no card run
 behind it) and ``memory_analysis.peak_bytes_estimate``, which the port
-measures for train cells only (their run with one fake device a rank); a
-serving cell's reads "not measured". ``--port`` prints the port's own
-table instead, bytes only: one row per arch, one column per shape, each
-cell with both production meshes side by side (16x16 / 2x16x16): the bytes
-one rank holds of the step's arguments and outputs, the port's state on
-its fullest device, and its one-device peak, and for train cells one
-rank's peak estimate; then the cells whose one-device peak fits a card's
-80 GB, and the train cells whose rank peak estimate does.
+measures in its run with one fake device a rank; where no device held one
+rank, it reads "not measured". ``--port`` prints the port's own table
+instead, bytes only: one row per arch, one column per shape, each cell
+with both production meshes side by side (16x16 / 2x16x16): the bytes one
+rank holds of the step's arguments and outputs, the port's state (or
+serving params and cache) on rank (0, 0)'s device, and its one-device
+peak, and one rank's peak estimate where measured; then the cells whose
+one-device peak fits a card's 80 GB, and those whose rank peak estimate
+does. (On 2x16x16 the ranks from the 256th on share one fake device,
+``dryrun.rank_mesh``; rank (0, 0) holds one rank.)
 """
 
 import json
@@ -73,8 +75,11 @@ def port_main(path="dryrun_results.json", meshes=("16x16", "2x16x16")):
                 m = c["memory_analysis"]
                 return m["argument_size_in_bytes"] + m["output_size_in_bytes"]
 
+            def first(c):
+                return c.get("port_device_bytes", [c["port_home_bytes"]])[0]
+
             text = (f"{col(lambda c: _gb(rank(c)))} · "
-                    f"{col(lambda c: _gb(c['port_home_bytes']))} · "
+                    f"{col(lambda c: _gb(first(c)))} · "
                     f"{col(lambda c: _gb(c['device_peak_bytes']))}")
             est = [c["memory_analysis"]["peak_bytes_estimate"] for c in got]
             if None not in est:
@@ -91,8 +96,8 @@ def port_main(path="dryrun_results.json", meshes=("16x16", "2x16x16")):
     print()
     if rank_fits:
         print(f"Rank peak estimate within 80 GB: {'; '.join(rank_fits)}.")
-    print(f"Each cell: rank args + outs GB · port fullest-device state GB · "
-          f"port one-device peak GB (train: · rank peak estimate GB), on "
+    print(f"Each cell: rank args + outs GB · port rank (0, 0) state GB · "
+          f"port one-device peak GB (· rank peak estimate GB), on "
           f"{' / '.join(meshes)}. Port one-device peak within 80 GB: "
           f"{'; '.join(fits) or 'none'}.")
     print(f"{n} cells × {len(meshes)} meshes; {len(fails)} failures total.")

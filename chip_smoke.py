@@ -262,7 +262,32 @@ Phases (any failure exits non-zero and prints no result):
    and the mamba2 SMOKE model (batch over model), f32, SGD, 3 CL-SIA steps
    each from the all-card step's state: the change within 1e-6 of the
    all-card step's scale, the loss to 1e-5, the card's level kernels once
-   per level for each column's card.
+   per level for each column's card;
+16. serving split over ranks of the card (``models/serve_split.py``: the
+   params placed by ``param_pspecs``, the cache by ``cache_pspecs``) —
+   SMOKE mixtral (its 32-slot SWA ring, heads over ``model`` on 2 × 2 with
+   batch 2, the ring's slots over ``model`` on 1 × 3 with batch 1) and
+   SMOKE zamba2 (2 × 2, batch 2) in f32, the split run on ranks of
+   ``cuda:0`` against the same split run on ranks of the CPU and against
+   the whole run on the card (rtol = atol = 1e-3); then phi4-mini-3.8b at
+   full width, all 32 layers, on ranks of ``cuda:0`` (``SPLIT_CASES``):
+   (a) 2 × 2, batch 4, prompt 512, 16 tokens — requests over ``data``,
+   heads and kv heads over ``model``; (b) 2 × 2, batch 1, prompt 2,048, 8
+   tokens — the cache sequence over ``data`` (split-K decode); (c) 1 × 3,
+   batch 4, prompt 512, 8 tokens — 8 kv heads do not divide 3, so the
+   cache sequence goes over ``model``:
+   each split prefill and decode step fed the whole ``launch.serve.
+   generate`` run's tokens (teacher forcing), its logits within phase 11's
+   limits of the whole run's on every (request, step) in bf16 (relative
+   L2 ≤ 5e-2, max |Δ| ≤ 0.5) and, for (a), in f32 (relative L2 ≤ 1e-4);
+   then ``build_prefill_step``/``build_serve_step`` on the same mesh (a
+   cache of ``serve_split.init_cache``), fed the same tokens, give the
+   split run's argmax at every (request, step), as int32;
+   (a)'s peak, less the bytes live before it, within ±1 % of
+   ``dry_run_cell``'s prediction for the same mesh of ``cuda:0`` (phase
+   13's gate); prefill ms, decode ms per step and torch.profiler's device
+   ops beside the whole form's (a warm-up run first). No kernel of the
+   port is on this path.
 
 The last lines are a JSON object of per-kernel numbers, the card's
 ``name, power.limit`` as nvidia-smi prints them, and the result object.
@@ -5184,6 +5209,292 @@ def tp_path(level, topq_threshold) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving split over ranks of the card
+# ---------------------------------------------------------------------------
+
+SPLIT_ARCH = "phi4-mini-3.8b"
+# (name, mesh (data, model), batch, prompt, generated, the cache layout
+# cache_pspecs gives phi4-mini's 24 heads and 8 kv heads there)
+SPLIT_CASES = (
+    ("a", (2, 2), 4, 512, 16,
+     "requests over data, heads and kv heads over model"),
+    ("b", (2, 2), 1, 2048, 8,
+     "batch 1: the cache sequence over data (split-K), heads over model"),
+    ("c", (1, 3), 4, 512, 8,
+     "8 kv heads on 3 ranks: the cache sequence over model"),
+)
+SPLIT_F32_CASES = ("a",)           # also held in f32 (F32_REL_L2)
+# SMOKE configs in f32, card = CPU: (arch, mesh, batch, prompt, generated)
+SPLIT_SMOKE = (
+    ("mixtral-8x7b", (2, 2), 2, 32, 20),    # the SWA ring, heads over model
+    ("mixtral-8x7b", (1, 3), 1, 32, 20),    # the ring's slots over model
+    ("zamba2-1.2b", (2, 2), 2, 16, 8),
+)
+SPLIT_SMOKE_TOL = LM_CARD_CPU_TOL
+SPLIT_PROFILE_STEPS = 3
+
+
+def split_run(cfg, mesh, params, prompts, tokens, gen: int) -> dict:
+    """The split form on ``mesh`` fed the whole run's ``tokens`` [B, gen]
+    (teacher forcing): the params placed by ``param_pspecs``, the cache by
+    ``cache_pspecs``, a prefill and ``gen - 1`` decode steps, each ended
+    by a synchronize and timed; logits kept on the CPU."""
+    from repro_torch.models import serve_split
+    b, s = prompts.shape
+    sp = serve_split.ServeSplit(cfg, mesh, b, s + gen)
+    placed = serve_split.place_params(params, cfg, mesh)
+    logits, ms = [], []
+    with torch.inference_mode():
+        cache = sp.init_cache()
+        for i in range(gen):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i == 0:
+                out, cache = sp.prefill(placed, cache, prompts)
+            else:
+                out, cache = sp.decode(placed, cache, tokens[:, i - 1],
+                                       s + i - 1)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            logits.append(out.float().cpu())
+    return dict(logits=logits, ms=ms, split=sp, params=placed, cache=cache)
+
+
+def split_steps(cfg, mesh, placed, prompts, tokens, gen: int
+                ) -> torch.Tensor:
+    """The serving entry points on ``mesh`` (``build_prefill_step``,
+    ``build_serve_step``, a cache placed by ``serve_split.init_cache``)
+    fed the same teacher-forced ``tokens`` → their next tokens [B, gen] on
+    the CPU."""
+    from repro_torch.models import serve_split
+    from repro_torch.train.step import build_prefill_step, build_serve_step
+    b, s = prompts.shape
+    prefill = build_prefill_step(cfg, mesh)
+    decode = build_serve_step(cfg, mesh)
+    cache = serve_split.init_cache(cfg, mesh, b, s + gen)
+    tok, cache = prefill(placed, cache, prompts)
+    out = [tok.cpu()]
+    for i in range(1, gen):
+        tok, cache = decode(placed, cache, tokens[:, i - 1], s + i - 1)
+        out.append(tok.cpu())
+    return torch.stack(out, 1)
+
+
+def split_error(cfg, got: list, want: list) -> tuple:
+    """Relative L2 and max |Δ| of each (request, step) over the real
+    vocabulary, [B, gen] each."""
+    v = cfg.vocab_size
+    rel = torch.zeros(want[0].shape[0], len(want))
+    mx = torch.zeros_like(rel)
+    for j, (a, w) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(a).all()):
+            raise SystemExit(f"FAIL [split] {cfg.name}: logits not finite "
+                             f"at step {j}")
+        d = a[:, :v] - w.float().cpu()[:, :v]
+        rel[:, j] = d.norm(dim=-1) / w.float().cpu()[:, :v].norm(dim=-1)
+        mx[:, j] = d.abs().amax(-1)
+    return rel, mx
+
+
+def split_full(card: str) -> list:
+    """phi4-mini at full width, all 32 layers, on the meshes of
+    ``SPLIT_CASES`` of ``cuda:0``: each split run against
+    ``launch.serve.generate``'s whole run (teacher forcing), bf16 within
+    phase 11's limits on every (request, step), f32 (``SPLIT_F32_CASES``)
+    within ``F32_REL_L2``; (a)'s peak against the dry run's prediction;
+    prefill ms, decode ms per step and device ops beside the whole
+    form's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as lm
+
+    dev = torch.device("cuda")
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config(SPLIT_ARCH),
+                                  param_dtype=dtype)
+        torch.cuda.empty_cache()
+        params = lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        for name, shape, batch, prompt, gen, layout in SPLIT_CASES:
+            if dtype == "float32" and name not in SPLIT_F32_CASES:
+                continue
+            what = f"{cfg.name} ({name}) {dtype}"
+            mesh = make_mesh(shape, ("data", "model"),
+                             ["cuda:0"] * math.prod(shape))
+            prompts = torch.randint(
+                0, cfg.vocab_size, (batch, prompt),
+                generator=torch.Generator(device=dev).manual_seed(16),
+                device=dev)
+            generate(cfg, params, prompts, 2, dev)       # warm-up
+            whole = generate(cfg, params, prompts, gen, dev,
+                             keep_logits=True)
+            whole_logits = [x.float().cpu() for x in whole.logits]
+            tokens = whole.tokens
+            del whole.logits
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run = split_run(cfg, mesh, params, prompts, tokens, gen)
+            peak = torch.cuda.max_memory_allocated() - base
+            rel, mx = split_error(cfg, run["logits"], whole_logits)
+            if dtype == "float32":
+                ok = rel <= F32_REL_L2
+            else:
+                ok = (rel <= BF16_REL_L2) & (mx <= BF16_MAX_ABS)
+            if not bool(ok.all()):
+                raise SystemExit(
+                    f"FAIL [split] {what}: split logits against the whole "
+                    f"run's, worst rel L2 {float(rel.max()):.3e}, max |Δ| "
+                    f"{float(mx.max()):.3e} ({int((~ok).sum())} of "
+                    f"{ok.numel()} (request, step) pairs outside)")
+            sp = run["split"]
+            # the entry points give the split run's argmax at every step
+            want_tok = torch.stack([x.argmax(-1) for x in run["logits"]], 1)
+            del run["logits"]
+            got_tok = split_steps(cfg, mesh, run["params"], prompts, tokens,
+                                  gen)
+            if got_tok.dtype != torch.int32 or \
+                    not torch.equal(got_tok.long(), want_tok):
+                raise SystemExit(
+                    f"FAIL [split] {what}: build_prefill_step/"
+                    f"build_serve_step gave {got_tok.dtype} tokens, "
+                    f"{int((got_tok.long() != want_tok).sum())} of "
+                    f"{want_tok.numel()} unlike the split run's argmax")
+            row = dict(arch=cfg.name, case=name, dtype=dtype, layout=layout,
+                       mesh=list(shape), batch=batch, prompt=prompt, gen=gen,
+                       groups=sp.n_groups,
+                       seq_blocks=len({b.s for b in sp.attn[0]}),
+                       head_blocks=sp.head_blocks,
+                       rel_l2=float(rel.max()), max_abs=float(mx.max()),
+                       entry_tokens=want_tok.numel(),
+                       prefill_ms=run["ms"][0],
+                       decode_ms=statistics.median(run["ms"][2:]),
+                       whole_prefill_ms=1e3 * whole.seconds[0],
+                       whole_decode_ms=1e3 * statistics.median(
+                           whole.seconds[2:]),
+                       peak_bytes=peak)
+            if name == "a" and dtype == "bfloat16":
+                t = time.perf_counter()
+                pred = max(dryrun.dry_run_cell(cfg, ShapeSpec(
+                    kind, n, batch, kind), mesh)["device_peak_bytes"]
+                    for kind, n in (("prefill", prompt),
+                                    ("decode", prompt + gen)))
+                row.update(predicted=pred,
+                           dry_run_s=time.perf_counter() - t,
+                           peak_err=held_peak("phase 16's split phi4 (a)",
+                                              pred, peak))
+                # device ops of a few split decode steps and of the whole
+                # form's, under the profiler (the caches re-decode the
+                # positions after the prompt)
+                with torch.inference_mode():
+                    prof = profile_calls(
+                        f"{what} split decode step",
+                        lambda: [sp.decode(run["params"], run["cache"],
+                                           tokens[:, i], prompt + i)
+                                 for i in range(SPLIT_PROFILE_STEPS)],
+                        SPLIT_PROFILE_STEPS)
+                    cache = lm.init_cache(cfg, batch, prompt + gen, dev)
+                    lm.prefill(cfg, params, prompts, cache)
+                    wprof = profile_calls(
+                        f"{what} whole decode step",
+                        lambda: [lm.decode_step(cfg, params, cache,
+                                                tokens[:, i], prompt + i)
+                                 for i in range(SPLIT_PROFILE_STEPS)],
+                        SPLIT_PROFILE_STEPS)
+                    del cache
+                row.update(device_ops=prof[2], device_busy_ms=prof[1],
+                           whole_device_ops=wprof[2],
+                           whole_device_busy_ms=wprof[1])
+            log(f"[split] {what} on {shape[0]} x {shape[1]} ranks of "
+                f"cuda:0, batch {batch}, prompt {prompt}, {gen} generated "
+                f"({layout}): {sp.n_groups} group(s), "
+                f"{row['seq_blocks']} sequence x {sp.head_blocks} head "
+                f"block(s) a group; split = whole rel L2 max "
+                f"{row['rel_l2']:.3e}, max |Δ| {row['max_abs']:.3e}; the "
+                f"entry points' tokens = its argmax ({row['entry_tokens']}); "
+                f"prefill {row['prefill_ms']:.2f} ms (whole "
+                f"{row['whole_prefill_ms']:.2f}), decode "
+                f"{row['decode_ms']:.3f} ms/step (whole "
+                f"{row['whole_decode_ms']:.3f}); peak "
+                f"{peak / 1e9:.3f} GB"
+                + (f", predicted {row['predicted'] / 1e9:.3f} GB "
+                   f"({100 * row['peak_err']:+.2f} %); device ops/step "
+                   f"{row['device_ops']:.0f} (whole "
+                   f"{row['whole_device_ops']:.0f})"
+                   if "predicted" in row else "") + f"; {card}")
+            rows.append(row)
+            del run, sp
+        del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def split_smoke() -> list:
+    """SMOKE mixtral (its SWA ring, heads over model and the ring's slots
+    over model) and zamba2 in f32: the split run on ranks of the card
+    against the same split run on ranks of the CPU and against the whole
+    run on the card (teacher forcing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as lm
+    from repro_torch.models.transformer import tree_map
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    rows = []
+    for arch, shape, batch, prompt, gen in SPLIT_SMOKE:
+        cfg = get_config(arch, smoke=True)
+        p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                               cpu)
+        p_card = tree_map(lambda a: a.to(dev), p_cpu)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                generator=torch.Generator().manual_seed(6))
+        whole = generate(cfg, p_card, prompts.to(dev), gen, dev,
+                         keep_logits=True)
+        n = math.prod(shape)
+        runs = {}
+        for where, d, p in (("card", "cuda:0", p_card), ("cpu", "cpu", p_cpu)):
+            mesh = make_mesh(shape, ("data", "model"), [d] * n)
+            runs[where] = split_run(cfg, mesh, p, prompts.to(d),
+                                    whole.tokens.to(d), gen)["logits"]
+        worst = {"card_cpu": 0.0, "whole": 0.0}
+        for j, (a, c, w) in enumerate(zip(runs["card"], runs["cpu"],
+                                          whole.logits)):
+            for key, want in (("card_cpu", c), ("whole", w.cpu())):
+                ok, err = _close(a, want, SPLIT_SMOKE_TOL)
+                if not ok:
+                    raise SystemExit(f"FAIL [split] SMOKE {arch} on {shape}, "
+                                     f"batch {batch}, step {j}: {key} max "
+                                     f"|Δ| {err:.3e} (rtol = atol = "
+                                     f"{SPLIT_SMOKE_TOL})")
+                worst[key] = max(worst[key], err)
+        rows.append(dict(arch=arch, mesh=list(shape), batch=batch,
+                         prompt=prompt, gen=gen, **worst))
+        log(f"[split] SMOKE {arch} f32 on {shape[0]} x {shape[1]} ranks, "
+            f"batch {batch}, prompt {prompt}, {gen} generated: card = CPU "
+            f"max |Δ| {worst['card_cpu']:.3e}, = the whole run on the card "
+            f"max |Δ| {worst['whole']:.3e} (rtol = atol = "
+            f"{SPLIT_SMOKE_TOL})")
+    return rows
+
+
+def split_path() -> dict:
+    """Phase 16: serving split over ranks of the card."""
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    smoke = split_smoke()
+    full = split_full(card)
+    log("[split] " + json.dumps(dict(smoke=smoke, full=full)))
+    log(f"[split] phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return dict(smoke=smoke, full=full)
+
+
 def profile_rounds(sim, label: str, topology, rounds: int = 3):
     """Device busy time and device-op count over a few rounds."""
     sim.run(1, topology=topology)
@@ -5282,6 +5593,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in tp_path(level, topq_threshold).items():
         launches[name] = launches.get(name, 0) + n
+    split_path()
 
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"cl_fuse_level": "level.cu", "sparsify_ef_level": "level.cu",

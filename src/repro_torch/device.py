@@ -28,5 +28,7 @@ def to_device(x: torch.Tensor, dst: torch.device) -> torch.Tensor:
     """``x`` on ``dst``. Asynchronous only between two cards: a copy from a
     card to the CPU returns before it lands (pinned staging), and the CPU
     code reads the result at once."""
+    if x.device == torch.device(dst):
+        return x
     return x.to(dst, non_blocking=x.device.type == "cuda"
                 and dst.type == "cuda")

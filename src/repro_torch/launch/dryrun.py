@@ -32,17 +32,18 @@ A record (:func:`lower_cell`) keeps the reference's keys:
   of the reference's compiled step (``argument_size_in_bytes`` leaves out
   what the reference's ``jax.jit`` drops as unread: a prefill's SSM
   states, an attention-free decode's position). ``alias_size_in_bytes`` is
-  0 (the reference's dry run donates nothing). For a train cell, among
-  the devices that hold one rank each (every device of
-  :func:`rank_mesh`; ``cuda:0`` of ranks ``cuda:0, cpu, cpu, cpu``) the
-  one with the largest peak gives ``temp_size_in_bytes`` (that peak less
-  its arguments and outputs there), ``peak_bytes_estimate`` (the
-  reference's formula: arguments + outputs + temporaries − aliases) and
-  ``fits_one_card`` (that estimate within 80 GB), and ``rank_peak_bytes``
-  / ``rank_peak_device`` record that device's peak. Where every device
-  holds several ranks they are ``None``: one rank's transients are not
-  measured there (nor for a serving cell, whose step runs on one
-  device).
+  0 (the reference's dry run donates nothing). Among the devices that
+  hold one rank each (every device of :func:`rank_mesh`; ``cuda:0`` of
+  ranks ``cuda:0, cpu, cpu, cpu``) the one with the largest peak gives
+  ``temp_size_in_bytes`` (that peak less its arguments and outputs
+  there), ``peak_bytes_estimate`` (the reference's formula: arguments +
+  outputs + temporaries − aliases) and ``fits_one_card`` (that estimate
+  within 80 GB), and ``rank_peak_bytes`` / ``rank_peak_device`` record
+  that device's peak. Where every device holds several ranks they are
+  ``None``: one rank's transients are not measured there. A serving cell
+  on a mesh of several ranks runs split over them
+  (:mod:`~repro_torch.models.serve_split`: params by ``param_pspecs``,
+  the cache by ``cache_pspecs``, rank (k, 0) doing the replicated work).
 * ``device_peak_bytes`` — the fake run's peak live bytes on the mesh's
   first device, arguments included: what a card holding the whole mesh
   needs for the step (storage sizes rounded up to the CUDA caching
@@ -51,8 +52,8 @@ A record (:func:`lower_cell`) keeps the reference's keys:
   caches in place); ``port_home_bytes`` (:func:`home_bytes`) — what
   :func:`~repro_torch.train.step.init_state` puts on the device that gets
   the most of the train state (on a mesh of several devices the state is
-  placed by rank; ``port_device_bytes`` lists each device's bytes), or a
-  serving step's params and cache; ``port_fits_one_card``:
+  placed by rank; ``port_device_bytes`` lists each device's bytes), or
+  the same of a serving step's params and cache; ``port_fits_one_card``:
   ``device_peak_bytes`` within a card's 80 GB.
 * ``flops`` (``FlopCounterMode``'s formulas), ``bytes_accessed`` (the input and
   output bytes of every non-view aten op: unfused traffic, an upper bound
@@ -110,7 +111,7 @@ from repro_torch.core.algorithms import AggConfig, AggKind
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import model as model_mod
-from repro_torch.models import partition
+from repro_torch.models import partition, serve_split
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.train.state import TrainConfig, map_state, state_leaves
 from repro_torch.train.step import (build_prefill_step, build_serve_step,
@@ -379,7 +380,9 @@ class LiveBytes(TorchDispatchMode):
         view = self._is_view.get(func)
         if view is None:
             view = self._is_view[func] = bool(func.is_view)
-        self._outputs(out, args, kwargs, moved=not view)
+        # a prim op (a tensor's device) moves no bytes
+        self._outputs(out, args, kwargs,
+                      moved=not view and func.namespace == "aten")
         flop_fn = self._flop_fns.get(func.overloadpacket)
         if flop_fn is not None:
             self.flops += flop_fn(*args, **kwargs, out_val=out)
@@ -643,6 +646,77 @@ def _phase1_once(step, state, batch, live) -> tuple:
     return cols, step._mean_loss(losses)
 
 
+def _serve_apart(cfg: ModelConfig, shape: ShapeSpec, mesh) -> bool:
+    """Do a split serving cell's DP groups share no work (several groups,
+    and no MoE routed over the gathered batch)? Then
+    :func:`_serve_once` runs it."""
+    sp = serve_split.ServeSplit(cfg, mesh, shape.global_batch, shape.seq_len)
+    tokens = sp.per * (shape.seq_len if shape.kind == "prefill" else 1)
+    return sp.n_groups > 1 and (cfg.family != "moe"
+                                or sp.routes_per_group(tokens))
+
+
+def _serve_once(cfg: ModelConfig, shape: ShapeSpec, args: list,
+                live) -> tuple:
+    """A split serving step (``args``: placed params, placed cache, each
+    group's inputs) on fake tensors with DP group 0's work run once, where
+    the groups share no work (:func:`_serve_apart`): every group serves
+    the same shapes, so group 0's transients and counts are each group's.
+
+    Group 0 runs as a split of its own: its ranks' devices as a mesh with
+    ``model`` alone, its requests, and its cache blocks (``cache_pspecs``
+    restricted to it are the same blocks). The other groups' activations
+    are allocated first on their ranks (k, 0), as their own runs hold them
+    beside group 0's; after the run their logits are allocated there,
+    copied to the first device and joined with group 0's, as the split
+    step's are. The FLOPs and op traffic of group 0's run count
+    ``n_groups`` times. → the step's (next tokens, cache)."""
+    from repro_torch.train.state import RankCache
+    params, cache, *ins = args
+    sp = cache.split
+    sub_mesh = make_mesh(
+        tuple(sp.m if a == "model" else 1 for a in sp.mesh.axis_names),
+        sp.mesh.axis_names, [sp.device(0, m) for m in range(sp.m)])
+    live.paused += 1                     # its cache specs are meta tensors
+    sub = serve_split.ServeSplit(cfg, sub_mesh, sp.per, sp.max_len)
+    live.paused -= 1
+    trees = [None] * len(sub.tree_devices)
+    for r in range(sub_mesh.size):
+        trees[sub.index[r]] = cache.rank(sp.group_ranks[0][r])
+    for tree, blocks in zip(trees, sub.tree_blocks):
+        for x, leaf, dims in zip(_leaves(tree), _leaves(sub.whole), blocks):
+            assert tuple(x.shape) == tuple(
+                -(-n // c) for n, (_, c) in zip(leaf.shape, dims)), (
+                "group 0's cache blocks are not its own split's")
+    tokens = ins[0][:1]
+    width = tokens[0].shape[1] if shape.kind == "prefill" else 1
+    traffic = live.bytes_accessed
+    rest = [torch.empty((sp.per, width, cfg.d_model), dtype=cfg.dtype,
+                        device=sp.device(g, 0))
+            for g in range(1, sp.n_groups)]
+    live.bytes_accessed = traffic
+    flops = live.flops
+    with torch.inference_mode():
+        if shape.kind == "prefill":
+            extra = {k: v[:1] for k, v in (ins[1:] or [{}])[0].items()}
+            logits, _ = sub.prefill(params, RankCache(trees, sub), tokens,
+                                    extra)
+        else:
+            logits, _ = sub.decode(params, RankCache(trees, sub), tokens,
+                                   shape.seq_len - 1)
+        live.flops += (sp.n_groups - 1) * (live.flops - flops)
+        live.bytes_accessed += (sp.n_groups - 1) * (live.bytes_accessed
+                                                    - traffic)
+        del rest
+        traffic = live.bytes_accessed
+        others = [torch.empty_like(logits, device=sp.device(g, 0))
+                  for g in range(1, sp.n_groups)]
+        live.bytes_accessed = traffic
+        logits = sp.join([logits] + others)
+        del others
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
 def device_state_bytes(cfg: ModelConfig, tc: TrainConfig, mesh,
                        **init_kw) -> dict:
     """Bytes of the train state that
@@ -661,6 +735,50 @@ def device_state_bytes(cfg: ModelConfig, tc: TrainConfig, mesh,
     return out
 
 
+def serve_device_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
+    """Bytes of a serving step's params and cache on each device of
+    ``mesh`` (``str(device)`` → bytes): whole on a mesh of one rank, placed
+    by rank on a mesh of several (from a placement on fake tensors)."""
+    if not serve_split.is_split(mesh):
+        return {str(mesh.devices[0]): _nbytes([
+            model_mod.param_specs(cfg), model_mod.cache_specs(
+                cfg, shape.global_batch, shape.seq_len)])}
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    out = {str(d): 0 for d in mesh.distinct()}
+    seen = set()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        for t in _leaves(_placed_serve_args(cfg, shape, mesh)):
+            key = id(t.untyped_storage())
+            if key not in seen:
+                seen.add(key)
+                out[str(t.device)] += t.numel() * t.element_size()
+    return out
+
+
+def _placed_serve_args(cfg: ModelConfig, shape: ShapeSpec, mesh) -> list:
+    """A serving step's params and cache placed on ``mesh`` (empty params
+    drawn nowhere: under a fake mode nothing is allocated)."""
+    params = _materialize(model_mod.param_specs(cfg), mesh.devices[0])
+    return [serve_split.place_params(params, cfg, mesh),
+            serve_split.init_cache(cfg, mesh, shape.global_batch,
+                                   shape.seq_len)]
+
+
+def _placed_inputs(spec, cfg: ModelConfig, shape: ShapeSpec, mesh):
+    """A split serving step's input (tokens, or the frontend inputs'
+    dict) as each DP group's requests on its rank (k, 0), made in place
+    (``ServeSplit.place_inputs``; a decode's position stays a host int)."""
+    if isinstance(spec, dict):
+        return {k: _placed_inputs(v, cfg, shape, mesh)
+                for k, v in spec.items()}
+    if not spec.dim():
+        return _materialize(spec, mesh.devices[0])
+    sp = serve_split.ServeSplit(cfg, mesh, shape.global_batch, shape.seq_len)
+    return tuple(torch.empty((sp.per, *spec.shape[1:]), dtype=spec.dtype,
+                             device=sp.device(g, 0))
+                 for g in range(sp.n_groups))
+
+
 def home_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh,
                tc: Optional[TrainConfig] = None) -> int:
     """``port_home_bytes`` with no fake run of the step: the bytes of the
@@ -672,8 +790,7 @@ def home_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh,
     if shape.kind == "train":
         tc = default_train_config() if tc is None else tc
         return max(device_state_bytes(cfg, tc, mesh).values())
-    return _nbytes([model_mod.param_specs(cfg), model_mod.cache_specs(
-        cfg, shape.global_batch, shape.seq_len)])
+    return max(serve_device_bytes(cfg, shape, mesh).values())
 
 
 def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
@@ -702,10 +819,12 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     home = str(mesh.devices[0])
     rec: dict = {"device": home, "kernel_mode": "ref"}
     placed = shape.kind == "train" and len(mesh.distinct()) > 1
+    # a serving step on several ranks takes its params and cache placed
+    split = shape.kind != "train" and serve_split.is_split(mesh)
+    apart = split and _serve_apart(cfg, shape, mesh)
     # a device that holds one rank: its transients are that rank's
     held = collections.Counter(str(d) for d in mesh.devices)
-    solo = ([d for d in held if held[d] == 1] if shape.kind == "train"
-            else [])
+    solo = [d for d in held if held[d] == 1]
     if shape.kind == "train":
         step = build_train_step(cfg, tc, mesh)
         args = [init_state(cfg, tc, _meta_mesh(mesh), None),
@@ -723,16 +842,19 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
               else build_serve_step(cfg, mesh))
         rec["collectives"] = {"collective_permute": 0.0, "count": 0,
                               "format": "none", "total": 0.0}
-    if shape.kind == "train":
-        per_dev = device_state_bytes(cfg, tc, mesh)
-        rec["port_home_bytes"] = max(per_dev.values())
-        rec["port_device_bytes"] = list(per_dev.values())
-    else:
-        rec["port_home_bytes"] = home_bytes(cfg, shape, mesh, tc)
+    per_dev = (device_state_bytes(cfg, tc, mesh) if shape.kind == "train"
+               else serve_device_bytes(cfg, shape, mesh))
+    rec["port_home_bytes"] = max(per_dev.values())
+    rec["port_device_bytes"] = list(per_dev.values())
     live = LiveBytes()
     with _own_schedules(), _as_kernels(live), \
             FakeTensorMode(allow_non_fake_inputs=True), live:
-        fake = [_materialize(a, home) for a in args]
+        if split:
+            fake = (_placed_serve_args(cfg, shape, mesh)
+                    + [_placed_inputs(a, cfg, shape, mesh)
+                       for a in args[2:]])
+        else:
+            fake = [_materialize(a, home) for a in args]
         if placed:
             fake[0] = init_state(cfg, tc, mesh, None)
         arg_devs = collections.Counter(live.live)
@@ -743,10 +865,13 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
             out = step.finish(fake[0], cols, loss, weights, participate)
             del cols, loss
             out_specs = [specs[0], {k: () for k in out[1]}]
-        elif shape.kind == "prefill":
-            out = fn(*fake)
-        else:                                  # the host knows the position
-            out = fn(*fake[:3], shape.seq_len - 1)
+        else:
+            if apart:
+                out = _serve_once(cfg, shape, fake, live)
+            elif shape.kind == "prefill":
+                out = fn(*fake)
+            else:                              # the host knows the position
+                out = fn(*fake[:3], shape.seq_len - 1)
         del fake
         # the outputs' new storages (a serving step's caches are its
         # arguments, updated in place)
@@ -758,8 +883,9 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
             if key not in entry:
                 out_devs[dev] += nb
         peaks = collections.Counter(live.peak)
-    # a placed output state has the input's global shapes
-    out_global = [kept[0], out[1]] if placed else out
+    # a placed output state (or cache) has the input's global shapes
+    out_global = ([kept[0], out[1]] if placed else
+                  [out[0], args[1]] if split else out)
     arg = sum(rank_bytes(a, s, mesh) for a, s in zip(kept, specs))
     outb = (sum(rank_bytes(o, s, mesh) for o, s in zip(out_global,
                                                         out_specs))
@@ -820,8 +946,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     t0 = time.time()
     got = dry_run_cell(cfg, shape, mesh, tc)
     t_trace = time.time() - t0
-    if shape.kind == "train" and mesh.size > 1:
-        # one rank's share: the state placed by rank, one device a rank
+    if mesh.size > 1:
+        # one rank's share: placed by rank, one device a rank
         t1 = time.time()
         per = dry_run_cell(cfg, shape, rank_mesh(mesh), tc)
         got.update({k: per[k] for k in (

@@ -10,7 +10,10 @@ mesh and are the identity on one process, so they have no counterpart.
 Caches are updated in place: a K/V cache passed to :func:`run_attention`
 is consumed (its slot or prefix is overwritten) and returned.
 :func:`run_attention_tp` is the training sub-layer split by heads over a
-client's ranks (:mod:`repro_torch.models.tp`).
+client's ranks (:mod:`repro_torch.models.tp`), and with a cache site the
+serving one; :func:`decode_partial` and
+:func:`combine_partials` are decode split over blocks of cache slots
+(split-K, :mod:`repro_torch.models.serve_split`).
 """
 
 from __future__ import annotations
@@ -113,6 +116,58 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
     return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lo: int, pos: int, smax: int, *, window: int = 0,
+                   ring: bool = False) -> tuple:
+    """:func:`decode_attention` over one block of cache slots
+    ``[lo, lo + w)`` (split-K decode): q ``[B, 1, Hq, Dh]``, the block's
+    k, v ``[B, w, Hkv, Dh]`` → float32 ``(max [B, Hkv, G, 1], Σ exp
+    [B, Hkv, G, 1], Σ exp·v [B, 1, Hkv, G, Dh])`` over the slots valid at
+    ``pos`` under :func:`decode_attention`'s masks (slots past ``smax`` are
+    padding). An all-masked block gives max ``NEG_INF`` and zero sums: a
+    masked slot adds 0, not ``exp(0)``."""
+    _, w, hkv, _ = k.shape
+    dh = q.shape[-1]
+    qg = _split_gqa(q, hkv).float() * dh ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    kpos = lo + torch.arange(w, device=q.device)
+    valid = (kpos <= pos) & (kpos < smax)
+    if window > 0 and not ring:
+        valid &= kpos > pos - window
+    s = torch.where(valid, s, NEG_INF)
+    top = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - top[..., None]), 0.0)
+    return top, p.sum(-1), torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+
+
+def _rescale(top: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """A block's weight ``exp(max_r − max)`` in the combined softmax."""
+    return torch.exp(top - total)
+
+
+def combine_partials(parts: list, device, dtype: torch.dtype
+                     ) -> torch.Tensor:
+    """The attention of one query from its blocks' :func:`decode_partial`
+    pieces → ``[B, 1, Hq, Dh]`` in ``dtype`` on ``device``. Each piece is
+    rescaled by ``exp(max_r − max)`` where it lies, and the sums and
+    weighted values are added in float32 in ``pair_sum``'s fixed order."""
+    from repro_torch.device import to_device
+    from repro_torch.models.tp import pair_sum
+    total = parts[0][0]
+    for top, _, _ in parts[1:]:
+        total = torch.maximum(total, to_device(top, total.device))
+    sums, vals = [], []
+    for top, l, acc in parts:
+        w = _rescale(top, to_device(total, top.device))
+        sums.append(l * w)
+        vals.append(acc * w.permute(0, 3, 1, 2)[..., None])
+    out = pair_sum(vals) / to_device(pair_sum(sums), vals[0].device
+                                     ).permute(0, 3, 1, 2)[..., None]
+    b, q, hkv, g, dh = out.shape
+    return to_device(out.reshape(b, q, hkv * g, dh).to(dtype),
+                     torch.device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -224,21 +279,29 @@ def _kv_heads(m: int, hq_local: int, group: int, device) -> torch.Tensor:
 def run_attention_tp(ps: list, x: torch.Tensor, tp, *, cfg_heads: int,
                      cfg_kv: int, head_dim: int, rope_theta: float,
                      window: int, blocked_threshold: int = 8192,
-                     q_chunk: int = 1024, k_chunk: int = 1024
-                     ) -> torch.Tensor:
-    """The training sub-layer (causal, no cache) split by heads over
-    ``tp``'s ranks: ``ps[m]`` is rank m's attention tree, ``x`` the
-    replicated input on rank 0's device → the output there.
+                     q_chunk: int = 1024, k_chunk: int = 1024,
+                     cache=None) -> torch.Tensor:
+    """The sub-layer split by heads over ``tp``'s ranks: ``ps[m]`` is rank
+    m's attention tree, ``x`` the replicated input on rank 0's device →
+    the output there.
 
     Column-parallel ``wq/wk/wv`` (and biases) by heads, the attention of
     each rank's heads on its device, row-parallel ``wo`` summed over the
     ranks. Where the kv heads do not divide the ranks (``param_pspecs``
     replicates ``wk/wv``), k and v are projected once on rank 0's device
     and each rank takes the kv heads its q heads use; where the q heads do
-    not divide, the sub-layer runs whole there."""
+    not divide, the sub-layer runs whole there.
+
+    Without ``cache`` it is the training form (causal, no cache). With one
+    (a serving split's cache site, :mod:`repro_torch.models.serve_split`)
+    the fresh k/v go to ``cache.write(kvs, s)`` — one (k, v) a rank where
+    the kv heads split, else one of all heads on rank 0's device — and
+    where ``cache.pos`` is a host int (a decode; the positions are
+    ``pos``) the heads attend through ``cache.attend(qs)`` over the cached
+    blocks; a prefill attends to the fresh k/v as training does."""
     from repro_torch.models.tp import check_shape
     q_ok, hq = tp.split(cfg_heads)
-    if not q_ok:
+    if not q_ok and cache is None:
         return run_attention(ps[0], x, cfg_heads=cfg_heads, cfg_kv=cfg_kv,
                              head_dim=head_dim, rope_theta=rope_theta,
                              window=window,
@@ -246,34 +309,52 @@ def run_attention_tp(ps: list, x: torch.Tensor, tp, *, cfg_heads: int,
                              q_chunk=q_chunk, k_chunk=k_chunk)[0]
     kv_ok, hkv = tp.split(cfg_kv)
     b, s, d = x.shape
-    xs = tp.scatter(x)
-    if not kv_ok:
-        pos = torch.arange(s, device=x.device)[None, :]
-        ks = tp.scatter(_project(x, ps[0]["wk"], ps[0].get("bk"), cfg_kv,
-                                 head_dim, pos, rope_theta))
-        vs = tp.scatter(_project(x, ps[0]["wv"], ps[0].get("bv"), cfg_kv,
-                                 head_dim, None, rope_theta))
-    parts = []
-    for m, (p, xm) in enumerate(zip(ps, xs)):
-        pos = torch.arange(s, device=xm.device)[None, :]
+    pos = None if cache is None else cache.pos
+
+    def positions(dev):
+        if pos is None:
+            return torch.arange(s, device=dev)[None, :]
+        return torch.full((b, s), pos, device=dev)
+
+    # where the q heads do not divide, one rank of all heads
+    ranks = list(zip(ps, tp.scatter(x))) if q_ok else [(ps[0], x)]
+    split_kv = q_ok and kv_ok
+    kvs = [] if split_kv else [(
+        _project(x, ps[0]["wk"], ps[0].get("bk"), cfg_kv, head_dim,
+                 positions(x.device), rope_theta),
+        _project(x, ps[0]["wv"], ps[0].get("bv"), cfg_kv, head_dim, None,
+                 rope_theta))]
+    qs = []
+    for p, xm in ranks:
         check_shape(p["wq"], (d, hq * head_dim), "wq")
         check_shape(p["wo"], (hq * head_dim, d), "wo")
-        q = _project(xm, p["wq"], p.get("bq"), hq, head_dim, pos,
-                     rope_theta)
-        if kv_ok:
+        qs.append(_project(xm, p["wq"], p.get("bq"), hq, head_dim,
+                           positions(xm.device), rope_theta))
+        if split_kv:
             check_shape(p["wk"], (d, hkv * head_dim), "wk")
-            k = _project(xm, p["wk"], p.get("bk"), hkv, head_dim, pos,
-                         rope_theta)
-            v = _project(xm, p["wv"], p.get("bv"), hkv, head_dim, None,
-                         rope_theta)
-        else:
-            idx = _kv_heads(m, hq, cfg_heads // cfg_kv, xm.device)
-            k = ks[m].index_select(2, idx)
-            v = vs[m].index_select(2, idx)
-        if s >= blocked_threshold:
-            o = blocked_attention(q, k, v, causal=True, window=window,
-                                  q_chunk=q_chunk, k_chunk=k_chunk)
-        else:
-            o = plain_attention(q, k, v, causal=True, window=window)
-        parts.append(attn_out(p, o))
-    return tp.reduce(parts)
+            kvs.append((_project(xm, p["wk"], p.get("bk"), hkv, head_dim,
+                                 positions(xm.device), rope_theta),
+                        _project(xm, p["wv"], p.get("bv"), hkv, head_dim,
+                                 None, rope_theta)))
+    if cache is not None:
+        cache.write(kvs, s)
+    if pos is not None:
+        outs = cache.attend(qs)
+    else:
+        if len(kvs) < len(qs):
+            ks, vs = tp.scatter(kvs[0][0]), tp.scatter(kvs[0][1])
+            kvs = [(k.index_select(2, idx), v.index_select(2, idx))
+                   for m, (k, v) in enumerate(zip(ks, vs))
+                   for idx in [_kv_heads(m, hq, cfg_heads // cfg_kv,
+                                         k.device)]]
+        outs = []
+        for q, (k, v) in zip(qs, kvs):
+            if s >= blocked_threshold:
+                outs.append(blocked_attention(
+                    q, k, v, causal=True, window=window, q_chunk=q_chunk,
+                    k_chunk=k_chunk))
+            else:
+                outs.append(plain_attention(q, k, v, causal=True,
+                                            window=window))
+    parts = [attn_out(p, o) for (p, _), o in zip(ranks, outs)]
+    return tp.reduce(parts) if len(parts) > 1 else parts[0]

@@ -84,6 +84,29 @@ def loss_fn(cfg: ModelConfig, params, batch: dict):
     return total, {"ce": ce, "aux": aux}
 
 
+def loss_parts(cfg: ModelConfig, params, batch: dict):
+    """An MoE's loss in parts, for a client whose batch runs in pieces →
+    (mean cross-entropy f32, ``[L, 2, E]`` each layer's ``[frac_tokens,
+    frac_probs]``): the whole batch's loss is the pieces' mean
+    cross-entropy + ``MOE_AUX_WEIGHT`` · :func:`moe_aux` of their mean
+    fractions."""
+    h = embed_inputs(cfg, params, batch["tokens"],
+                     batch.get("frontend_embeds"), batch.get("frontend_mask"))
+    h, _, fr = transformer.run_stack(cfg, params, h, fracs=True)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _cross_entropy(lm_logits(cfg, params, h), batch["labels"]), fr
+
+
+def moe_aux(cfg: ModelConfig, fracs: torch.Tensor) -> torch.Tensor:
+    """Σ over layers (in layer order, f32) of each layer's load-balancing
+    loss from its ``[frac_tokens, frac_probs]`` (``fracs [L, 2, E]``)."""
+    from repro_torch.models.moe import aux_of
+    total = torch.zeros((), dtype=torch.float32, device=fracs.device)
+    for f in fracs:
+        total = total + aux_of(f[0], f[1], cfg.num_experts)
+    return total
+
+
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                    ) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -40,13 +40,17 @@ def expert_ffn(params, hin: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
             capacity_factor: float, group_size: int = GROUP_SIZE,
-            experts=None):
+            experts=None, with_fracs: bool = False):
     """x: [B, S, D] → (y [B, S, D], aux_loss scalar).
 
     params: router [D, E]; w_gate, w_up [E, D, F]; w_down [E, F, D].
     ``experts`` (``hin [E, n, D]`` → ``[E, n, D]``) replaces
     :func:`expert_ffn` on ``params`` (the tensor-parallel experts of
     :mod:`repro_torch.models.tp`: the routing runs here, once).
+    ``with_fracs`` adds a third output, ``[frac_tokens, frac_probs]``
+    (``[2, E]`` f32, the means the aux is the product of), for a client
+    whose batch runs in pieces: the aux of the whole batch is
+    :func:`aux_of` of the pieces' mean fractions.
     """
     b, s, d = x.shape
     t = b * s
@@ -69,7 +73,7 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     assign = _one_hot(topi, e, torch.float32)             # [ng, g, k, E]
     frac_tokens = assign.sum(2).mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
-    aux = e * torch.sum(frac_tokens * frac_probs)
+    aux = aux_of(frac_tokens, frac_probs, e)
 
     cap = moe_capacity(g, e, top_k, capacity_factor)
 
@@ -97,4 +101,13 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     w = (topv.reshape(ng, g * top_k) * keep).to(hout.dtype)
     y = torch.einsum("ntec,nt,necd->ntd", disp, w, hout)  # [ng, gk, D]
     y = y.reshape(ng, g, top_k, d).sum(dim=2)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    y = y.reshape(b, s, d).to(x.dtype)
+    if with_fracs:
+        return y, aux, torch.stack([frac_tokens, frac_probs])
+    return y, aux
+
+
+def aux_of(frac_tokens: torch.Tensor, frac_probs: torch.Tensor,
+           num_experts: int) -> torch.Tensor:
+    """The load-balancing loss ``E · Σ_e f_e · p_e`` of the fractions."""
+    return num_experts * torch.sum(frac_tokens * frac_probs)

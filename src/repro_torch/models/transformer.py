@@ -22,6 +22,8 @@ checkpointed as a whole too. Values do not change; memory does.
 ``_shared_block_tp`` run attention and MLP (or the MoE experts) on every
 rank's shards, the norms, residual adds and mamba blocks once on rank 0's
 device. The remat wraps the same layer bodies, cross-device sums included.
+Given a cache site they are the serving split's layers too
+(:mod:`repro_torch.models.serve_split`).
 """
 
 from __future__ import annotations
@@ -176,8 +178,10 @@ def _mamba_layer_init(gen, cfg: ModelConfig, dtype, device, lead=()):
 # Per-layer apply
 # ---------------------------------------------------------------------------
 
-def _dense_layer(cfg: ModelConfig, params, h, cache=None, pos=None):
-    """Pre-LN transformer layer; returns (h, cache, aux)."""
+def _dense_layer(cfg: ModelConfig, params, h, cache=None, pos=None,
+                 fracs: bool = False):
+    """Pre-LN transformer layer; returns (h, cache, aux) — with ``fracs``,
+    an MoE layer's ``[frac_tokens, frac_probs]`` in place of its aux."""
     x = rms_norm(h, params["ln1"], cfg.norm_eps)
     o, cache = run_attention(
         params["attn"], x, cfg_heads=cfg.num_heads, cfg_kv=cfg.num_kv_heads,
@@ -186,29 +190,36 @@ def _dense_layer(cfg: ModelConfig, params, h, cache=None, pos=None):
     h = h + o
     x = rms_norm(h, params["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        y, aux = moe_ffn(params["mlp"], x, num_experts=cfg.num_experts,
-                         top_k=cfg.num_experts_per_tok,
-                         capacity_factor=cfg.capacity_factor)
+        y, aux, *fr = moe_ffn(params["mlp"], x, num_experts=cfg.num_experts,
+                              top_k=cfg.num_experts_per_tok,
+                              capacity_factor=cfg.capacity_factor,
+                              with_fracs=fracs)
+        aux = fr[0] if fracs else aux
     else:
         y = _mlp_apply(cfg, params["mlp"], x)
         aux = None
     return h + y, cache, aux
 
 
-def _attention_tp(cfg: ModelConfig, ps: list, x, tp):
+def _attention_tp(cfg: ModelConfig, ps: list, x, tp, cache=None):
     return run_attention_tp(
         ps, x, tp, cfg_heads=cfg.num_heads, cfg_kv=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        window=cfg.sliding_window)
+        window=cfg.sliding_window, cache=cache)
 
 
-def _dense_layer_tp(cfg: ModelConfig, ps: list, h, tp):
-    """:func:`_dense_layer`'s training form over ``tp``'s ranks (``ps[m]``
-    rank m's layer tree); returns (h, aux)."""
-    p0 = ps[0]
-    x = rms_norm(h, p0["ln1"], cfg.norm_eps)
-    h = h + _attention_tp(cfg, [p["attn"] for p in ps], x, tp)
-    x = rms_norm(h, p0["ln2"], cfg.norm_eps)
+def _attn_residual_tp(cfg: ModelConfig, ps: list, h, tp, cache=None):
+    """``h`` + the pre-LN attention sub-layer over ``tp``'s ranks (with a
+    serving cache site, :func:`run_attention_tp`'s)."""
+    x = rms_norm(h, ps[0]["ln1"], cfg.norm_eps)
+    return h + _attention_tp(cfg, [p["attn"] for p in ps], x, tp, cache)
+
+
+def _dense_layer_tp(cfg: ModelConfig, ps: list, h, tp, cache=None):
+    """:func:`_dense_layer` over ``tp``'s ranks (``ps[m]`` rank m's layer
+    tree; ``cache`` a serving split's cache site); returns (h, aux)."""
+    h = _attn_residual_tp(cfg, ps, h, tp, cache)
+    x = rms_norm(h, ps[0]["ln2"], cfg.norm_eps)
     mlps = [p["mlp"] for p in ps]
     if cfg.family == "moe":
         y, aux = _moe_apply_tp(cfg, mlps, x, tp)
@@ -235,12 +246,11 @@ def _shared_block(cfg: ModelConfig, params, h, cache=None, pos=None):
     return h + _mlp_apply(cfg, params["mlp"], x), cache
 
 
-def _shared_block_tp(cfg: ModelConfig, ps: list, h, tp):
-    """:func:`_shared_block`'s training form over ``tp``'s ranks."""
-    p0 = ps[0]
-    x = rms_norm(h, p0["ln1"], cfg.norm_eps)
-    h = h + _attention_tp(cfg, [p["attn"] for p in ps], x, tp)
-    x = rms_norm(h, p0["ln2"], cfg.norm_eps)
+def _shared_block_tp(cfg: ModelConfig, ps: list, h, tp, cache=None):
+    """:func:`_shared_block` over ``tp``'s ranks (``cache`` as
+    :func:`_dense_layer_tp`'s)."""
+    h = _attn_residual_tp(cfg, ps, h, tp, cache)
+    x = rms_norm(h, ps[0]["ln2"], cfg.norm_eps)
     return h + _mlp_apply_tp(cfg, [p["mlp"] for p in ps], x, tp)
 
 
@@ -391,10 +401,25 @@ def _scan_layers(cfg: ModelConfig, body, carry, stacked):
 
 
 def run_stack(cfg: ModelConfig, params, h: torch.Tensor, cache=None,
-              pos: Optional[int] = None):
+              pos: Optional[int] = None, fracs: bool = False):
     """h: [B, S, D] embeddings → (h, cache, aux). ``cache`` (updated in
-    place) and ``pos`` (a Python int) for prefill/decode."""
+    place) and ``pos`` (a Python int) for prefill/decode. ``fracs`` (an MoE
+    training forward) gives each layer's ``[frac_tokens, frac_probs]``,
+    ``[L, 2, E]``, in place of the summed aux."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    if fracs:
+        if cfg.family != "moe" or cache is not None:
+            raise ValueError("fracs: an MoE stack's training forward")
+
+        def fr_body(carry, p_i):
+            hh, fr = carry
+            hh, _, f = _dense_layer(cfg, p_i, hh, fracs=True)
+            return hh, torch.cat([fr, f[None]])
+        h, fr = _scan_layers(
+            cfg, fr_body, (h, torch.zeros((0, 2, cfg.num_experts),
+                                          device=h.device)),
+            params["layers"])
+        return h, None, fr
 
     if cfg.family == "ssm":
         if cache is None:

@@ -143,13 +143,34 @@ class RankShards:
         return tree_unflatten(tree_structure(self.trees[0]), out)
 
 
+class RankCache:
+    """A decode cache placed by rank (:mod:`repro_torch.models.
+    serve_split`): rank r's block of each leaf by ``cache_pspecs``, on its
+    device. ``split`` is the ``ServeSplit`` that placed it; ranks that
+    share a device and a block share one tree, and ``trees[split.index[r]]``
+    is rank r's (the whole cache's keys, each leaf its block, padded as
+    XLA pads)."""
+
+    __slots__ = ("trees", "split")
+
+    def __init__(self, trees, split):
+        self.trees, self.split = tuple(trees), split
+
+    def rank(self, r: int) -> Any:
+        """Rank r's tree."""
+        return self.trees[self.split.index[r]]
+
+    def map(self, fn) -> "RankCache":
+        return RankCache([map_state(fn, t) for t in self.trees], self.split)
+
+
 def map_state(fn, tree: Any) -> Any:
     """``fn`` on every tensor of a state tree (NamedTuples, dicts, tuples,
     :class:`RankPieces` and :class:`RankShards`; ``None`` stays ``None``),
     keeping its structure."""
     if tree is None:
         return None
-    if isinstance(tree, (RankPieces, RankShards)):
+    if isinstance(tree, (RankPieces, RankShards, RankCache)):
         return tree.map(fn)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(map_state(fn, v) for v in tree))

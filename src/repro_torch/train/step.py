@@ -26,7 +26,11 @@ of local devices and runs the same three phases as named methods of
        slice, gathers the model-sharded leaves whole onto its device
        (FSDP-style) and runs ``loss_fn`` + autograd there; the client's
        gradient is the mean over m, summed so that rank (k, m) keeps only
-       column m's piece (a reduce-scatter).
+       column m's piece (a reduce-scatter). An MoE takes it only where
+       each sub-batch is a whole number of the client's routing groups;
+       its M sub-batches then form one loss, the aux from the fractions'
+       means over the ranks, under one autograd
+       (:meth:`TrainStep._moe_over_model`).
 
      Every cross-rank sum runs in float32 in a fixed pairwise order (the
      reference's program promotes its bf16 all-reduces to f32). The
@@ -87,6 +91,11 @@ from that rank's params and ``tcs_prev``; the downlink rebuilds each
 rank's tree from column m's K_dp master segments (a replicated leaf's
 other columns gathered over m), leaf by leaf, so no device holds a whole
 f32 master; the ``tcs_prev`` refresh casts each rank's own tree.
+
+:func:`build_prefill_step` and :func:`build_serve_step` run whole on a mesh
+of one rank, and on a mesh of several split over the ranks with the
+params and cache placed by ``param_pspecs`` and ``cache_pspecs``
+(:mod:`repro_torch.models.serve_split`).
 """
 
 from __future__ import annotations
@@ -109,6 +118,7 @@ from repro_torch.device import to_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as model_mod
 from repro_torch.models import partition
+from repro_torch.models.moe import GROUP_SIZE
 from repro_torch.models.tp import TP, sum_to
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.optim import optimizers as opt_mod
@@ -649,11 +659,6 @@ class TrainStep:
         # the reference's choice of phase-1 form (repro/train/step.py)
         self.batch_over_model = (cfg.family in ("ssm", "hybrid")
                                  or tc.fsdp_compute)
-        if self.m > 1 and tc.fsdp_compute and cfg.family == "moe":
-            raise ValueError(
-                "fsdp_compute splits each client's batch over `model`; an "
-                "MoE's load-balancing loss couples the client's tokens, so "
-                "the split would change the loss")
         # rank (k, m)'s piece of a flat leaf (and of the aggregate)
         n = layout.n_local
         self.flat_index = [
@@ -711,12 +716,24 @@ class TrainStep:
     def phase1_form(self, batch: dict) -> str:
         """``"whole"`` (``model == 1``), ``"batch_over_model"`` or
         ``"tensor_parallel"``: the reference's choice, by family,
-        ``fsdp_compute`` and whether the client's batch divides M."""
+        ``fsdp_compute`` and whether the client's batch divides M.
+
+        An MoE (``fsdp_compute``) splits its batch only where each
+        sub-batch is a whole number of the client's routing groups
+        (``min(1024, per·S)`` tokens, ``models/moe.py``): there the
+        sub-batches route as the whole batch does, and the aux is formed
+        once from the client-wide fractions. Elsewhere a split would change
+        which tokens each group drops, so it takes the tensor-parallel
+        form, which routes the whole batch once on rank (k, 0)."""
         if self.m == 1:
             return "whole"
         per = batch["tokens"].shape[-2] // self.k_dp
         if self.batch_over_model and per % self.m == 0:
-            return "batch_over_model"
+            if self.cfg.family != "moe":
+                return "batch_over_model"
+            seq = batch["tokens"].shape[-1]
+            if (per // self.m) * seq % min(GROUP_SIZE, per * seq) == 0:
+                return "batch_over_model"
         return "tensor_parallel"
 
     def client_cols(self, params, batch: dict, k: int) -> tuple:
@@ -772,15 +789,16 @@ class TrainStep:
         the model-sharded leaves whole on its device and runs ``loss_fn`` +
         autograd on sub-batch m; column m sums every rank's column-m piece
         of each leaf (f32, fixed order, the mean's 1/M in each rank's
-        backward)."""
+        backward). An MoE's load-balancing loss is a product of the
+        client's means, so its M sub-batches run as one loss
+        (:meth:`_moe_over_model`)."""
         devs = self._devices(k)
         per, local = self._client_slice(batch, k)
         sub = per // self.m
         if isinstance(params, RankShards):
             shards = [tree_leaves(t) for t in self._rank_trees(params, k)]
-        scale = 1.0 / self.m
-        grads, losses = [], []
-        for m, dev in enumerate(devs):
+
+        def own_leaves(m, dev):
             if isinstance(params, RankShards):
                 # the model-sharded leaves gathered whole (FSDP-style)
                 own = [to_device(shards[m][j], dev)
@@ -790,17 +808,30 @@ class TrainStep:
                        for j, plan in enumerate(self.layout.plans)]
             else:
                 own = [to_device(x, dev) for x in tree_leaves(params)]
-            leaves = [x.detach().requires_grad_(True) for x in own]
-            mine = {name: to_device(v[m * sub:(m + 1) * sub], dev)
+            return [x.detach().requires_grad_(True) for x in own]
+
+        def sub_batch(m, dev):
+            return {name: to_device(v[m * sub:(m + 1) * sub], dev)
                     for name, v in local.items()}
-            with torch.enable_grad():
-                loss, _ = model_mod.loss_fn(
-                    self.cfg, tree_unflatten(self.structure, leaves), mine)
-                g = torch.autograd.grad(
-                    loss, leaves, grad_outputs=torch.full_like(loss, scale))
-            grads.append(g)
-            losses.append(loss.detach())
-            del own, leaves
+
+        scale = 1.0 / self.m
+        if self.cfg.family == "moe":
+            grads, loss = self._moe_over_model(devs, own_leaves, sub_batch)
+        else:
+            grads, losses = [], []
+            for m, dev in enumerate(devs):
+                leaves = own_leaves(m, dev)
+                with torch.enable_grad():
+                    loss, _ = model_mod.loss_fn(
+                        self.cfg, tree_unflatten(self.structure, leaves),
+                        sub_batch(m, dev))
+                    g = torch.autograd.grad(
+                        loss, leaves,
+                        grad_outputs=torch.full_like(loss, scale))
+                grads.append(g)
+                losses.append(loss.detach())
+                del leaves
+            loss = sum_to(losses, devs[0]) * scale
         cols = []
         for m, dev in enumerate(devs):
             parts = [sum_to([self.layout.piece(plan, g[j], m, g[j].dtype)
@@ -808,7 +839,38 @@ class TrainStep:
                      for j, plan in enumerate(self.layout.plans)]
             cols.append(self.layout.join([p.to(self.agg_dt) for p in parts],
                                          self.agg_dt))
-        return cols, sum_to(losses, devs[0]) * scale
+        return cols, loss
+
+    def _moe_over_model(self, devs: list, own_leaves, sub_batch) -> tuple:
+        """An MoE client's M sub-batches as one loss: each rank's forward
+        on its sub-batch gives its cross-entropy and each layer's
+        ``[frac_tokens, frac_probs]``; the means over the ranks (f32,
+        :func:`~repro_torch.models.tp.pair_sum`'s order, an autograd sum
+        like ``TP.reduce``) give the client's cross-entropy and, per layer,
+        the whole batch's fractions, so the aux is the reference's; one
+        ``torch.autograd.grad`` over every rank's leaves → (each rank's
+        gradients, the loss)."""
+        tp = TP(devs)
+        scale = 1.0 / self.m
+        leaves = [own_leaves(m, dev) for m, dev in enumerate(devs)]
+        # one thread runs the backward of every device (the layer remat's
+        # recompute is not safe from two devices' autograd threads at once)
+        with torch.enable_grad(), \
+                torch.autograd.set_multithreading_enabled(False):
+            ces, frs = [], []
+            for m, dev in enumerate(devs):
+                ce, fr = model_mod.loss_parts(
+                    self.cfg, tree_unflatten(self.structure, leaves[m]),
+                    sub_batch(m, dev))
+                ces.append(ce)
+                frs.append(fr)
+            ce = tp.reduce(ces) * scale
+            aux = model_mod.moe_aux(self.cfg, tp.reduce(frs) * scale)
+            loss = ce + model_mod.MOE_AUX_WEIGHT * aux
+            flat = [x for lv in leaves for x in lv]
+            g = torch.autograd.grad(loss, flat)
+        n = len(leaves[0])
+        return [g[m * n:(m + 1) * n] for m in range(self.m)], loss.detach()
 
     def _mean_loss(self, losses: list) -> Tensor:
         total = to_device(losses[0], self.home).to(torch.float32)
@@ -1302,25 +1364,54 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh,
 # Serving steps
 # ---------------------------------------------------------------------------
 
+def _split(cfg: ModelConfig, mesh, params, cache):
+    """The :class:`~repro_torch.models.serve_split.ServeSplit` of a
+    serving call on a mesh of several ranks (``None`` on one rank, where
+    the step runs whole as the reference's one-device program)."""
+    from repro_torch.models import serve_split
+    if not serve_split.is_split(mesh):
+        return None
+    if not isinstance(params, RankShards) or \
+            not isinstance(cache, serve_split.RankCache):
+        raise ValueError(
+            "a mesh of several ranks serves placed params and cache "
+            "(serve_split.place_params, serve_split.init_cache)")
+    return serve_split.split_of(cfg, mesh, cache)
+
+
 def build_serve_step(cfg: ModelConfig, mesh):
     """decode: (params, cache, token [B], pos) → (next_token [B], cache);
-    the cache is consumed (updated in place)."""
+    the cache is consumed (updated in place). On a mesh of several ranks
+    the params and cache are placed by rank and the step is split over
+    them (:mod:`repro_torch.models.serve_split`)."""
 
     def serve_step(params, cache, token, pos):
+        split = _split(cfg, mesh, params, cache)
         with torch.inference_mode():
-            logits, cache = model_mod.decode_step(cfg, params, cache, token,
-                                                  int(pos))
+            if split is None:
+                logits, cache = model_mod.decode_step(cfg, params, cache,
+                                                      token, int(pos))
+            else:
+                logits, cache = split.decode(params, cache, token, pos)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return serve_step
 
 
 def build_prefill_step(cfg: ModelConfig, mesh):
+    """prefill: (params, cache, tokens [B, S], extra) → (next_token [B],
+    cache), split over the ranks of a mesh of several (as
+    :func:`build_serve_step`)."""
+
     def prefill_step(params, cache, tokens, extra=None):
+        split = _split(cfg, mesh, params, cache)
         kw = {} if extra is None else dict(extra)
         with torch.inference_mode():
-            logits, cache = model_mod.prefill(cfg, params, tokens, cache,
-                                              **kw)
+            if split is None:
+                logits, cache = model_mod.prefill(cfg, params, tokens, cache,
+                                                  **kw)
+            else:
+                logits, cache = split.prefill(params, cache, tokens, kw)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return prefill_step

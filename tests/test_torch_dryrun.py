@@ -450,16 +450,31 @@ def test_stand_ins_answer_the_exact_top_q_select_on_long_rows():
 def test_full_cells_through_lower_cell(full, arch, shape_name):
     """Full widths and depth on the 16 × 16 mesh (a full train cell runs
     16 full-depth clients, minutes of fake dispatch: the CLI sweep has
-    them)."""
+    them). A serving cell runs split over the ranks: its second run, one
+    fake device a rank, gives one rank's placed bytes and peak."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import partition
     rec = full(arch, shape_name)
     assert rec["status"] == "ok" and rec["mesh"] == "16x16"
     ma = rec["memory_analysis"]
     cfg, shape = get_config(arch), SHAPES[shape_name]
-    assert rec["port_home_bytes"] == sum(t.nbytes for t in dryrun._leaves(
-        [model_mod.param_specs(cfg),
-         model_mod.cache_specs(cfg, shape.global_batch, shape.seq_len)]))
-    assert ma["argument_size_in_bytes"] < rec["port_home_bytes"]
-    assert rec["device_peak_bytes"] >= rec["port_home_bytes"]
+    mesh = make_production_mesh(devices=["cpu"] * 256)
+    params = model_mod.param_specs(cfg)
+    cache = model_mod.cache_specs(cfg, shape.global_batch, shape.seq_len)
+    # every rank holds its blocks of the params and the cache by the specs
+    assert rec["port_home_bytes"] == dryrun.rank_bytes(
+        params, partition.param_pspecs(cfg, mesh), mesh) + dryrun.rank_bytes(
+        cache, partition.cache_pspecs(cfg, mesh, shape.global_batch), mesh)
+    assert len(set(rec["port_device_bytes"])) == 1
+    assert rec["rank_peak_bytes"] >= rec["port_home_bytes"]
+    assert ma["peak_bytes_estimate"] == (ma["argument_size_in_bytes"]
+                                         + ma["output_size_in_bytes"]
+                                         + ma["temp_size_in_bytes"])
+    assert rec["fits_one_card"] is True
+    # the one-device run holds every rank's blocks: the whole params and
+    # cache at least
+    whole = sum(t.nbytes for t in dryrun._leaves([params, cache]))
+    assert rec["device_peak_bytes"] >= rec["device_argument_bytes"] >= whole
     assert rec["roofline"]["chips"] == 256
     assert rec["roofline"]["bottleneck"] in ("compute", "memory")
     assert rec["roofline"]["model_flops"] == dryrun.model_flops_for(
@@ -484,30 +499,37 @@ def test_a_raising_cell_is_a_fail_record_and_exit_1(tmp_path, monkeypatch):
 def test_the_table_twin_prints_the_reference_table(full, tmp_path,
                                                   capsys):
     """The twin on the port's JSON prints the reference's table on the same
-    records, but for the per-rank peak, which the port does not measure:
-    the reference's script (which needs a number there) reads it as 0."""
+    records; where the per-rank peak is not measured (a mesh whose every
+    device holds several ranks) the twin says so where the reference's
+    script (which needs a number there) reads it as 0."""
     recs = [full("mamba2-130m", "long_500k"),
             {"arch": "mamba2-130m", "shape": "train_4k", "mesh": "16x16",
              "agg": "cl_sia", "status": "FAIL", "error": "x"}]
-    path, zero = tmp_path / "dry.json", tmp_path / "zero.json"
+    assert recs[0]["memory_analysis"]["peak_bytes_estimate"] > 0
+    path, gone = tmp_path / "dry.json", tmp_path / "gone.json"
+    zero = tmp_path / "zero.json"
     path.write_text(json.dumps(recs))
-    assert recs[0]["memory_analysis"]["peak_bytes_estimate"] is None
-    recs[0] = dict(recs[0], memory_analysis=dict(
-        recs[0]["memory_analysis"], peak_bytes_estimate=0))
-    zero.write_text(json.dumps(recs))
     sys.path.insert(0, str(REPO / "benchmarks"))
     try:
         ref = importlib.import_module("emit_experiments_table")
         twin = importlib.import_module("torch_emit_experiments_table")
     finally:
         sys.path.remove(str(REPO / "benchmarks"))
+    ref.main(str(path))
+    want = capsys.readouterr().out
+    twin.main(str(path))
+    assert capsys.readouterr().out == want
+    assert "| mamba2-130m | long_500k |" in want
+    for p, peak in ((gone, None), (zero, 0)):
+        p.write_text(json.dumps([dict(recs[0], memory_analysis=dict(
+            recs[0]["memory_analysis"], peak_bytes_estimate=peak))]
+            + recs[1:]))
     ref.main(str(zero))
     want = capsys.readouterr().out
     assert want.count("| 0.0 |\n") == 1
-    twin.main(str(path))
+    twin.main(str(gone))
     assert capsys.readouterr().out == want.replace("| 0.0 |\n",
                                                    "| not measured |\n")
-    assert "| mamba2-130m | long_500k |" in want
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +546,62 @@ def test_state_shardings_equal_the_reference(reference, case):
                                 tc, _mesh(mname), topology=topo,
                                 cohorts=coh))
     assert got == reference()["specs"][case]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serving_cells_are_measured_per_rank(arch, kind):
+    """A serving cell on (2, 2) ranks, one fake device a rank
+    (``rank_mesh``): its step runs split over them, so the per-rank fields
+    are filled, and a rank's peak is below the peak of one device that
+    holds all four ranks."""
+    cfg = get_config(arch, smoke=True)
+    shape = ShapeSpec(kind, SEQ, BATCH, kind)
+    one = dryrun.dry_run_cell(cfg, shape, _mesh("2x2"))
+    per = dryrun.dry_run_cell(cfg, shape, dryrun.rank_mesh(_mesh("2x2")))
+    ma = per["memory_analysis"]
+    assert None not in (ma["temp_size_in_bytes"], ma["peak_bytes_estimate"],
+                        per["fits_one_card"], per["rank_peak_bytes"],
+                        per["rank_peak_device"])
+    assert per["rank_peak_device"] in {f"cpu:{r}" for r in range(4)}
+    assert per["rank_peak_bytes"] < one["device_peak_bytes"]
+    assert per["port_home_bytes"] < one["port_home_bytes"]
+    # the per-rank bytes do not depend on the devices the ranks are on
+    assert ma["argument_size_in_bytes"] == one["memory_analysis"][
+        "argument_size_in_bytes"]
+    assert ma["output_size_in_bytes"] == one["memory_analysis"][
+        "output_size_in_bytes"]
+
+
+# (arch, kind, seq, mesh): mixtral's prefill of 512 tokens gives each DP
+# group whole routing groups; at SEQ its groups route over the gathered
+# batch, as every MoE decode does, and the cell runs in full
+ONCE_CASES = [(a, k, SEQ, "2x2") for a in FAMILIES
+              for k in ("prefill", "decode")] + [
+    ("mixtral-8x7b", "prefill", 512, "2x2"),
+    ("phi4-mini-3.8b", "decode", SEQ, "2x2x2")]
+
+
+@pytest.mark.parametrize("arch,kind,seq,mname", ONCE_CASES)
+def test_group_0_once_equals_every_group(monkeypatch, arch, kind, seq,
+                                         mname):
+    """A serving cell whose DP groups share no work runs group 0 once
+    (``dryrun._serve_once``); on one device and on a device a rank its
+    peaks, temporaries, FLOPs and traffic equal those of the split step
+    run whole, every group computed."""
+    cfg = get_config(arch, smoke=True)
+    shape = ShapeSpec(kind, seq, BATCH, kind)
+    gathered = cfg.family == "moe" and (kind == "decode" or seq == SEQ)
+    for mesh in (_mesh(mname), dryrun.rank_mesh(_mesh(mname))):
+        assert dryrun._serve_apart(cfg, shape, mesh) is not gathered
+        once = dryrun.dry_run_cell(cfg, shape, mesh)
+        with monkeypatch.context() as m:
+            m.setattr(dryrun, "_serve_apart", lambda *a: False)
+            whole = dryrun.dry_run_cell(cfg, shape, mesh)
+        for key in ("device_peak_bytes", "device_temp_bytes", "flops",
+                    "bytes_accessed", "rank_peak_bytes", "rank_peak_device",
+                    "memory_analysis"):
+            assert once.get(key) == whole.get(key), (key, str(mesh.devices[0]))
 
 
 @pytest.mark.parametrize("mname", list(MESHES))

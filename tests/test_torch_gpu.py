@@ -28,7 +28,9 @@ mesh that mixes the card and the CPU keeps its pieces on their ranks'
 devices and equals the same steps on ranks of the card. Phase 1 split
 over ``model`` (tensor-parallel, or batch over model) on ranks of the card
 equals the same split step on ranks of the CPU, and its columns equal the
-whole-model gradient's.
+whole-model gradient's. Serving split over ranks of the card (each cache
+layout) equals the whole form on the card, and the dry run predicts a
+split serving step's peak within ±1 %.
 """
 
 import math
@@ -1758,3 +1760,84 @@ def test_split_step_on_a_mesh_of_the_card_and_the_cpu(cuda, no_tf32, name):
         assert_step_close(f"{name} mixed step {s}", o, got, want, 1e-6,
                           loose_coordinates(check, o, got, want),
                           3 * tc.opt.lr * float(mc["lr_scale"]))
+
+
+SPLIT_LAYOUTS = {"heads over model": ((2, 2), 2),
+                 "seq over model": ((1, 3), 1),
+                 "split-K over data": ((2, 2), 1)}
+
+
+@pytest.mark.parametrize("layout", list(SPLIT_LAYOUTS))
+def test_split_serving_on_ranks_of_the_card_equals_the_whole_form(
+        cuda, no_tf32, layout):
+    """The CPU test ``test_torch_serve_split.py`` on ranks of ``cuda:0``:
+    SMOKE phi4-mini and mixtral in float32, the split prefill and each
+    split decode step (teacher-forced) against the whole form on the card,
+    rtol = atol = 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models import serve_split
+    shape, batch = SPLIT_LAYOUTS[layout]
+    mesh = make_mesh(shape, ("data", "model"),
+                     ["cuda:0"] * math.prod(shape))
+    for arch, s, gen in (("phi4-mini-3.8b", 12, 6), ("mixtral-8x7b", 32, 18)):
+        cfg = get_config(arch, smoke=True)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+        toks = torch.randint(0, cfg.vocab_size, (batch, s + gen),
+                             generator=torch.Generator().manual_seed(7)
+                             ).to(cuda)
+        sp = serve_split.ServeSplit(cfg, mesh, batch, s + gen)
+        placed = serve_split.place_params(params, cfg, mesh)
+        with torch.inference_mode():
+            cache = lm.init_cache(cfg, batch, s + gen, cuda)
+            split = sp.init_cache()
+            want, cache = lm.prefill(cfg, params, toks[:, :s], cache)
+            got, split = sp.prefill(placed, split, toks[:, :s])
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            for i in range(gen - 1):
+                want, cache = lm.decode_step(cfg, params, cache,
+                                             toks[:, s + i], s + i)
+                got, split = sp.decode(placed, split, toks[:, s + i], s + i)
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                           msg=f"{arch} {layout} {i}")
+
+
+def test_dry_run_predicts_the_peak_of_a_split_serving_step(cuda):
+    """``dry_run_cell`` of a split prefill and decode on 2 × 2 ranks of
+    ``cuda:0`` (phi4-mini at full widths, 4 of 32 layers, bf16, batch 4):
+    the larger predicted device peak within ±1 % of the bytes the split
+    run (placed params, cache, prefill and decode steps) adds to the card
+    at its peak (chip_smoke phase 16 (a) at full depth)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models import serve_split
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), num_layers=4)
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    b, s, gen = 4, 256, 4
+    pred = max(dryrun.dry_run_cell(cfg, ShapeSpec(k, n, b, k), mesh)[
+        "device_peak_bytes"] for k, n in (("prefill", s), ("decode", s + gen)))
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            cuda)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + gen), device=cuda)
+    # a process's first GEMM allocates cuBLAS's workspace, which then stays
+    with torch.inference_mode():
+        lm.prefill(cfg, params, toks[:, :8], lm.init_cache(cfg, b, 8, cuda))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    sp = serve_split.ServeSplit(cfg, mesh, b, s + gen)
+    placed = serve_split.place_params(params, cfg, mesh)
+    with torch.inference_mode():
+        cache = sp.init_cache()
+        _, cache = sp.prefill(placed, cache, toks[:, :s])
+        for i in range(gen - 1):
+            _, cache = sp.decode(placed, cache, toks[:, s + i], s + i)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated(cuda) - base
+    assert abs(pred / measured - 1) <= 0.01, (pred, measured)

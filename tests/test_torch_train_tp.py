@@ -8,10 +8,14 @@
   in the reference's form — tensor-parallel for ``dense`` (tied phi4 with
   pad slots in the vocabulary, and untied granite, whose one kv head is
   replicated over M = 2), ``moe``, ``vlm`` and ``audio`` (with their
-  frontend inputs); batch over model for ``ssm``, ``hybrid`` and a dense
-  arch with ``fsdp_compute``; on (2, 4) phi4 (6 heads, which 4 does not
+  frontend inputs); batch over model for ``ssm``, ``hybrid``, a dense
+  arch with ``fsdp_compute`` and mixtral with ``fsdp_compute`` on (4, 2)
+  and (2, 4) (batch 8 × 1024, so each sub-batch holds whole 1024-token
+  routing groups and the aux comes from the client-wide fractions; one
+  step each, the others two); on
+  (2, 4) phi4 (6 heads, which 4 does not
   divide, so its attention runs whole; ``d_ff`` and the vocabulary
-  split). Two steps each, f32: the port's own run keeps the loss to rtol
+  split). F32: the port's own run keeps the loss to rtol
   1e-5; each step from the reference's state has the loss to rtol 1e-5,
   the support equal but for swaps at a tie and the change of master and
   params the reference's to 1e-3 of its scale
@@ -85,8 +89,18 @@ CASES = {
                            "batch_over_model", (8, 16)),
     "2x4 dense": (dict(arch="phi4-mini-3.8b", mesh=(2, 4),
                        kind="cl_tc_sia"), "tensor_parallel", (8, 16)),
+    # each client's sub-batches hold whole 1024-token routing groups
+    "moe fsdp_compute": (dict(arch="mixtral-8x7b", fsdp=True, steps=1),
+                         "batch_over_model", (8, 1024)),
+    "2x4 moe fsdp_compute": (dict(arch="mixtral-8x7b", fsdp=True,
+                                  mesh=(2, 4), steps=1),
+                             "batch_over_model", (8, 1024)),
 }
 REF_CASES = [case(name, **kw) for name, (kw, _, _) in CASES.items()]
+# the cases whose CL-SIA chain carries a tie's swap down to later clients
+# (step 0's row 0 swaps two coordinates tied to 4e-7; the one the
+# reference sent then displaces one coordinate in each of rows 1-2)
+CASCADE = {"moe fsdp_compute"}
 BY_NAME = {c["name"]: c for c in REF_CASES}
 
 
@@ -147,9 +161,10 @@ def reference(tmp_path_factory):
 def test_fsdp_compute_changes_the_form_as_the_reference_does(reference):
     """``fsdp_compute`` moves a dense arch from the tensor-parallel form to
     batch over model; a batch that does not divide M keeps the
-    tensor-parallel form; an MoE refuses it (its aux loss couples the
-    client's tokens). (It comes first so that the reference subprocesses
-    run beside the fake steps below.)"""
+    tensor-parallel form; an MoE splits its batch only where each
+    sub-batch holds whole routing groups (1024 tokens), and a client of
+    32 tokens keeps the tensor-parallel form. (It comes first so that the
+    reference subprocesses run beside the fake steps below.)"""
     c = BY_NAME["dense fsdp_compute"]
     mesh = _mesh(c)
     toks = torch.zeros((8, 16), dtype=torch.int64)
@@ -162,8 +177,15 @@ def test_fsdp_compute_changes_the_form_as_the_reference_does(reference):
     assert build_train_step(_cfg(c), _tc(c), one).phase1_form(
         {"tokens": toks}) == "whole"
     moe = BY_NAME["moe"]
-    with pytest.raises(ValueError, match="load-balancing"):
-        build_train_step(_cfg(moe), _tc(moe, fsdp=True), mesh)
+    moe_step = build_train_step(_cfg(moe), _tc(moe, fsdp=True), mesh)
+    assert moe_step.phase1_form(
+        {"tokens": torch.zeros((8, 1024), dtype=torch.int64)}
+    ) == "batch_over_model"
+    # 4 clients of 2 × 16 = 32 tokens: one routing group a client
+    assert moe_step.phase1_form({"tokens": toks}) == "tensor_parallel"
+    assert moe_step.phase1_form(
+        {"tokens": torch.zeros((8, 512), dtype=torch.int64)}
+    ) == "tensor_parallel"
 
 
 # name → (arch, config fields, mesh, batch, the form the split takes)
@@ -181,6 +203,10 @@ COLUMN_CASES = {
                            "tensor_parallel"),
     "hybrid": ("zamba2-1.2b", {}, (2, 2), (4, 16), "batch_over_model"),
     "hybrid M=3": ("zamba2-1.2b", {}, (1, 3), (3, 16), "batch_over_model"),
+    # fsdp_compute: sub-batches of 1024 tokens, one aux from the client's
+    # fractions (2, 2 client rows over M = 2)
+    "moe fsdp_compute": ("mixtral-8x7b", {}, (2, 2), (4, 1024),
+                         "batch_over_model", dict(fsdp_compute=True)),
 }
 
 
@@ -200,10 +226,11 @@ def _client_batch(cfg, shape, seed):
 
 @pytest.mark.parametrize("name", list(COLUMN_CASES))
 def test_split_columns_equal_the_whole_model_columns(name):
-    arch, over, shape, bshape, form = COLUMN_CASES[name]
+    arch, over, shape, bshape, form, *tc_over = COLUMN_CASES[name]
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               param_dtype="float32", **over)
-    tc = TrainConfig(agg_dtype="float32", ef_dtype="float32")
+    tc = TrainConfig(agg_dtype="float32", ef_dtype="float32",
+                     **(tc_over[0] if tc_over else {}))
     mesh = make_mesh(shape, ("data", "model"), ["cpu"] * math.prod(shape))
     step = build_train_step(cfg, tc, mesh)
     state = init_state(cfg, tc, mesh, torch.Generator().manual_seed(0))
@@ -339,7 +366,8 @@ def test_split_step_equals_the_reference(reference, name):
                                    rtol=LOSS_RTOL, err_msg=f"{name} {s}")
         got = port_leaves(st)
         want = {k: out[f"{name}/{s}/state/{k}"] for k in got}
-        assert_same_support(got[".ef"], want[".ef"], f"{name} step {s}")
+        assert_same_support(got[".ef"], want[".ef"], f"{name} step {s}",
+                            cascade=name in CASCADE)
         old = {k: out[prev + k] for k in got}
         assert_step_close(f"{name} step {s}", old, got, want, STEP_RTOL,
                           loose_coordinates(step, old, got, want),
