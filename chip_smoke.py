@@ -29,20 +29,34 @@ Phases (any failure exits non-zero and prints no result):
    cohort-shared [B, d] form (``gmask_cohorts=B``) at the large shape with
    B = 2 and 8 and at the paper's batched round (8 cohorts × 28 lanes,
    d = 7850), held and timed the same way (the bound counts B·d mask
-   bytes);
+   bytes). Then the resident forms (``cl_fuse_select_level``,
+   ``tau_search_fused_level``: one block per lane, the lane in shared
+   memory) at W = 1 and 28, d = 7850, and at the largest resident d, over
+   every operand form (γ_in on/off, the pinned ‖e′‖² on/off, the four
+   global-mask forms) and ``ref.resident_edge_lanes``' edge lanes (ties
+   straddling the q-th value, NaN and ±inf, zeros, p = 0, valid = 0) for
+   q ≤ 0 … q > d, bit for bit against their plain versions on the CPU (a
+   NaN equal to any NaN); a CL-SIA level of d + 1 must take the
+   multi-block kernels; each timed beside its plain version, the chain it
+   replaces on the same inputs and its bound;
 3. main path, exact Top-Q — the paper simulator (K = 28, d = 7850,
    ``kernel_mode="auto"``) on the card, after one warm-up round of each
    algorithm, for 20 rounds of each algorithm on the chain and of each
    fused algorithm on a star tree, with launch counts read around those
-   runs; the loss must fall, CL-SIA's bits must equal the §V closed form
-   every round on both topologies, and a short run must agree with the
-   same run on the CPU; then torch.profiler reads the device-busy share of
-   a few rounds;
+   runs, each run's launches held to the prediction (exact CL-SIA and
+   CL-TC-SIA one ``cl_fuse_select_level`` a level, the others
+   ``sparsify_ef_level`` and ``chain_accum_level``); the loss must fall, CL-SIA's bits
+   must equal the §V closed form every round on both topologies, and a
+   short run must agree with the same run on the CPU; one exact CL-SIA
+   and CL-TC-SIA level's device ops (torch.profiler) must hold no sort
+   and one resident launch; then torch.profiler reads the device-busy
+   share of a few rounds;
 4. main path, threshold Top-Q — the same simulator with
    ``topq_impl="threshold"`` for each fused algorithm on the chain and the
    star, under ``tau_impl="scan"`` (3 rounds of 64 candidates) and
    ``"hist"`` (2 rounds), 20 rounds each after a warm-up, with launch
-   counts read around the runs and held to the prediction; hist must equal
+   counts read around the runs and held to the prediction (the scan one
+   ``tau_search_fused_level`` a level at d = 7850); hist must equal
    the scan at 2 rounds bit for bit (bits and loss per round), 3 rounds on
    the card fed the CPU run's gradients must give the CPU run's τ, count
    integers, model and bits bit for bit (loss to rtol 1e-4), the loss must
@@ -340,6 +354,21 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def per_level(d: int, budgets: bool = False, **cfg_kw) -> dict:
+    """Level-kernel launches of one fused level step whose lanes hold d
+    elements, under the ``AggConfig`` of ``cfg_kw``, as
+    ``tests/_torch_launches.py`` states them (the resident forms for d up
+    to 49,152), apart from the port's dispatch code."""
+    from _torch_launches import level_launches
+    from repro_torch.core.algorithms import AggConfig
+
+    return level_launches(AggConfig(**cfg_kw), d, budgets=budgets)
+
+
+def scaled(launches: dict, n: int) -> dict:
+    return {name: c * n for name, c in launches.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -397,6 +426,10 @@ def call(fns, name: str, t: dict, opt: dict):
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.cpu(), b.cpu()
+    # equal bits differ by 0; the widened difference of 67 M elements
+    # takes seconds on the host, the bit compare a few milliseconds
+    if bitwise_equal(a, b):
+        return 0.0
     wide = torch.float64 if a.is_floating_point() else torch.int64
     return float((a.to(wide) - b.to(wide)).abs().max())
 
@@ -787,9 +820,12 @@ def main_path(level, data) -> dict:
     log(f"[main] warm-up, one round of each algorithm: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS]
     level.reset_launch_counts()
     torch.cuda.synchronize()
+    path = set()
     for kind, topo_name, topo in runs:
+        before = [fn.launches for fn in level.KERNELS]
         t0 = time.perf_counter()
         out = sims[kind].run(ROUNDS, seed=SEED, topology=topo,
                              test_x=test.x, test_y=test.y,
@@ -797,19 +833,32 @@ def main_path(level, data) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         results[(kind, topo_name)] = out
+        grown = {n: fn.launches - b for n, fn, b in
+                 zip(names, level.KERNELS, before) if fn.launches - b}
+        # the chain is k levels of one lane, the star one level of k; at
+        # d = 7850 exact CL Top-Q is the resident select alone
+        levels = ROUNDS * (k if topo is None else 1)
+        want = ({} if kind == AggKind.DENSE_IA else
+                {"cl_fuse_select_level": levels}
+                if kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA) else
+                {"sparsify_ef_level": levels, "chain_accum_level": levels})
+        if grown != want:
+            raise SystemExit(f"FAIL {kind.value} {topo_name}: launches "
+                             f"{grown}, predicted {want}")
+        path |= set(want)
         log(f"[main] {kind.value:9s} {topo_name:5s}: loss "
             f"{out['loss'][0]:.4f} -> {out['loss'][-1]:.4f}, acc "
             f"{out['accuracy'][-1][1]:.3f}, bits/round "
             f"{out['bits'][-1]:.0f}, {1e3 * wall / ROUNDS:.2f} ms/round "
-            f"(host clock, synchronized)")
-    launches = {fn.__name__.replace("_cuda", ""): fn.launches
-                for fn in level.KERNELS[:3]}
+            f"(host clock, synchronized); launches {grown} (predicted)")
+    launches = {n: fn.launches for n, fn in zip(names, level.KERNELS)}
     log(f"[main] kernel launches over the main-path runs: {launches}")
 
-    for name, n in launches.items():
-        if n <= 0:
+    for name in path:
+        if launches[name] <= 0:
             raise SystemExit(f"FAIL {name} was never launched on the "
                              f"main path")
+    exact_level_ops(pc, kw)
     for (kind, topo_name), out in results.items():
         if not all(math.isfinite(v) for v in out["loss"]):
             raise SystemExit(f"FAIL {kind.value} {topo_name}: loss not "
@@ -855,6 +904,51 @@ def main_path(level, data) -> dict:
         for topo_name, topo in (("chain", None), ("star", star_tree(k))):
             profile_rounds(sims[kind], f"{kind.value} {topo_name}", topo)
     return launches
+
+
+def level_device_ops(fn) -> tuple:
+    """(device ops, device ms, names of the ops) of one call of ``fn``,
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total", 0) or
+               getattr(e, "self_cuda_time_total", 0) for e in events) / 1e3
+    return sum(e.count for e in events), busy, [e.key for e in events]
+
+
+def exact_level_ops(pc, kw):
+    """One exact CL-SIA and CL-TC-SIA level of the chain (W = 1, d = pc.d)
+    on the card: one resident launch, no sort and no count kernel among
+    its device ops."""
+    from repro_torch.core.algorithms import AggConfig, AggKind, level_step
+
+    rng = np.random.default_rng(SEED)
+    x = {n: torch.from_numpy(rng.standard_normal((1, pc.d),
+                                                 dtype=np.float32)).cuda()
+         for n in ("g", "gin", "e")}
+    gm = torch.zeros((pc.d,), device="cuda")
+    gm[:pc.q_global] = 1.0
+    one = torch.ones((1,), device="cuda")
+    for kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
+        step = level_step(AggConfig(kind=kind, **kw))
+        ops, busy, keys = level_device_ops(
+            lambda: step(x["g"], x["gin"], x["e"], one, one, gm))
+        bad = [n for n in keys if "sort" in n.lower()
+               or "count_rank" in n or "cl_fuse_level" in n]
+        if bad or not any("cl_fuse_select" in n for n in keys):
+            raise SystemExit(f"FAIL {kind.value} exact level: device ops "
+                             f"{keys}")
+        log(f"[main] {kind.value} exact level (W = 1, d = {pc.d}): {ops} "
+            f"device ops, {busy:.4f} ms busy; no sort, one "
+            f"cl_fuse_select_level")
 
 
 # ---------------------------------------------------------------------------
@@ -950,7 +1044,8 @@ def threshold_path(level, data) -> dict:
     log(f"[threshold] warm-up, one round of each: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    names = {"scan": "count_ge_fused_level", "hist": "hist_topq_level"}
+    # at d = 7850 the scan is one resident search a level
+    names = {"scan": "tau_search_fused_level", "hist": "hist_topq_level"}
     level.reset_launch_counts()
     torch.cuda.synchronize()
     results = {}
@@ -967,22 +1062,23 @@ def threshold_path(level, data) -> dict:
                 wall = time.perf_counter() - t0
                 results[(kind, impl, topo_name)] = out
                 grown = {n.replace("_cuda", ""): f.launches - before[n]
-                         for n, f in ((f.__name__, f) for f in level.KERNELS)}
-                per_round = THRESHOLD[impl]["hist_rounds"] if impl == "scan" \
-                    else 1
-                want = ROUNDS * per_round * levels
-                other = names["hist" if impl == "scan" else "scan"]
-                if grown[names[impl]] != want or grown[other] != 0:
+                         for n, f in ((f.__name__, f) for f in level.KERNELS)
+                         if f.launches - before[n]}
+                n = ROUNDS * levels
+                want = ({"cl_fuse_level": n}
+                        if kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA) else
+                        {"sparsify_ef_level": n, "chain_accum_level": n})
+                want[names[impl]] = n
+                if grown != want:
                     raise SystemExit(
                         f"FAIL {kind.value} {impl} {topo_name}: launches "
-                        f"{grown}, predicted {names[impl]} = {want}")
+                        f"{grown}, predicted {want}")
                 log(f"[threshold] {kind.value:9s} {impl} {topo_name:5s}: "
                     f"loss {out['loss'][0]:.4f} -> {out['loss'][-1]:.4f}, "
                     f"acc {out['accuracy'][-1][1]:.3f}, bits/round "
                     f"{np.mean(out['bits']):.0f}, "
                     f"{1e3 * wall / ROUNDS:.2f} ms/round; "
-                    f"{names[impl]} launches {grown[names[impl]]} "
-                    f"(predicted {want})")
+                    f"launches {grown} (predicted)")
     launches = {name: getattr(level, name + "_cuda").launches
                 for name in names.values()}
     log(f"[threshold] τ-search launches over the threshold runs: "
@@ -1163,6 +1259,228 @@ def check_cohort_kernels(level, ref, sp, report: dict):
         del cpu, gpu, tables_gpu
         torch.cuda.empty_cache()
     inputs.clear()
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (continued): the resident forms (one block per lane)
+# ---------------------------------------------------------------------------
+
+RESIDENT_KERNELS = ("cl_fuse_select_level", "tau_search_fused_level")
+# the paper's largest resident level last: it is the kernels line's shape
+RESIDENT_SHAPES = [(1, 7850), (28, 7850)]
+RESIDENT_GM = ((None, 0), ("shared", 0), ("lanes", 0), ("cohort", 4))
+RESIDENT_Q, RESIDENT_ROUNDS = 78, THRESHOLD["scan"]["hist_rounds"]
+
+
+def resident_cases(name: str, d: int) -> list:
+    """(q, rounds) of each check: q ≤ 0, the paper's q, q = d and q > d
+    (the search also at one round)."""
+    if name == "cl_fuse_select_level":
+        return [(q, RESIDENT_ROUNDS) for q in (0, RESIDENT_Q, d, d + 3)]
+    return [(0, 3), (RESIDENT_Q, 3), (RESIDENT_Q, 1), (d + 3, 3)]
+
+
+def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """:func:`bitwise_equal`, a NaN equal to any NaN (the card's
+    arithmetic writes its own NaN payloads)."""
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.dtype != torch.float32 or a.shape != b.shape or b.dtype != a.dtype:
+        return bitwise_equal(a, b)
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bitwise_equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def call_resident(fns, name: str, t: dict, cohorts: int, q: int,
+                  rounds: int = RESIDENT_ROUNDS, gamma: bool = True,
+                  with_err: bool = False):
+    """A resident kernel ``name`` (CUDA wrapper or plain version) on the
+    lanes ``t`` (``ref.resident_edge_lanes`` and ``gm``)."""
+    operand = (t["g"], t["e"], t["gin"], t["w"], t["p"])
+    if name == "cl_fuse_select_level":
+        return fns[name](*operand, t["valid"], t["gm"], q=q,
+                         gmask_cohorts=cohorts, with_err=with_err)
+    return fns[name](*operand, t["gm"], q=q, branch=BRANCH, rounds=rounds,
+                     include_gamma=gamma, gmask_cohorts=cohorts)
+
+
+def old_chain(level, ref, sp, name: str, t: dict, cohorts: int):
+    """What the resident kernel replaces, as a longer lane runs it on the
+    card: the exact support by the operand's sort, then ``cl_fuse_level``;
+    or ``threshold_for_topq`` counting with ``count_ge_fused_level`` a
+    round."""
+    operand = (t["g"], t["e"], t["gin"], t["w"], t["p"])
+
+    def x():
+        return ref.fused_operand(*operand, t["gm"], include_gamma=True,
+                                 gmask_cohorts=cohorts)
+
+    if name == "cl_fuse_select_level":
+        inf = torch.full_like(t["w"], math.inf)
+        return level.cl_fuse_level_cuda(
+            t["g"], t["e"], t["gin"], t["w"], inf, t["p"], t["valid"],
+            t["gm"], sp.topq_mask(x(), RESIDENT_Q), gmask_cohorts=cohorts)
+    op = sp.TauOperand(
+        count=lambda taus: level.count_ge_fused_level_cuda(
+            *operand, taus, t["gm"], include_gamma=True,
+            gmask_cohorts=cohorts),
+        max_abs=lambda: sp._max_abs(x().abs()), batched=True)
+    return sp.threshold_for_topq(None, RESIDENT_Q, branch=BRANCH,
+                                 rounds=RESIDENT_ROUNDS, operand_fn=op)
+
+
+def resident_cost(name: str, w: int, d: int, mask_rows: int) -> tuple:
+    """(bytes, f32 operations) a resident kernel must spend: each input
+    read once, each output written once; per element the operand (2 fma,
+    1 − m, ·, |·|), then for the select its key, 4 radix digits (mask,
+    compare, shift, add), the tie test and the fuse (the keep test, a
+    select, a subtraction, an fma, 2 counts), for the search per round the
+    binary search over the candidates and the rank's add."""
+    m = mask_rows * d
+    # the select reads g, e, γ_in, gm, w, p, valid and writes γ, e′
+    if name == "cl_fuse_select_level":
+        nbytes = (5 * w * d + m) * 4 + 3 * w * 4 + 2 * w * 4
+        return nbytes, w * d * (6 + 1 + 4 * 4 + 1 + 6)
+    search = math.ceil(math.log2(BRANCH + 1))
+    nbytes = ((3 * w * d + m + 2 * w) * 4
+              + (w + RESIDENT_ROUNDS * w * BRANCH) * 4)
+    return nbytes, w * d * (6 + RESIDENT_ROUNDS * (search + 1))
+
+
+def check_resident_kernels(level, ref, sp) -> dict:
+    """The resident kernels against their plain versions on the CPU, bit
+    for bit (a NaN = any NaN): every operand form (γ_in on and off for the
+    search, the pinned ‖e′‖² on and off for the select, the four global
+    mask forms), the edge lanes of ``ref.resident_edge_lanes`` (ties
+    straddling the q-th value, NaN and ±inf, zeros, p = 0, valid = 0),
+    q ≤ 0 … q > d, at the paper's shapes and the largest resident d; a
+    level of d + 1 takes the multi-block kernels. Then each timed beside
+    its plain version, the chain it replaces on the same inputs and its
+    bound."""
+    from _torch_launches import RESIDENT_D, level_launches
+    from repro_torch.core.algorithms import AggConfig, level_step
+
+    cuda_fns = {n: getattr(level, n + "_cuda") for n in RESIDENT_KERNELS}
+    plain_fns = {n: getattr(ref, "ref_" + n) for n in RESIDENT_KERNELS}
+    report = {n: dict(max_abs_err=0.0, max_abs_err_plain_on_card=0.0,
+                      checked=0, shapes=[]) for n in RESIDENT_KERNELS}
+    limits = level.resident_limits()
+    if limits != (level.RESIDENT_MAX_D, level.RESIDENT_MAX_BRANCH) or \
+            level.RESIDENT_MAX_D != RESIDENT_D:
+        raise SystemExit(f"FAIL the resident kernels were built for "
+                         f"{limits}, the dispatch rule says d <= "
+                         f"{level.RESIDENT_MAX_D}, branch <= "
+                         f"{level.RESIDENT_MAX_BRANCH}, the launch gates "
+                         f"d <= {RESIDENT_D}")
+    dev = torch.device("cuda")
+    top = level.RESIDENT_MAX_D
+    # (W, d, mask form, cohorts, kernel, with_err or γ_in)
+    checks = [(w, d, form, b, name, flag)
+              for w, d in RESIDENT_SHAPES for form, b in RESIDENT_GM
+              if not b or w % b == 0
+              for name in RESIDENT_KERNELS for flag in (False, True)]
+    checks += [(28, top, form, b, name, True) for form, b in
+               ((None, 0), ("lanes", 0)) for name in RESIDENT_KERNELS]
+    t0 = time.perf_counter()
+    inputs = {}
+    for w, d, form, b, name, flag in checks:
+        key = (w, d, form)
+        if key not in inputs:
+            inputs.clear()
+            cpu = ref.resident_edge_lanes(w, d, SEED + w + d)
+            cpu["gm"] = ref.resident_gmask(form, w, d, SEED + d, b)
+            inputs[key] = (cpu, {k: None if v is None else v.to(dev)
+                                 for k, v in cpu.items()})
+        cpu, gpu = inputs[key]
+        cases = resident_cases(name, d)
+        for q, rounds in cases[1:2] if d == top else cases:
+            kw = (dict(q=q, with_err=flag) if name == "cl_fuse_select_level"
+                  else dict(q=q, rounds=rounds, gamma=flag))
+            got = call_resident(cuda_fns, name, gpu, b, **kw)
+            torch.cuda.synchronize()
+            want = call_resident(plain_fns, name, cpu, b, **kw)
+            on_card = call_resident(plain_fns, name, gpu, b, **kw)
+            r = report[name]
+            for u, v, c in zip(want, got, on_card):
+                finite = torch.isfinite(u) if u.is_floating_point() else None
+                diff = (max_abs_diff(u[finite], v.cpu()[finite])
+                        if finite is not None else max_abs_diff(u, v))
+                r["max_abs_err"] = max(r["max_abs_err"], diff)
+                if not same_nan(u, v):
+                    raise SystemExit(
+                        f"FAIL {name} {kw} gmask {form} at W={w} d={d}: "
+                        f"kernel differs from its plain version on the CPU")
+                if same_nan(c, v):
+                    continue
+                r["max_abs_err_plain_on_card"] = max(
+                    r["max_abs_err_plain_on_card"],
+                    max_abs_diff(c[torch.isfinite(c)],
+                                 v[torch.isfinite(c)])
+                    if c.is_floating_point() else max_abs_diff(c, v))
+            r["checked"] += 1
+    inputs.clear()
+    torch.cuda.empty_cache()
+    log(f"[kernels] resident kernels at {RESIDENT_SHAPES} and W=28 d={top}: "
+        f"every operand form and edge lane equal to the plain CPU versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the dispatch rule's boundary: d + 1 takes the multi-block chain
+    for d in (top, top + 1):
+        cpu = ref.resident_edge_lanes(3, d, SEED)
+        gpu = {k: v.to(dev) for k, v in cpu.items()}
+        for impl in ("exact", "threshold"):
+            cfg = AggConfig(kind="cl_sia", q=RESIDENT_Q, topq_impl=impl,
+                            hist_branch=BRANCH, err_sq_mode="kernel")
+            args = lambda t: (t["g"], t["gin"], t["e"], t["w"], t["p"],  # noqa
+                              torch.zeros((d,), device=t["g"].device), None,
+                              t["valid"])
+            before = {f.__name__: f.launches for f in level.KERNELS}
+            got = level_step(cfg)(*args(gpu))
+            torch.cuda.synchronize()
+            grown = {n.replace("_cuda", ""): f.launches - before[n]
+                     for n, f in ((f.__name__, f) for f in level.KERNELS)
+                     if f.launches - before[n]}
+            resident = bool(set(grown) & set(RESIDENT_KERNELS))
+            if grown != level_launches(cfg, d) or resident != (d <= top):
+                raise SystemExit(f"FAIL the dispatch at d={d} ({impl}): "
+                                 f"launches {grown}")
+            want = level_step(cfg)(*args(cpu))
+            if not all(same_nan(u, v) for u, v in zip(
+                    want[:2] + tuple(want[2]), got[:2] + tuple(got[2]))):
+                raise SystemExit(f"FAIL the CL-SIA level at d={d} ({impl}) "
+                                 f"differs from the CPU")
+        log(f"[kernels] dispatch at d={d}: {sorted(grown)} ({impl}); the "
+            f"level equals the CPU's")
+        del cpu, gpu
+
+    # timing: the paper's level (edge lanes live), the old chain beside it
+    for w, d in RESIDENT_SHAPES:
+        cpu = ref.resident_edge_lanes(w, d, SEED + 7)
+        cpu["gm"] = None
+        gpu = {k: None if v is None else v.to(dev) for k, v in cpu.items()}
+        for name in RESIDENT_KERNELS:
+            kw = dict(q=RESIDENT_Q)
+            ms = cuda_time_ms(lambda: call_resident(cuda_fns, name, gpu, 0,
+                                                    **kw), 200)
+            plain_ms = cuda_time_ms(lambda: call_resident(
+                plain_fns, name, gpu, 0, **kw), 50)
+            chain_ms = cuda_time_ms(lambda: old_chain(level, ref, sp, name,
+                                                      gpu, 0), 50)
+            nbytes, ops_n = resident_cost(name, w, d, 0)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops_n / F32_OPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            report[name]["shapes"].append(dict(
+                W=w, d=d, ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_share=bound_ms / ms))
+            log(f"[time] {name} W={w} d={d}: kernel {ms:.4f} ms, the chain "
+                f"it replaces {chain_ms:.4f} ms, plain on card "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+                f"({100 * bound_ms / ms:.2f}% of bound)")
+        del cpu, gpu
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -1596,24 +1914,22 @@ def tree_path(level, data) -> dict:
     torch.cuda.synchronize()
     log(f"[tree] warm-up: {time.perf_counter() - t0:.1f} s")
 
-    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS[:3]]
+    names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS]
     level.reset_launch_counts()
     torch.cuda.synchronize()
     results, per_round = {}, {}
     for label, kind, _, rkw, plan_of in runs:
-        before = [fn.launches for fn in level.KERNELS[:3]]
+        before = [fn.launches for fn in level.KERNELS]
         t0 = time.perf_counter()
         out = sims[label].run(ROUNDS, seed=SEED, test_x=test.x,
                               test_y=test.y, eval_every=ROUNDS, **rkw)
         torch.cuda.synchronize()
         per_round[label] = 1e3 * (time.perf_counter() - t0) / ROUNDS
         grown = {n: fn.launches - b for n, fn, b in
-                 zip(names, level.KERNELS[:3], before)}
+                 zip(names, level.KERNELS, before) if fn.launches - b}
         levels = sum(plan_of(r).shape[0] for r in range(ROUNDS))
-        fused = kind == AggKind.CL_SIA
-        want = {"cl_fuse_level": levels if fused else 0,
-                "sparsify_ef_level": 0 if fused else levels,
-                "chain_accum_level": 0 if fused else levels}
+        want = scaled(per_level(pc.d, "budgets" in label, kind=kind, **kw),
+                      levels)
         if grown != want:
             raise SystemExit(f"FAIL {label}: level-kernel launches {grown}, "
                              f"predicted {want} (one per level)")
@@ -1624,7 +1940,7 @@ def tree_path(level, data) -> dict:
             f"{per_round[label]:.2f} ms/round (host clock, synchronized); "
             f"level-kernel launches {grown} = "
             f"{levels / ROUNDS:.1f} per round (predicted)")
-    launches = {n: fn.launches for n, fn in zip(names, level.KERNELS[:3])}
+    launches = {n: fn.launches for n, fn in zip(names, level.KERNELS)}
     t0 = time.perf_counter()
     chain_out = chain.run(ROUNDS, seed=SEED)
     torch.cuda.synchronize()
@@ -1710,26 +2026,23 @@ def batched_runs(pc, k):
     chain, star = compile_plan(k), compile_plan(star_tree(k))
     topo = TreeTopology(walker_delta(**WALKER), "widest")
     fails = FailureSchedule(k, FAILURES)
-    tc = dict(sparsify_ef_level=1, chain_accum_level=1)
     tc_exact = dict(kind=AggKind.TC_SIA, **exact)
     cl_tc = dict(kind=AggKind.CL_TC_SIA, **exact)
+    scan = dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["scan"])
+    hist = dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["hist"])
+    rule = lambda kw: per_level(pc.d, **kw)  # noqa: E731
     return [
-        ("tc_sia chain", tc_exact, {}, {}, lambda r: chain, tc),
+        ("tc_sia chain", tc_exact, {}, {}, lambda r: chain, rule(tc_exact)),
         ("tc_sia star", tc_exact, {}, dict(topology=star_tree(k)),
-         lambda r: star, tc),
-        ("cl_tc_sia chain", cl_tc, {}, {}, lambda r: chain,
-         dict(cl_fuse_level=1)),
+         lambda r: star, rule(tc_exact)),
+        ("cl_tc_sia chain", cl_tc, {}, {}, lambda r: chain, rule(cl_tc)),
         ("cl_tc_sia star", cl_tc, {}, dict(topology=star_tree(k)),
-         lambda r: star, dict(cl_fuse_level=1)),
+         lambda r: star, rule(cl_tc)),
         ("cl_tc_sia walker", cl_tc, dict(tree_topology=topo),
          dict(failure_schedule=fails),
-         lambda r: topo.plan(dead=tuple(fails.dead_at(r))),
-         dict(cl_fuse_level=1)),
-        ("tc_sia scan", dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["scan"]),
-         {}, {}, lambda r: chain,
-         dict(tc, count_ge_fused_level=THRESHOLD["scan"]["hist_rounds"])),
-        ("tc_sia hist", dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["hist"]),
-         {}, {}, lambda r: chain, dict(tc, hist_topq_level=1)),
+         lambda r: topo.plan(dead=tuple(fails.dead_at(r))), rule(cl_tc)),
+        ("tc_sia scan", scan, {}, {}, lambda r: chain, rule(scan)),
+        ("tc_sia hist", hist, {}, {}, lambda r: chain, rule(hist)),
     ]
 
 
@@ -1872,8 +2185,7 @@ def batched_path(level, data) -> dict:
             f"{levels / BATCHED_ROUNDS:.1f} levels per round")
     launches = {n: fn.launches for n, fn in zip(names, level.KERNELS)}
     log(f"[batched] launches over the batched runs: {launches}")
-    for name in ("cl_fuse_level", "sparsify_ef_level", "chain_accum_level",
-                 "count_ge_fused_level", "hist_topq_level"):
+    for name in {n for r in runs for n in r[5]}:
         if launches[name] <= 0:
             raise SystemExit(f"FAIL {name} was never launched on the "
                              f"batched path")
@@ -2016,22 +2328,22 @@ def nested_runs(pc, k):
     pods = pod_ring_nested(4, 7)
     walker = compile_nested(cluster_routed(walker_delta(**WALKER), 4),
                             num_clients=k)
-    tc = dict(sparsify_ef_level=1, chain_accum_level=1)
-    return [
+    runs = [
         ("cl_sia pods", dict(kind=AggKind.CL_SIA, **exact), pods,
-         NESTED_ROUNDS, dict(cl_fuse_level=1)),
+         NESTED_ROUNDS),
         ("cl_tc_sia walker", dict(kind=AggKind.CL_TC_SIA, **exact), walker,
-         NESTED_ROUNDS, dict(cl_fuse_level=1)),
+         NESTED_ROUNDS),
         ("sia walker", dict(kind=AggKind.SIA, **exact), walker,
-         NESTED_ROUNDS, tc),
+         NESTED_ROUNDS),
         ("tc_sia scan walker",
          dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["scan"]), walker,
-         NESTED_SHORT,
-         dict(tc, count_ge_fused_level=THRESHOLD["scan"]["hist_rounds"])),
+         NESTED_SHORT),
         ("tc_sia hist walker",
          dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["hist"]), walker,
-         NESTED_SHORT, dict(tc, hist_topq_level=1)),
+         NESTED_SHORT),
     ]
+    # every stage of the host nested executor runs lanes of the whole d
+    return [r + (per_level(pc.d, **r[1]),) for r in runs]
 
 
 def stage_bits_ok(kind, plan_meta, stage_bits, pc) -> tuple:
@@ -2136,6 +2448,7 @@ def scenario_run(pc, fed, spec, path: Path, **sim_kw):
 
 
 def nested_path(level, ref, sp, data) -> dict:
+    from _torch_launches import level_launches
     from repro_torch.core.algorithms import AggConfig
     from repro_torch.fed import Simulator
     from repro_torch.fed.topology import TreeTopology
@@ -2219,9 +2532,10 @@ def nested_path(level, ref, sp, data) -> dict:
              zip(names, level.KERNELS, before)}
     levels = sum(st.shape[0] for r in range(spec.rounds)
                  for st in compiled.schedule.plan_at(r).stages)
-    if grown != {n: levels if n == "cl_fuse_level" else 0 for n in names}:
+    want = level_launches(sim.agg, pc.d, levels)
+    if {n: c for n, c in grown.items() if c} != want:
         raise SystemExit(f"FAIL nested scenario: launches {grown}, "
-                         f"predicted {levels} cl_fuse_level")
+                         f"predicted {want}")
     launches = {n: fn.launches for n, fn in zip(names, level.KERNELS)}
     res = validate_trace(str(trace))
     meta, rounds, _ = load_trace(str(trace))
@@ -2256,7 +2570,7 @@ def nested_path(level, ref, sp, data) -> dict:
         f"{check['worst_abs_gap_bits']}), {check['matches']} with full "
         f"participation; 1 input signature; the replay from the trace "
         f"gives the same bits, nnz, loss and participation in every round; "
-        f"launches {levels} cl_fuse_level (Σ_r Σ_s L_s)")
+        f"launches {want} (Σ_r Σ_s L_s levels)")
 
     for label in ("cl_sia pods", "sia walker", "tc_sia scan walker"):
         cfg, plan = next((c, p) for lb, c, p, _, _ in runs if lb == label)
@@ -2514,25 +2828,23 @@ def device_runs(pc, k):
     topo = TreeTopology(walker_delta(**WALKER), "widest")
     fails = FailureSchedule(k, FAILURES)
     pods = pod_ring_nested(4, 7)
-    tc = dict(sparsify_ef_level=1, chain_accum_level=1)
-    return [
+    runs = [
         ("cl_sia chain", dict(kind=AggKind.CL_SIA, **exact), {}, {},
-         DEVICE_ROUNDS, lambda r: chain, dict(cl_fuse_level=1)),
+         DEVICE_ROUNDS, lambda r: chain),
         ("cl_tc_sia walker", dict(kind=AggKind.CL_TC_SIA, **exact),
          dict(tree_topology=topo), dict(failure_schedule=fails),
-         DEVICE_ROUNDS, lambda r: topo.plan(dead=tuple(fails.dead_at(r))),
-         dict(cl_fuse_level=1)),
+         DEVICE_ROUNDS, lambda r: topo.plan(dead=tuple(fails.dead_at(r)))),
         ("tc_sia scan chain",
          dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["scan"]), {}, {},
-         DEVICE_SHORT, lambda r: chain,
-         dict(tc, count_ge_fused_level=THRESHOLD["scan"]["hist_rounds"])),
+         DEVICE_SHORT, lambda r: chain),
         ("tc_sia hist chain",
          dict(kind=AggKind.TC_SIA, **thr, **THRESHOLD["hist"]), {}, {},
-         DEVICE_SHORT, lambda r: chain, dict(tc, hist_topq_level=1)),
+         DEVICE_SHORT, lambda r: chain),
         ("cl_sia pods", dict(kind=AggKind.CL_SIA, **exact),
-         dict(nested_topology=pods), {}, DEVICE_ROUNDS, lambda r: pods,
-         dict(cl_fuse_level=1)),
+         dict(nested_topology=pods), {}, DEVICE_ROUNDS, lambda r: pods),
     ]
+    # a rank step is one W = 1 level step of the whole d
+    return [r + (per_level(pc.d, **r[1]),) for r in runs]
 
 
 def real_slots(plan) -> int:
@@ -2585,8 +2897,9 @@ def device_path(level, data) -> dict:
     names = [fn.__name__.replace("_cuda", "") for fn in level.KERNELS]
     lb_b = "cl_tc_sia walker"
     rkw_b, plan_b = next((r[3], r[5]) for r in runs if r[0] == lb_b)
-    predicted["run_batched " + lb_b] = {"cl_fuse_level": sum(
-        real_slots(plan_b(r)) for r in range(DEVICE_ROUNDS))}
+    cfg_b = next(r[1] for r in runs if r[0] == lb_b)
+    predicted["run_batched " + lb_b] = scaled(per_level(pc.d, **cfg_b), sum(
+        real_slots(plan_b(r)) for r in range(DEVICE_ROUNDS)))
     level.reset_launch_counts()
     torch.cuda.synchronize()
     dev_out = {}
@@ -2832,23 +3145,13 @@ def segment_cases(k, q):
     return cases
 
 
-def segment_launches(cfg, plan) -> dict:
+def segment_launches(cfg, plan, width: int) -> dict:
     """Level-kernel launches of one segments round: one level step per
-    level for all ranks' lanes."""
-    from repro_torch.core.algorithms import AggKind
+    level for all ranks' lanes of ``width`` elements."""
+    from _torch_launches import level_launches
 
-    levels = plan.shape[0]
-    if cfg.kind == AggKind.DENSE_IA:
-        return {}
-    if cfg.kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
-        out = {"cl_fuse_level": levels}
-    else:
-        out = {"sparsify_ef_level": levels, "chain_accum_level": levels}
-    if cfg.topq_impl == "threshold" and cfg.tau_impl == "hist":
-        out["hist_topq_level"] = levels
-    elif cfg.topq_impl == "threshold":
-        out["count_ge_fused_level"] = levels * cfg.hist_rounds
-    return out
+    return level_launches(cfg, width, plan.shape[0],
+                          budgets=getattr(plan, "q_budget", None) is not None)
 
 
 def pairwise_sum(v):
@@ -3001,10 +3304,10 @@ def check_segments(level, pc, mesh, cpu_mesh, mixed) -> dict:
         got = run_segments(cfg, plan, mesh, x, "cuda")
         torch.cuda.synchronize()
         grown = grown_since(level, before)
-        if grown != segment_launches(cfg, plan):
+        if grown != segment_launches(cfg, plan, n // k):
             raise SystemExit(f"FAIL segments {label}: level-kernel launches "
                              f"{grown}, predicted "
-                             f"{segment_launches(cfg, plan)}")
+                             f"{segment_launches(cfg, plan, n // k)}")
         for n_, v in grown.items():
             launches[n_] = launches.get(n_, 0) + v
         host, direct = host_segments(cfg, plan, x, "cuda")
@@ -3076,10 +3379,10 @@ def check_segments_batched(level, pc, mesh) -> dict:
                 participate=list(stack(3)))
             torch.cuda.synchronize()
             grown = grown_since(level, before)
-            if grown != segment_launches(cfg, plan):
+            if grown != segment_launches(cfg, plan, n // k):
                 raise SystemExit(f"FAIL segments batched {kind} {name}: "
                                  f"launches {grown}, predicted "
-                                 f"{segment_launches(cfg, plan)}")
+                                 f"{segment_launches(cfg, plan, n // k)}")
             for n_, v in grown.items():
                 launches[n_] = launches.get(n_, 0) + v
             for b in range(SEG_BATCH):
@@ -3201,9 +3504,11 @@ def check_nested_segments(level, pc, mesh, cpu_mesh) -> dict:
                 grown = grown_since(level, before)
                 want = {}
                 for s, cfg_s in enumerate((cfg, cfg)):
+                    width = n // int(np.prod(sizes[:s + 1]))
                     for n_, v in segment_launches(
                             cfg_s, nested.stages[s]
-                            if s else nested.clustered[0].subplan(0)).items():
+                            if s else nested.clustered[0].subplan(0),
+                            width).items():
                         want[n_] = want.get(n_, 0) + v
                 if grown != want:
                     raise SystemExit(f"FAIL segments nested {label} {kind}: "
@@ -3733,19 +4038,10 @@ def train_launches(step) -> dict:
     model column (all tenants at once), one level step per level (Σ over
     stages for a nested plan), τ rounds per level under threshold Top-Q,
     and the TCS τ_G scan's ``count_ge`` rounds on each column's shard."""
-    from repro_torch.core.algorithms import AggKind
+    import _torch_launches
 
     cfg = step.agg_cfg
-    levels = (sum(s.shape[0] for s in step.nested.stages)
-              if step.nested is not None else step.plan.shape[0]) * step.m
-    if cfg.kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
-        out = {"cl_fuse_level": levels}
-    else:
-        out = {"sparsify_ef_level": levels, "chain_accum_level": levels}
-    if cfg.topq_impl == "threshold" and cfg.tau_impl == "hist":
-        out["hist_topq_level"] = levels
-    elif cfg.topq_impl == "threshold":
-        out["count_ge_fused_level"] = levels * cfg.hist_rounds
+    out = _torch_launches.train_launches(step)
     if step.needs_tcs and cfg.tau_impl == "scan":
         out["count_ge"] = step.m * cfg.hist_rounds * step.cohorts
     return out
@@ -5538,7 +5834,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    # the launch gates' predictions, kept apart from the port's dispatch
+    sys.path.append(str(root / "tests"))
     from repro_torch.core import sparsify as sp
     from repro_torch.kernels import (chain_accum, level, ops, ref,
                                      sparsify_ef, topq_threshold)
@@ -5568,6 +5867,7 @@ def main() -> int:
     report = check_kernels(level, ref)
     report.update(check_tau_kernels(level, ref, sp))
     check_cohort_kernels(level, ref, sp, report)
+    report.update(check_resident_kernels(level, ref, sp))
     report.update(check_scalar_kernels(scalar, ref))
     data = paper_data()
     launches = main_path(level, data)
@@ -5601,6 +5901,8 @@ def main() -> int:
               "count_ge_fused_level": "tau_search.cu",
               "hist_topq_level": "tau_search.cu",
               "count_ge_level": "tau_search.cu",
+              "cl_fuse_select_level": "resident.cu",
+              "tau_search_fused_level": "resident.cu",
               "chain_accum": "chain_accum.cu", "cl_fuse": "chain_accum.cu",
               "sparsify_ef": "sparsify_ef.cu",
               "count_ge": "topq_threshold.cu",
@@ -5611,6 +5913,8 @@ def main() -> int:
                 "count_ge_fused_level": "src/repro/kernels/level.py:561",
                 "hist_topq_level": "src/repro/kernels/level.py:684",
                 "count_ge_level": "src/repro/kernels/level.py:481",
+                "cl_fuse_select_level": "src/repro/kernels/level.py:395",
+                "tau_search_fused_level": "src/repro/kernels/level.py:561",
                 "chain_accum": "src/repro/kernels/chain_accum.py:74",
                 "cl_fuse": "src/repro/kernels/chain_accum.py:102",
                 "sparsify_ef": "src/repro/kernels/sparsify_ef.py:70",

@@ -13,8 +13,10 @@ per-lane scalars. Two execution forms share them: the scalar
 batched :func:`level_step` (all W slots of a padded schedule level — the
 plan executor). When the fused path is on (:func:`fused_node_steps`) a
 level runs through the level kernels of :mod:`repro_torch.kernels.ops`:
-``cl_fuse_level`` for CL-SIA and CL-TC-SIA, ``sparsify_ef_level`` then
-``chain_accum_level`` for SIA, RE-SIA and TC-SIA.
+``cl_fuse_level`` for CL-SIA and CL-TC-SIA (``cl_fuse_select_level``, the
+exact Top-Q support and the fuse in one launch, on resident lanes),
+``sparsify_ef_level`` then ``chain_accum_level`` for SIA, RE-SIA and
+TC-SIA.
 
 Every ``a*b + c`` that XLA contracts to a fused multiply-add in the jitted
 reference is a :func:`torch.addcmul` here, so both packages round alike.
@@ -243,11 +245,13 @@ def _tau_operand(cfg: AggConfig, g, e, gam, w, p, gm=None, cohorts=0, *,
     """The level's sparsifier operand as a :class:`~repro_torch.core.
     sparsify.TauOperand` over the raw node inputs.
 
-    The threshold τ search counts through ``count_ge_fused_level`` (or one
-    ``hist_topq_level`` pass under ``tau_impl="hist"``), which rebuild the
-    operand per element and never store it. ``materialize()`` (the exact
-    and dynamic-budget sparsifiers, which sort it) and ``max_abs()`` use
-    the same float expression (:func:`repro_torch.kernels.ref.
+    The threshold τ search runs in one ``tau_search_fused_level`` launch
+    where the lanes are resident (:func:`repro_torch.kernels.ops.
+    resident_level`), else counts through ``count_ge_fused_level`` once a
+    round (or one ``hist_topq_level`` pass under ``tau_impl="hist"``);
+    each rebuilds the operand from the raw inputs. ``materialize()`` (the
+    exact and dynamic-budget sparsifiers, which sort it) and ``max_abs()``
+    use the same float expression (:func:`repro_torch.kernels.ref.
     fused_operand`), so every path selects what the kernels' τ test would.
     A cohort-shared ``[B, d]`` mask (``cohorts=B``) goes to the kernels as
     it is.
@@ -269,9 +273,16 @@ def _tau_operand(cfg: AggConfig, g, e, gam, w, p, gm=None, cohorts=0, *,
                                     include_gamma=include_gamma,
                                     gmask_cohorts=cohorts, mode=mode)
 
+    def search(q, branch, rounds):
+        return kops.tau_search_fused_level(
+            g, e, gam, w, p, gm, q=q, branch=branch, rounds=rounds,
+            include_gamma=include_gamma, gmask_cohorts=cohorts, mode=mode)
+
+    resident = kops.resident_level(g.shape[-1], cfg.hist_branch)
     return sp.TauOperand(count=count,
                          max_abs=lambda: sp._max_abs(materialize().abs()),
-                         batched=True, hist=hist, materialize=materialize)
+                         batched=True, hist=hist, materialize=materialize,
+                         search=search if resident else None)
 
 
 def _lane_sparsifier_state(cfg: AggConfig, operand: sp.TauOperand, q: int,
@@ -297,6 +308,13 @@ def _lane_sparsifier_state(cfg: AggConfig, operand: sp.TauOperand, q: int,
         return None, torch.where(p > 0, tau, _lane_inf(w, p.device))
     mask = sp.topq_mask(operand.materialize(), q)
     return mask * _col(p), _lane_inf(w, p.device)
+
+
+def _resident_exact(cfg: AggConfig, d: int, budgets: bool) -> bool:
+    """Exact Top-Q with a static q on resident lanes: the CL support and
+    the CL fuse in one ``cl_fuse_select_level`` launch."""
+    return (not budgets and cfg.topq_impl == "exact"
+            and kops.resident_level(d))
 
 
 def _stats_no_gmask(cfg, d, nnz, e_new, err=None) -> HopStats:
@@ -379,25 +397,35 @@ def _fused_level_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
 
 
 def _fused_level_cl_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
-    op = _tau_operand(cfg, g, e, gam, w, p, include_gamma=True)
-    mask, tau = _lane_sparsifier_state(cfg, op, cfg.q, torch.ones_like(p),
-                                       qb)
     we = cfg.err_sq_mode == "kernel"
-    out = kops.cl_fuse_level(g, e, gam, w, tau, p, valid, mask_in=mask,
-                             with_err=we, mode=cfg.kernel_mode)
+    if _resident_exact(cfg, g.shape[-1], qb is not None):
+        out = kops.cl_fuse_select_level(g, e, gam, w, p, valid, q=cfg.q,
+                                        with_err=we, mode=cfg.kernel_mode)
+    else:
+        op = _tau_operand(cfg, g, e, gam, w, p, include_gamma=True)
+        mask, tau = _lane_sparsifier_state(cfg, op, cfg.q,
+                                           torch.ones_like(p), qb)
+        out = kops.cl_fuse_level(g, e, gam, w, tau, p, valid, mask_in=mask,
+                                 with_err=we, mode=cfg.kernel_mode)
     gout, e_new, nnz = out[0], out[1], out[2]
     return gout, e_new, _stats_no_gmask(cfg, g.shape[-1], nnz, e_new,
                                         out[4] if we else None)
 
 
 def _fused_level_cl_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
-    op = _tau_operand(cfg, g, e, gam, w, p, gm, cohorts, include_gamma=True)
-    mask, tau = _lane_sparsifier_state(cfg, op, cfg.q_local,
-                                       torch.ones_like(p), qb)
     we = cfg.err_sq_mode == "kernel"
-    out = kops.cl_fuse_level(g, e, gam, w, tau, p, valid, gmask=gm,
-                             mask_in=mask, gmask_cohorts=cohorts,
-                             with_err=we, mode=cfg.kernel_mode)
+    if _resident_exact(cfg, g.shape[-1], qb is not None):
+        out = kops.cl_fuse_select_level(g, e, gam, w, p, valid, gm,
+                                        q=cfg.q_local, gmask_cohorts=cohorts,
+                                        with_err=we, mode=cfg.kernel_mode)
+    else:
+        op = _tau_operand(cfg, g, e, gam, w, p, gm, cohorts,
+                          include_gamma=True)
+        mask, tau = _lane_sparsifier_state(cfg, op, cfg.q_local,
+                                           torch.ones_like(p), qb)
+        out = kops.cl_fuse_level(g, e, gam, w, tau, p, valid, gmask=gm,
+                                 mask_in=mask, gmask_cohorts=cohorts,
+                                 with_err=we, mode=cfg.kernel_mode)
     gout, e_new, nnz, nnz_off = out[:4]
     return gout, e_new, _stats_gmask(cfg, g.shape[-1], gm, nnz, nnz_off,
                                      e_new, cohorts, out[4] if we else None)

@@ -216,7 +216,11 @@ class TauOperand(NamedTuple):
     * ``batched`` → whether the operand carries a [W] lane axis;
     * ``hist(tables)`` → the joint digit histogram ``(D2, F)`` of
       ``tau_impl="hist"`` (see :func:`_hist_digits`); None disables it;
-    * ``materialize()`` → the dense operand.
+    * ``materialize()`` → the dense operand;
+    * ``search(q, branch, rounds)`` → ``(τ, counts [rounds, .., branch])``
+      of the whole ``tau_impl="scan"`` search at once, with the scan's
+      integers and τ (one launch where the level's lanes are resident);
+      None runs the rounds here through ``count``.
     """
 
     count: Callable[[Tensor], Tensor]
@@ -224,6 +228,7 @@ class TauOperand(NamedTuple):
     batched: bool
     hist: Optional[Callable] = None
     materialize: Optional[Callable[[], Tensor]] = None
+    search: Optional[Callable] = None
 
 
 def _max_abs(mag: Tensor) -> Tensor:
@@ -428,6 +433,7 @@ def threshold_for_topq(x, q: int, *, branch: int = 64, rounds: int = 3,
     into one joint digit histogram with the scan's integers and τ.
     ``with_counts=True`` also returns the per-round counts, stacked
     ``[rounds, .., branch]``.
+    An ``operand_fn`` with a ``search`` runs the whole scan through it.
 
     ``x`` may also be a sequence of per-rank shards (the reference's
     ``axis_name`` search over a mesh, here on one controller): ``q`` is the
@@ -446,6 +452,10 @@ def threshold_for_topq(x, q: int, *, branch: int = 64, rounds: int = 3,
     sharded = isinstance(x, (list, tuple))
     if sharded and operand_fn is None:
         operand_fn = _sharded_operand(x, count_fn)
+    if (tau_impl == "scan" and operand_fn is not None
+            and operand_fn.search is not None):
+        tau, counts = operand_fn.search(q, branch, rounds)
+        return (tau, counts) if with_counts else tau
     kth = None
     if (tau_impl == "scan" and operand_fn is None and count_fn is None
             and not with_counts):

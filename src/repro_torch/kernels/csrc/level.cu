@@ -63,34 +63,6 @@ __device__ __forceinline__ void zero_tile(const TileGeom& t, float* a,
   }
 }
 
-// Pinned ||e'||^2 of one tile whose e' values sit in s[kTile] (zeros past
-// the tile's length): lanes fold 1024 -> 1 (first level fma(a, a, b*b),
-// a from the lower half), then sublanes 8 -> 1.
-__device__ float pinned_tile_err(float* s) {
-  __syncthreads();
-  for (int k = threadIdx.x; k < kSublanes * (kLanes / 2); k += blockDim.x) {
-    int r = k / (kLanes / 2), i = k % (kLanes / 2);
-    float a = s[r * kLanes + i], b = s[r * kLanes + i + kLanes / 2];
-    s[r * kLanes + i] = __fmaf_rn(a, a, __fmul_rn(b, b));
-  }
-  __syncthreads();
-  for (int n = kLanes / 4; n >= 1; n >>= 1) {
-    for (int k = threadIdx.x; k < kSublanes * n; k += blockDim.x) {
-      int r = k / n, i = k % n;
-      s[r * kLanes + i] = __fadd_rn(s[r * kLanes + i], s[r * kLanes + i + n]);
-    }
-    __syncthreads();
-  }
-  for (int m = kSublanes / 2; m >= 1; m >>= 1) {
-    if (threadIdx.x < m) {
-      int r = threadIdx.x;
-      s[r * kLanes] = __fadd_rn(s[r * kLanes], s[(r + m) * kLanes]);
-    }
-    __syncthreads();
-  }
-  return s[0];
-}
-
 // --------------------------------------------------------------------------
 // cl_fuse_level
 // --------------------------------------------------------------------------

@@ -10,6 +10,15 @@ The kernels live in ``csrc/`` and replace the Pallas TPU kernels of
 * :func:`chain_accum_level_cuda` ← ``chain_accum_level_pallas`` — the IA
   combine with its support counts.
 
+``csrc/resident.cu`` (one block per lane, the lane's operand in shared
+memory; levels of d ≤ :data:`RESIDENT_MAX_D`, the rule of
+:func:`repro_torch.kernels.ops.resident_level`):
+
+* :func:`cl_fuse_select_level_cuda` ← ``cl_fuse_level_pallas`` with the
+  exact Top-Q support in front of it — the whole exact CL node step;
+* :func:`tau_search_fused_level_cuda` ← ``count_ge_fused_level_pallas``
+  once per round — the whole threshold τ search of a level.
+
 ``csrc/tau_search.cu`` (the threshold Top-Q τ search):
 
 * :func:`count_ge_fused_level_cuda` ← ``count_ge_fused_level_pallas`` —
@@ -19,8 +28,9 @@ The kernels live in ``csrc/`` and replace the Pallas TPU kernels of
 * :func:`hist_topq_level_cuda` ← ``hist_topq_level_pallas`` — the joint
   digit histogram of ``tau_impl="hist"``.
 
-Each is bounded by device-memory bytes at large d (see the sources'
-headers). Their plain PyTorch versions are in
+Each multi-block kernel is bounded by device-memory bytes at large d (see
+the sources' headers); the resident ones replace launches and host work
+at small d. Their plain PyTorch versions are in
 :mod:`repro_torch.kernels.ref`; the dispatching entries in
 :mod:`repro_torch.kernels.ops` pick one or the other by the device of the
 tensors they are given.
@@ -53,13 +63,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import sparsify as sp
 from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "level.cu", CSRC / "tau_search.cu", CSRC / "chain_accum.cu",
-           CSRC / "sparsify_ef.cu", CSRC / "topq_threshold.cu")
+SOURCES = (CSRC / "level.cu", CSRC / "tau_search.cu", CSRC / "resident.cu",
+           CSRC / "chain_accum.cu", CSRC / "sparsify_ef.cu",
+           CSRC / "topq_threshold.cu")
 HEADERS = (CSRC / "tile.cuh", CSRC / "rank.cuh", CSRC / "row.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -145,6 +157,13 @@ def _load() -> ctypes.CDLL:
             [p] * 5 + gm + [p] * 6 + [i, i, ll, p])
         lib.hist_shared_max_branch.argtypes = []
         f = ctypes.c_float
+        lib.tau_search_fused_level_launch.argtypes = (
+            [p] * 6 + [i] * 4 + [f] * 3 + [p, p, i, ll, p])
+        lib.cl_fuse_select_level_launch.argtypes = (
+            [p] * 7 + [i, i] + [p] * 5 + tail)
+        lib.resident_max_d.argtypes = []
+        lib.resident_max_d.restype = ll
+        lib.resident_max_branch.argtypes = []
         scalars = [p, f, p, f]                 # (pointer or null, value) × 2
         lib.chain_accum_launch.argtypes = [p, p, i, p, p, ll, p]
         lib.cl_fuse_launch.argtypes = [p] * 3 + scalars + [i, p, p, p, ll, p]
@@ -159,6 +178,8 @@ def _load() -> ctypes.CDLL:
                    lib.count_ge_level_launch,
                    lib.count_ge_fused_level_launch,
                    lib.hist_topq_level_launch, lib.hist_shared_max_branch,
+                   lib.tau_search_fused_level_launch,
+                   lib.cl_fuse_select_level_launch, lib.resident_max_branch,
                    lib.chain_accum_launch, lib.cl_fuse_launch,
                    lib.sparsify_ef_launch, lib.count_scratch_words,
                    lib.count_ge_launch, lib.count_ge_fused_launch):
@@ -457,6 +478,107 @@ def hist_topq_level_cuda(g, e, gamma_in, weight, participate, tables,
     return d2, f
 
 
+# ---------------------------------------------------------------------------
+# resident forms: one block per lane, the lane's operand in shared memory
+# ---------------------------------------------------------------------------
+
+#: Largest d the resident kernels take: the lane's 4-byte keys (rounded up
+#: to whole 8 × 1024 tiles under ``with_err``) in one block's shared memory.
+RESIDENT_MAX_D = 49152
+#: Largest branch of the resident τ search: one candidate per thread.
+RESIDENT_MAX_BRANCH = 1024
+_INT32 = (-2 ** 31, 2 ** 31 - 1)
+
+
+def _resident(d: int, branch: int = 1):
+    if not (1 <= d <= RESIDENT_MAX_D and 1 <= branch <= RESIDENT_MAX_BRANCH):
+        raise ValueError(f"the resident kernels take d <= {RESIDENT_MAX_D} "
+                         f"and branch <= {RESIDENT_MAX_BRANCH}; got d = {d}, "
+                         f"branch = {branch}")
+
+
+def _budget(q) -> int:
+    """A Top-Q budget as a C int: its comparisons with counts in 0..d are
+    unchanged by the clamp."""
+    return min(max(int(q), _INT32[0]), _INT32[1])
+
+
+def tau_search_fused_level_cuda(g, e, gamma_in, weight, participate,
+                                gmask=None, *, q: int, branch: int,
+                                rounds: int, include_gamma: bool = False,
+                                gmask_cohorts: int = 0):
+    """CUDA :func:`repro_torch.kernels.ref.ref_tau_search_fused_level`:
+    the whole threshold τ search of a level in one launch.
+
+    Operand arguments as :func:`count_ge_fused_level_cuda`; d ≤
+    :data:`RESIDENT_MAX_D`, branch ≤ :data:`RESIDENT_MAX_BRANCH`.
+    → ``(τ [W] float32, counts [rounds, W, branch] int32)``.
+    """
+    w_lanes, d, dev, ins, lpc = _fused_operand_args(
+        g, e, gamma_in, weight, participate, gmask, include_gamma,
+        gmask_cohorts)
+    _resident(d, branch)
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    lib = _load()
+    tau = torch.empty((w_lanes,), dtype=torch.float32, device=dev)
+    counts = torch.empty((rounds, w_lanes, branch), dtype=torch.int32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.tau_search_fused_level_launch(
+            *map(_ptr, ins), lpc, _budget(q), branch, rounds, sp._HI_SCALE,
+            sp._inv(branch), sp._hi_per_branch(branch), _ptr(tau),
+            _ptr(counts), w_lanes, d, _stream(dev))
+    _raise_on(rc, "tau_search_fused_level")
+    tau_search_fused_level_cuda.launches += 1
+    return tau, counts
+
+
+def cl_fuse_select_level_cuda(g, e, gamma_in, weight, participate, valid,
+                              gmask=None, *, q: int, gmask_cohorts: int = 0,
+                              with_err: bool = False):
+    """CUDA :func:`repro_torch.kernels.ref.ref_cl_fuse_select_level`: the
+    exact Top-Q support of the CL operand and the CL fuse in one launch.
+
+    g, e, gamma_in: [W, d] with d ≤ :data:`RESIDENT_MAX_D`; weight,
+    participate, valid: [W]; gmask as :func:`cl_fuse_level_cuda`; all
+    float32. → (γ_out, e′, nnz, nnz_off) (+ pinned ‖e′‖² with
+    ``with_err``).
+    """
+    w_lanes, d, dev = _lanes(g)
+    _resident(d)
+    lib = _load()
+    rows, lane = (w_lanes, d), (w_lanes,)
+    ins = [_rows("g", g, rows, dev), _rows("e", e, rows, dev),
+           _rows("gamma_in", gamma_in, rows, dev),
+           _check("weight", weight, lane, dev),
+           _check("participate", participate, lane, dev),
+           _check("valid", valid, lane, dev)]
+    gm, lpc = _gmask(gmask, w_lanes, d, dev, gmask_cohorts)
+    gout = torch.empty(rows, dtype=torch.float32, device=dev)
+    enew = torch.empty(rows, dtype=torch.float32, device=dev)
+    nnz = torch.empty(lane, dtype=torch.int32, device=dev)
+    nnz_off = torch.empty(lane, dtype=torch.int32, device=dev)
+    err = (torch.empty(lane, dtype=torch.float32, device=dev) if with_err
+           else None)
+    with torch.cuda.device(dev):
+        rc = lib.cl_fuse_select_level_launch(
+            *map(_ptr, ins), _ptr(gm), lpc, _budget(q), _ptr(gout),
+            _ptr(enew), _ptr(nnz), _ptr(nnz_off), _ptr(err), w_lanes, d,
+            _stream(dev))
+    _raise_on(rc, "cl_fuse_select_level")
+    cl_fuse_select_level_cuda.launches += 1
+    out = (gout, enew, nnz, nnz_off)
+    return out + (err,) if with_err else out
+
+
+def resident_limits() -> tuple:
+    """(d, branch) limits compiled into the resident kernels; they must be
+    :data:`RESIDENT_MAX_D` and :data:`RESIDENT_MAX_BRANCH`."""
+    lib = _load()
+    return lib.resident_max_d(), lib.resident_max_branch()
+
+
 def hist_shared_max_branch() -> int:
     """Largest branch whose histogram the kernel keeps in shared memory;
     a larger one takes the global-atomics variant."""
@@ -514,7 +636,8 @@ def counted(fn):
 
 KERNELS = tuple(map(counted, (
     cl_fuse_level_cuda, sparsify_ef_level_cuda, chain_accum_level_cuda,
-    count_ge_fused_level_cuda, hist_topq_level_cuda, count_ge_level_cuda)))
+    count_ge_fused_level_cuda, hist_topq_level_cuda, count_ge_level_cuda,
+    cl_fuse_select_level_cuda, tau_search_fused_level_cuda)))
 
 
 def reset_launch_counts():

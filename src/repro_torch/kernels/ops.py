@@ -15,6 +15,12 @@ Four modes, as in :mod:`repro.kernels.ops`:
 
 The choice follows the device of the tensors a call is given; a CUDA
 tensor under ``"auto"`` or ``"always"`` launches the kernel or raises.
+
+Which form a level takes is :func:`resident_level`, a rule on its shape
+alone (the same on every device and in every mode): a lane that fits one
+block's shared memory takes the resident forms (:func:`cl_fuse_select_level`,
+:func:`tau_search_fused_level`), one launch per level; a longer one the
+multi-block kernels and the torch ops around them.
 """
 
 from __future__ import annotations
@@ -181,3 +187,60 @@ def hist_topq_level(g, e, gamma_in, weight, participate, tables, gmask=None,
                                    tables, gmask,
                                    include_gamma=include_gamma,
                                    gmask_cohorts=gmask_cohorts)
+
+
+# ---------------------------------------------------------------------------
+# resident forms: a whole level stage in one launch, for d ≤ RESIDENT_MAX_D
+# ---------------------------------------------------------------------------
+
+RESIDENT_MAX_D = level.RESIDENT_MAX_D
+RESIDENT_MAX_BRANCH = level.RESIDENT_MAX_BRANCH
+
+
+def resident_level(d: int, branch: int = 1) -> bool:
+    """The dispatch rule between the two forms of a level's node step.
+
+    A level whose lanes hold d ≤ :data:`RESIDENT_MAX_D` elements (the
+    lane's keys fit one block's shared memory; the paper's d = 7850 among
+    them) and whose τ search has ``branch`` ≤ :data:`RESIDENT_MAX_BRANCH`
+    candidates takes the resident forms: exact CL Top-Q through
+    :func:`cl_fuse_select_level`, the threshold scan through
+    :func:`tau_search_fused_level`. A longer lane takes the multi-block
+    kernels (``cl_fuse_level`` after a sort, ``count_ge_fused_level`` once
+    per round), which reach 64–77 % of their bound at large d. The rule
+    reads the shape only, so the CPU's plain versions take the same path.
+    """
+    return 1 <= d <= RESIDENT_MAX_D and 1 <= branch <= RESIDENT_MAX_BRANCH
+
+
+def tau_search_fused_level(g, e, gamma_in, weight, participate, gmask=None,
+                           *, q: int, branch: int, rounds: int,
+                           include_gamma: bool = False,
+                           gmask_cohorts: int = 0, mode: Mode = "auto"):
+    """The whole threshold τ search (scan) of a level over the fused
+    operand → ``(τ [W], counts [rounds, W, branch])``; d and branch within
+    :func:`resident_level`."""
+    if _kernel(mode, g):
+        return level.tau_search_fused_level_cuda(
+            g, e, gamma_in, weight, participate, gmask, q=q, branch=branch,
+            rounds=rounds, include_gamma=include_gamma,
+            gmask_cohorts=gmask_cohorts)
+    return ref.ref_tau_search_fused_level(
+        g, e, gamma_in, weight, participate, gmask, q=q, branch=branch,
+        rounds=rounds, include_gamma=include_gamma,
+        gmask_cohorts=gmask_cohorts)
+
+
+def cl_fuse_select_level(g, e, gamma_in, weight, participate, valid,
+                         gmask=None, *, q: int, gmask_cohorts: int = 0,
+                         with_err: bool = False, mode: Mode = "auto"):
+    """The exact CL node step of a level: exact Top-Q support of the CL
+    operand and the CL fuse (Algorithms 3/5) → (γ_out, e′, nnz, nnz_off)
+    (+ pinned ‖e′‖²); d within :func:`resident_level`."""
+    if _kernel(mode, g):
+        return level.cl_fuse_select_level_cuda(
+            g, e, gamma_in, weight, participate, valid, gmask, q=q,
+            gmask_cohorts=gmask_cohorts, with_err=with_err)
+    return ref.ref_cl_fuse_select_level(
+        g, e, gamma_in, weight, participate, valid, gmask, q=q,
+        gmask_cohorts=gmask_cohorts, with_err=with_err)

@@ -149,6 +149,16 @@ def ref_chain_accum_level(gamma_in, gbar, valid, gmask=None, *,
 def ref_cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
                       gmask=None, mask_in=None, *, gmask_cohorts: int = 0,
                       with_err: bool = False):
+    """The complete CL node step (Algorithms 3/5 with stragglers): see
+    :func:`_cl_fuse_level`."""
+    return _cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
+                          gmask, mask_in, gmask_cohorts=gmask_cohorts,
+                          with_err=with_err)
+
+
+def _cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
+                   gmask=None, mask_in=None, *, gmask_cohorts: int = 0,
+                   with_err: bool = False):
     """The complete CL node step (Algorithms 3/5 with stragglers).
 
     g̃ = w·g + e; s = p·g̃ + γ_in; Λ̃ = (1−m)·s; keep = |Λ̃| ≥ τ ∨ mask_in;
@@ -205,6 +215,27 @@ def fused_operand(g, e, gamma_in, weight, participate, gmask=None, *,
     return s
 
 
+def ref_cl_fuse_select_level(g, e, gamma_in, weight, participate, valid,
+                             gmask=None, *, q: int, gmask_cohorts: int = 0,
+                             with_err: bool = False):
+    """The exact CL node step of a level: the Top-Q support of the CL
+    operand (:func:`fused_operand` with γ_in, the stable descending sort's
+    choice, :func:`repro_torch.core.sparsify.topq_mask`), then
+    :func:`ref_cl_fuse_level` with that support as ``mask_in`` and τ =
+    +inf. → (γ_out, e′, nnz [W] i32, nnz_off [W] i32), plus the pinned
+    ‖e′‖² with ``with_err``. The chain the resident kernel replaces, bit
+    for bit; ``gmask`` takes the forms of :func:`ref_chain_accum_level`.
+    """
+    op = fused_operand(g, e, gamma_in, weight, participate, gmask,
+                       include_gamma=True, gmask_cohorts=gmask_cohorts)
+    mask = sp.topq_mask(op, q)
+    tau = torch.full((g.shape[0],), math.inf, dtype=torch.float32,
+                     device=g.device)
+    return _cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
+                          gmask, mask, gmask_cohorts=gmask_cohorts,
+                          with_err=with_err)
+
+
 # ---------------------------------------------------------------------------
 # τ search: candidate counts and the joint digit histogram
 # ---------------------------------------------------------------------------
@@ -241,6 +272,22 @@ def ref_count_ge_fused_level(g, e, gamma_in, weight, participate, taus,
                        include_gamma=include_gamma,
                        gmask_cohorts=gmask_cohorts)
     return _count_ge_rows(op.abs(), taus.to(torch.float32))
+
+
+def ref_tau_search_fused_level(g, e, gamma_in, weight, participate,
+                               gmask=None, *, q: int, branch: int,
+                               rounds: int, include_gamma: bool = False,
+                               gmask_cohorts: int = 0):
+    """The whole threshold τ search of a level: ``threshold_for_topq``
+    (scan) over :func:`fused_operand`, counting with the plain counts of
+    :func:`ref_count_ge_fused_level`. → ``(τ [W] f32, counts [rounds, W,
+    branch] i32)``, what the search over the count kernel returns.
+    """
+    op = fused_operand(g, e, gamma_in, weight, participate, gmask,
+                       include_gamma=include_gamma,
+                       gmask_cohorts=gmask_cohorts)
+    return sp.threshold_for_topq(op, q, branch=branch, rounds=rounds,
+                                 count_fn=_count_ge_rows, with_counts=True)
 
 
 def ref_hist_topq_level(g, e, gamma_in, weight, participate, tables,
@@ -360,6 +407,51 @@ def special_magnitudes(n: int, seed: int = 0) -> Tensor:
                          -2.0, 1e30], dtype=torch.float32)
     rng = np.random.default_rng(seed)
     return vals[torch.from_numpy(rng.integers(0, vals.numel(), n))]
+
+
+def resident_edge_lanes(w: int, d: int, seed: int = 0, q: int = 11) -> dict:
+    """Float32 inputs of a ``[W, d]`` level (CPU tensors ``g, e, gin, w, p,
+    valid``) for the resident kernels; with W ≥ 7 the first lanes are the
+    edge rows: 0 ties straddling the q-th magnitude, 1 p = 0, 2 a few NaN
+    and ±inf, 3 all zeros, 4 valid = 0, 5 more ±inf and NaN than q, 6
+    fewer nonzeros than q (ties at zero straddling the q-th place, −0.0
+    among them)."""
+    rng = np.random.default_rng(seed)
+    f = lambda: rng.standard_normal((w, d)).astype(np.float32)  # noqa
+    x = dict(g=f(), e=(0.3 * f()).astype(np.float32),
+             gin=(f() * (rng.random((w, d)) < 0.3)).astype(np.float32),
+             w=rng.uniform(0.2, 2.0, w).astype(np.float32),
+             p=np.ones(w, np.float32), valid=np.ones(w, np.float32))
+    if w >= 7:
+        for lane in (0, 2, 3, 5, 6):
+            x["e"][lane] = 0.0
+            x["gin"][lane] = 0.0
+            x["w"][lane] = 1.0
+        x["g"][0] = rng.choice(np.float32([-2, -1, -0.5, 0.5, 1, 2]), d)
+        x["p"][1] = 0.0
+        pos = rng.choice(d, 6, replace=False)
+        x["g"][2, pos] = [np.nan, np.inf, -np.inf, np.nan, np.inf, -np.inf]
+        x["g"][3] = 0.0
+        x["valid"][4] = 0.0
+        pos = rng.choice(d, q + 5, replace=False)
+        x["g"][5, pos[:q + 2]] = np.where(rng.random(q + 2) < 0.5,
+                                          np.inf, -np.inf)
+        x["g"][5, pos[q + 2:]] = np.nan
+        x["g"][6] = 0.0
+        x["g"][6, :q // 2] = -3.0
+        x["g"][6, q // 2:q // 2 + 3] = -0.0
+    return {k: torch.from_numpy(v) for k, v in x.items()}
+
+
+def resident_gmask(form: Optional[str], w: int, d: int, seed: int = 0,
+                   cohorts: int = 0) -> Optional[Tensor]:
+    """A 0/1 float32 global mask of a resident test level: None,
+    ``"shared"`` [d], ``"lanes"`` [W, d] or ``"cohort"`` [cohorts, d]."""
+    if form is None:
+        return None
+    rng = np.random.default_rng(seed + 100)
+    shape = {"shared": (d,), "lanes": (w, d), "cohort": (cohorts, d)}[form]
+    return torch.from_numpy((rng.random(shape) < 0.1).astype(np.float32))
 
 
 def count_level_edge_taus(n: int, seed: int = 0) -> Tensor:

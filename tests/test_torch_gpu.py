@@ -43,6 +43,8 @@ from repro_torch.core import sparsify as sp
 from repro_torch.kernels import (chain_accum, level, ops, ref, sparsify_ef,
                                  topq_threshold)
 
+from _torch_launches import level_launches, train_launches
+
 pytestmark = pytest.mark.gpu
 
 SHAPES = [(1, 7850), (3, 2 * 8192 + 77), (5, 3), (2, 8192)]
@@ -349,7 +351,187 @@ def test_tau_search_ops_launch_on_cuda(cuda):
         ops.count_ge_level(args[0], tables[0], mode=mode)
     ops.hist_topq_level(*args, tables, mode="ref")
     grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
-    assert grown == [0, 0, 0, 2, 2, 2]
+    assert grown == [0, 0, 0, 2, 2, 2, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# the resident forms: one block per lane, the lane's operand in shared memory
+# ---------------------------------------------------------------------------
+
+RESIDENT_D = (281, 7850, level.RESIDENT_MAX_D)
+RESIDENT_GM = [(None, 0), ("shared", 0), ("lanes", 0), ("cohort", 4)]
+
+
+def _same_nan(a, b):
+    """Bit for bit, a NaN equal to any NaN (the card's arithmetic makes
+    its own NaN payloads)."""
+    a, b = a.cpu(), b.cpu()
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.dtype == torch.float32:
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b))
+        a, b = (torch.where(nan, 0, t.view(torch.int32)) for t in (a, b))
+    assert torch.equal(a, b)
+
+
+def _resident(w, d, form, cohorts, cuda, seed):
+    x = ref.resident_edge_lanes(w, d, seed)
+    x["gm"] = ref.resident_gmask(form, w, d, seed, cohorts)
+    return x, {k: None if v is None else v.to(cuda) for k, v in x.items()}
+
+
+@pytest.mark.parametrize("d", RESIDENT_D)
+@pytest.mark.parametrize("form,cohorts", RESIDENT_GM)
+@pytest.mark.parametrize("include_gamma", [False, True])
+def test_tau_search_fused_level_kernel(cuda, d, form, cohorts,
+                                       include_gamma):
+    """τ and every round's counts = the plain search on the CPU, on the
+    edge lanes (ties, NaN and ±inf, zeros, p = 0), for q ≤ 0 … q > d, one
+    and three rounds, 64 candidates and the largest resident branch."""
+    cpu, gpu = _resident(28, d, form, cohorts, cuda, seed=d)
+    for q, rounds, branch in [(0, 3, 64), (11, 3, 64), (78, 1, 64),
+                              (d, 3, 64), (d + 3, 3, 64),
+                              (78, 2, level.RESIDENT_MAX_BRANCH)]:
+        kw = dict(q=q, branch=branch, rounds=rounds,
+                  include_gamma=include_gamma, gmask_cohorts=cohorts)
+        pick = lambda t: (t["g"], t["e"], t["gin"], t["w"], t["p"],  # noqa
+                          t["gm"])
+        want = ref.ref_tau_search_fused_level(*pick(cpu), **kw)
+        got = level.tau_search_fused_level_cuda(*pick(gpu), **kw)
+        torch.cuda.synchronize()
+        _same_nan(want[0], got[0])
+        _same(want[1], got[1])
+
+
+@pytest.mark.parametrize("d", RESIDENT_D)
+@pytest.mark.parametrize("form,cohorts", RESIDENT_GM)
+@pytest.mark.parametrize("with_err", [False, True])
+def test_cl_fuse_select_level_kernel(cuda, d, form, cohorts, with_err):
+    """γ_out, e′, nnz, nnz_off (and the pinned ‖e′‖²) = the plain
+    exact CL step on the CPU, on the edge lanes, for q ≤ 0 … q > d."""
+    cpu, gpu = _resident(28, d, form, cohorts, cuda, seed=d + 1)
+    pick = lambda t: (t["g"], t["e"], t["gin"], t["w"], t["p"],  # noqa
+                      t["valid"], t["gm"])
+    for q in (0, 1, 11, 78, d - 1, d, d + 3):
+        kw = dict(q=q, gmask_cohorts=cohorts, with_err=with_err)
+        want = ref.ref_cl_fuse_select_level(*pick(cpu), **kw)
+        got = level.cl_fuse_select_level_cuda(*pick(gpu), **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == 4 + with_err
+        for a, b in zip(want, got):
+            _same_nan(a, b)
+
+
+@pytest.mark.parametrize("w", [1, 3])
+def test_resident_kernels_on_few_lanes(cuda, w):
+    """W = 1 and 3 lanes at the paper's d, a lane-shared mask."""
+    d = 7850
+    cpu, gpu = _resident(w, d, "shared", 0, cuda, seed=w)
+    op = lambda t: (t["g"], t["e"], t["gin"], t["w"], t["p"])  # noqa
+    for q in (0, 78, d):
+        want = ref.ref_cl_fuse_select_level(*op(cpu), cpu["valid"],
+                                            cpu["gm"], q=q, with_err=True)
+        got = level.cl_fuse_select_level_cuda(*op(gpu), gpu["valid"],
+                                              gpu["gm"], q=q, with_err=True)
+        for a, b in zip(want, got):
+            _same_nan(a, b)
+        want = ref.ref_tau_search_fused_level(*op(cpu), cpu["gm"], q=q,
+                                              branch=64, rounds=3,
+                                              include_gamma=True)
+        got = level.tau_search_fused_level_cuda(*op(gpu), gpu["gm"], q=q,
+                                                branch=64, rounds=3,
+                                                include_gamma=True)
+        _same_nan(want[0], got[0])
+        _same(want[1], got[1])
+
+
+@pytest.mark.parametrize("impl", ["exact", "threshold"])
+def test_resident_dispatch_on_the_card(cuda, impl):
+    """A CL-SIA level step on the card at the largest resident d launches
+    the resident kernel once; at d + 1 the multi-block chain
+    (``cl_fuse_level``, ``count_ge_fused_level`` once a round). Both equal
+    the step on the CPU."""
+    from repro_torch.core.algorithms import AggConfig, level_step
+    cfg = AggConfig(kind="cl_sia", q=78, topq_impl=impl, hist_branch=64,
+                    err_sq_mode="kernel")
+    for d in (level.RESIDENT_MAX_D, level.RESIDENT_MAX_D + 1):
+        cpu, gpu = _resident(3, d, None, 0, cuda, seed=d)
+        pick = lambda t: (t["g"], t["gin"], t["e"], t["w"], t["p"],  # noqa
+                          torch.zeros((d,), device=t["g"].device), None,
+                          t["valid"])
+        before = {fn.__name__: fn.launches for fn in level.KERNELS}
+        got = level_step(cfg)(*pick(gpu))
+        torch.cuda.synchronize()
+        grown = {n.replace("_cuda", ""): fn.launches - before[n]
+                 for n, fn in ((f.__name__, f) for f in level.KERNELS)
+                 if fn.launches - before[n]}
+        if d <= level.RESIDENT_MAX_D:
+            want = ({"cl_fuse_select_level": 1} if impl == "exact" else
+                    {"cl_fuse_level": 1, "tau_search_fused_level": 1})
+        else:
+            want = ({"cl_fuse_level": 1} if impl == "exact" else
+                    {"cl_fuse_level": 1, "count_ge_fused_level": 3})
+        assert grown == want == level_launches(cfg, d), (d, grown)
+        want = level_step(cfg)(*pick(cpu))
+        for a, b in zip(want[:2] + tuple(want[2]), got[:2] + tuple(got[2])):
+            _same_nan(a, b)
+
+
+def test_resident_kernels_on_two_cards(cuda):
+    """The largest resident lanes, whose shared memory is above the 48 KB a
+    block gets by default, on ``cuda:0`` and then on ``cuda:1``: each card
+    raises the kernels' limit in its own context, and both cards equal the
+    plain versions on the CPU."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d = level.RESIDENT_MAX_D
+    cpu, _ = _resident(3, d, "lanes", 0, cuda, seed=7)
+    op = lambda t: (t["g"], t["e"], t["gin"], t["w"], t["p"])  # noqa
+    for dev in ("cuda:0", "cuda:1"):
+        gpu = {k: None if v is None else v.to(dev) for k, v in cpu.items()}
+        for with_err in (False, True):
+            want = ref.ref_cl_fuse_select_level(*op(cpu), cpu["valid"],
+                                                cpu["gm"], q=78,
+                                                with_err=with_err)
+            got = level.cl_fuse_select_level_cuda(*op(gpu), gpu["valid"],
+                                                  gpu["gm"], q=78,
+                                                  with_err=with_err)
+            for a, b in zip(want, got):
+                assert b.device == torch.device(dev)
+                _same_nan(a, b)
+        want = ref.ref_tau_search_fused_level(*op(cpu), cpu["gm"], q=78,
+                                              branch=64, rounds=3,
+                                              include_gamma=True)
+        got = level.tau_search_fused_level_cuda(*op(gpu), gpu["gm"], q=78,
+                                                branch=64, rounds=3,
+                                                include_gamma=True)
+        _same_nan(want[0], got[0])
+        _same(want[1], got[1])
+
+
+def test_resident_ops_launch_on_cuda(cuda):
+    """The ``ops`` entries launch the resident kernels under ``"auto"``
+    and ``"always"``, refuse a lane past the rule, and the compiled
+    limits are the wrapper's."""
+    assert level.resident_limits() == (level.RESIDENT_MAX_D,
+                                       level.RESIDENT_MAX_BRANCH)
+    _, gpu = _resident(3, 1000, "shared", 0, cuda, seed=3)
+    op = (gpu["g"], gpu["e"], gpu["gin"], gpu["w"], gpu["p"])
+    n0 = [k.launches for k in level.KERNELS]
+    for mode in ("auto", "always"):
+        ops.cl_fuse_select_level(*op, gpu["valid"], gpu["gm"], q=10,
+                                 mode=mode)
+        ops.tau_search_fused_level(*op, gpu["gm"], q=10, branch=64,
+                                   rounds=3, mode=mode)
+    grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
+    assert grown == [0, 0, 0, 0, 0, 0, 2, 2]
+    big = torch.zeros((1, level.RESIDENT_MAX_D + 1), device=cuda)
+    one = torch.ones((1,), device=cuda)
+    with pytest.raises(ValueError):
+        level.cl_fuse_select_level_cuda(big, big, big, one, one, one, q=3)
+    with pytest.raises(ValueError):
+        level.tau_search_fused_level_cuda(big, big, big, one, one, q=3,
+                                          branch=64, rounds=3)
 
 
 # ---------------------------------------------------------------------------
@@ -481,7 +663,7 @@ def test_ops_cohort_gmask_launch_on_cuda(cuda):
         ops.hist_topq_level(*args, tables, c["gmc"][1], gmask_cohorts=2,
                             mode=mode)
     grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
-    assert grown == [2, 0, 2, 2, 2, 0]
+    assert grown == [2, 0, 2, 2, 2, 0, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -1048,12 +1230,8 @@ def test_segments_on_the_card_equal_host_execute_and_the_cpu_mesh(
     grown = {n_: fn.launches - before[fn.__name__]
              for n_, fn in ((f.__name__, f) for f in level.KERNELS)
              if fn.launches - before[fn.__name__]}
-    levels = plan.shape[0]
-    if kind in ("cl_sia", "cl_tc_sia"):
-        assert grown == {"cl_fuse_level_cuda": levels}
-    elif kind != "dense_ia":
-        assert grown == {"sparsify_ef_level_cuda": levels,
-                         "chain_accum_level_cuda": levels}
+    assert grown == {name + "_cuda": c for name, c in level_launches(
+        cfg, n // k, plan.shape[0]).items()}
     cpu = _segments_round(cfg, plan, client_mesh(k, devices=["cpu"] * k),
                           g, e, gm, part, "cpu")
     bf = _segments_round(cfg, plan, mesh, g, e, gm, part, cuda,
@@ -1099,13 +1277,8 @@ def test_segments_threshold_on_the_card_equal_host_execute_and_the_cpu_mesh(
     grown = {n_: fn.launches - before[fn.__name__]
              for n_, fn in ((f.__name__, f) for f in level.KERNELS)
              if fn.launches - before[fn.__name__]}
-    levels = plan.shape[0]
-    want = ({"cl_fuse_level_cuda": levels} if kind == "cl_sia" else
-            {"sparsify_ef_level_cuda": levels,
-             "chain_accum_level_cuda": levels})
-    want.update({"hist_topq_level_cuda": levels} if impl == "hist" else
-                {"count_ge_fused_level_cuda": levels * rounds})
-    assert grown == want
+    assert grown == {name + "_cuda": c for name, c in level_launches(
+        cfg, n // k, plan.shape[0]).items()}
     cpu = _segments_round(cfg, plan, client_mesh(k, devices=["cpu"] * k),
                           g, e, gm, part, "cpu")
     for a, b in zip(got[0] + got[1], cpu[0] + cpu[1]):
@@ -1322,28 +1495,6 @@ TRAIN_VARIANTS = {
 }
 
 
-def _train_launches(step) -> dict:
-    """Level-kernel launches of one train step: per model column (and per
-    tenant group, all cohorts in one), one level step per level of the plan
-    (Σ over stages for a nested plan) on the one device of the mesh."""
-    from repro_torch.core.algorithms import AggKind
-    cfg = step.agg_cfg
-    if step.nested is not None:
-        levels = sum(s.shape[0] for s in step.nested.stages)
-    else:
-        levels = step.plan.shape[0]
-    levels *= step.m
-    if cfg.kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
-        out = {"cl_fuse_level": levels}
-    else:
-        out = {"sparsify_ef_level": levels, "chain_accum_level": levels}
-    if cfg.topq_impl == "threshold" and cfg.tau_impl == "hist":
-        out["hist_topq_level"] = levels
-    elif cfg.topq_impl == "threshold":
-        out["count_ge_fused_level"] = levels * cfg.hist_rounds
-    return out
-
-
 def _same_support(got, want, what):
     """``ef == 0`` equal but for swaps of two candidates tied at the Q-th
     magnitude (the left-behind magnitudes agree to 1e-5)."""
@@ -1416,7 +1567,7 @@ def test_train_step_on_the_card_equals_the_cpu(cuda, no_tf32, family,
         grown = {fn.__name__.replace("_cuda", ""): fn.launches - b
                  for fn, b in zip(level.KERNELS, before)
                  if fn.launches - b}
-        assert grown == _train_launches(card_step), (grown, s)
+        assert grown == train_launches(card_step), (grown, s)
         plain, w, p = cpu_step.round_inputs(batch)
         cols, loss = cpu_step.phase1(st, plain)
         new, m = cpu_step.finish(st, cols, loss, w, p)
@@ -1536,7 +1687,7 @@ def test_placed_state_on_a_mesh_of_the_card_and_the_cpu(cuda, no_tf32, opt,
                                mixed, tc)
     step, check = build_train_step(cfg, tc, mixed), build_train_step(
         cfg, tc, card)
-    want = _train_launches(step)
+    want = train_launches(step)
     # a first step warms cuBLAS's workspace, which then stays
     warm = init_state(cfg, tc, card, torch.Generator(device=cuda))
     toks = torch.zeros((8, 16), dtype=torch.int64, device=cuda)
@@ -1669,7 +1820,7 @@ def test_split_step_on_the_card_equals_the_cpu(cuda, no_tf32, name):
         grown = {fn.__name__.replace("_cuda", ""): fn.launches - b
                  for fn, b in zip(level.KERNELS, before)
                  if fn.launches - b}
-        assert grown == _train_launches(card_step), (grown, s)
+        assert grown == train_launches(card_step), (grown, s)
         new, m = cpu_step(st, batch)
         torch.testing.assert_close(mc["loss"].cpu(), m["loss"], rtol=1e-5,
                                    atol=0)

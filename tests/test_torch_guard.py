@@ -269,8 +269,8 @@ def test_execute_sharded_never_moves_a_card_mesh_to_the_cpu(monkeypatch):
     mesh = client_mesh(4, devices=["cuda:0"] * 4)
     monkeypatch.undo()
     stepped = []
-    monkeypatch.setattr(ops, "cl_fuse_level",
-                        lambda *a, **k: stepped.append(1))
+    for name in ("cl_fuse_level", "cl_fuse_select_level"):
+        monkeypatch.setattr(ops, name, lambda *a, **k: stepped.append(1))
     with pytest.raises((AssertionError, RuntimeError)):
         execute_sharded(AggConfig(q=3), compile_plan(4),
                         torch.zeros((4, 16)), torch.zeros((4, 16)),
@@ -304,8 +304,8 @@ def test_segments_lowering_never_moves_a_card_mesh_to_the_cpu(monkeypatch):
     mesh = client_mesh(4, devices=["cuda:0"] * 4)
     monkeypatch.undo()
     stepped = []
-    monkeypatch.setattr(ops, "cl_fuse_level",
-                        lambda *a, **k: stepped.append(1))
+    for name in ("cl_fuse_level", "cl_fuse_select_level"):
+        monkeypatch.setattr(ops, name, lambda *a, **k: stepped.append(1))
     rows = [torch.zeros(16)] * 4
     with pytest.raises((AssertionError, RuntimeError)):
         rotated_ring_local(AggConfig(q=3), mesh, rows, rows, 1.0)
