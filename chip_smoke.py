@@ -30,33 +30,39 @@ Phases (any failure exits non-zero and prints no result):
    B = 2 and 8 and at the paper's batched round (8 cohorts × 28 lanes,
    d = 7850), held and timed the same way (the bound counts B·d mask
    bytes). Then the resident forms (``cl_fuse_select_level``,
-   ``tau_search_fused_level``: one block per lane, the lane in shared
-   memory) at W = 1 and 28, d = 7850, and at the largest resident d, over
-   every operand form (γ_in on/off, the pinned ‖e′‖² on/off, the four
-   global-mask forms) and ``ref.resident_edge_lanes``' edge lanes (ties
-   straddling the q-th value, NaN and ±inf, zeros, p = 0, valid = 0) for
-   q ≤ 0 … q > d, bit for bit against their plain versions on the CPU (a
-   NaN equal to any NaN); a CL-SIA level of d + 1 must take the
-   multi-block kernels; each timed beside its plain version, the chain it
-   replaces on the same inputs and its bound;
+   ``tau_search_fused_level``, ``ia_fuse_select_level``: one block per
+   lane, the lane in shared memory) at W = 1 and 28, d = 7850, and at the
+   largest resident d, over every operand form (γ_in on/off, the pinned
+   ‖e′‖² on/off, the four global-mask forms and, for the IA step's TC-SIA,
+   a mask with values other than 0 and 1; the IA step for SIA, RE-SIA and
+   TC-SIA, exact and with a given τ) and ``ref.resident_edge_lanes``' edge
+   lanes (ties straddling the q-th value, NaN and ±inf, zeros with γ_in
+   −0.0, p = 0, valid = 0, a NaN τ) for q ≤ 0 … q > d, bit for bit against
+   their plain versions on the CPU (a NaN equal to any NaN); a level of
+   d + 1 of CL-SIA, SIA, RE-SIA and TC-SIA must take the multi-block
+   kernels; each timed beside its plain version, the chain it replaces on
+   the same inputs and its bound;
 3. main path, exact Top-Q — the paper simulator (K = 28, d = 7850,
    ``kernel_mode="auto"``) on the card, after one warm-up round of each
    algorithm, for 20 rounds of each algorithm on the chain and of each
    fused algorithm on a star tree, with launch counts read around those
-   runs, each run's launches held to the prediction (exact CL-SIA and
-   CL-TC-SIA one ``cl_fuse_select_level`` a level, the others
-   ``sparsify_ef_level`` and ``chain_accum_level``); the loss must fall, CL-SIA's bits
-   must equal the §V closed form every round on both topologies, and a
-   short run must agree with the same run on the CPU; one exact CL-SIA
-   and CL-TC-SIA level's device ops (torch.profiler) must hold no sort
-   and one resident launch; then torch.profiler reads the device-busy
-   share of a few rounds;
+   runs, each run's launches held to the prediction of
+   ``tests/_torch_launches.py`` (exact CL-SIA and CL-TC-SIA one
+   ``cl_fuse_select_level`` a level, SIA, RE-SIA and TC-SIA one
+   ``ia_fuse_select_level``); the loss must fall, CL-SIA's bits must
+   equal the §V closed form every round on both topologies, and a short
+   run must agree with the same run on the CPU; one exact level of each
+   fused kind's device ops (torch.profiler) must hold no sort, no kernel
+   of the multi-block forms and one resident launch; then torch.profiler
+   reads the device-busy share of a few rounds;
 4. main path, threshold Top-Q — the same simulator with
    ``topq_impl="threshold"`` for each fused algorithm on the chain and the
    star, under ``tau_impl="scan"`` (3 rounds of 64 candidates) and
    ``"hist"`` (2 rounds), 20 rounds each after a warm-up, with launch
-   counts read around the runs and held to the prediction (the scan one
-   ``tau_search_fused_level`` a level at d = 7850); hist must equal
+   counts read around the runs and held to the prediction of
+   ``tests/_torch_launches.py`` (the scan one ``tau_search_fused_level``
+   a level at d = 7850, SIA, RE-SIA and TC-SIA one
+   ``ia_fuse_select_level`` after it); hist must equal
    the scan at 2 rounds bit for bit (bits and loss per round), 3 rounds on
    the card fed the CPU run's gradients must give the CPU run's τ, count
    integers, model and bits bit for bit (loss to rtol 1e-4), the loss must
@@ -836,12 +842,9 @@ def main_path(level, data) -> dict:
         grown = {n: fn.launches - b for n, fn, b in
                  zip(names, level.KERNELS, before) if fn.launches - b}
         # the chain is k levels of one lane, the star one level of k; at
-        # d = 7850 exact CL Top-Q is the resident select alone
+        # d = 7850 every exact level is one resident launch
         levels = ROUNDS * (k if topo is None else 1)
-        want = ({} if kind == AggKind.DENSE_IA else
-                {"cl_fuse_select_level": levels}
-                if kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA) else
-                {"sparsify_ef_level": levels, "chain_accum_level": levels})
+        want = scaled(per_level(pc.d, kind=kind, **kw), levels)
         if grown != want:
             raise SystemExit(f"FAIL {kind.value} {topo_name}: launches "
                              f"{grown}, predicted {want}")
@@ -907,7 +910,7 @@ def main_path(level, data) -> dict:
 
 
 def level_device_ops(fn) -> tuple:
-    """(device ops, device ms, names of the ops) of one call of ``fn``,
+    """(device ops, device ms, {op name: calls}) of one call of ``fn``,
     from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -921,13 +924,23 @@ def level_device_ops(fn) -> tuple:
               if str(e.device_type).endswith("CUDA")]
     busy = sum(getattr(e, "self_device_time_total", 0) or
                getattr(e, "self_cuda_time_total", 0) for e in events) / 1e3
-    return sum(e.count for e in events), busy, [e.key for e in events]
+    return sum(e.count for e in events), busy, {e.key: e.count
+                                                for e in events}
+
+
+# an exact level's one resident launch, by the kernel's name
+EXACT_LEVEL_KERNEL = {"cl_sia": "cl_fuse_select", "cl_tc_sia": "cl_fuse_select",
+                      "sia": "ia_fuse_select", "re_sia": "ia_fuse_select",
+                      "tc_sia": "ia_fuse_select"}
 
 
 def exact_level_ops(pc, kw):
-    """One exact CL-SIA and CL-TC-SIA level of the chain (W = 1, d = pc.d)
-    on the card: one resident launch, no sort and no count kernel among
-    its device ops."""
+    """One exact level of each fused kind on the chain (W = 1, d = pc.d)
+    on the card: one resident launch (``cl_fuse_select_level`` for the CL
+    kinds, ``ia_fuse_select_level`` for SIA, RE-SIA and TC-SIA), and no
+    sort, no count kernel and no kernel of the multi-block forms
+    (``cl_fuse_level``, ``sparsify_ef_level``, ``chain_accum_level``)
+    among its device ops."""
     from repro_torch.core.algorithms import AggConfig, AggKind, level_step
 
     rng = np.random.default_rng(SEED)
@@ -937,18 +950,22 @@ def exact_level_ops(pc, kw):
     gm = torch.zeros((pc.d,), device="cuda")
     gm[:pc.q_global] = 1.0
     one = torch.ones((1,), device="cuda")
-    for kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA):
+    for kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA, AggKind.SIA,
+                 AggKind.RE_SIA, AggKind.TC_SIA):
         step = level_step(AggConfig(kind=kind, **kw))
-        ops, busy, keys = level_device_ops(
+        ops, busy, calls = level_device_ops(
             lambda: step(x["g"], x["gin"], x["e"], one, one, gm))
-        bad = [n for n in keys if "sort" in n.lower()
-               or "count_rank" in n or "cl_fuse_level" in n]
-        if bad or not any("cl_fuse_select" in n for n in keys):
+        bad = [n for n in calls if "sort" in n.lower() or "count_rank" in n
+               or any(k in n for k in ("cl_fuse_level", "sparsify_ef_level",
+                                       "chain_accum_level"))]
+        name = EXACT_LEVEL_KERNEL[kind.value]
+        resident = sum(c for n, c in calls.items() if name in n)
+        if bad or resident != 1:
             raise SystemExit(f"FAIL {kind.value} exact level: device ops "
-                             f"{keys}")
+                             f"{calls}")
         log(f"[main] {kind.value} exact level (W = 1, d = {pc.d}): {ops} "
             f"device ops, {busy:.4f} ms busy; no sort, one "
-            f"cl_fuse_select_level")
+            f"{name}_level")
 
 
 # ---------------------------------------------------------------------------
@@ -1064,12 +1081,9 @@ def threshold_path(level, data) -> dict:
                 grown = {n.replace("_cuda", ""): f.launches - before[n]
                          for n, f in ((f.__name__, f) for f in level.KERNELS)
                          if f.launches - before[n]}
-                n = ROUNDS * levels
-                want = ({"cl_fuse_level": n}
-                        if kind in (AggKind.CL_SIA, AggKind.CL_TC_SIA) else
-                        {"sparsify_ef_level": n, "chain_accum_level": n})
-                want[names[impl]] = n
-                if grown != want:
+                want = scaled(per_level(pc.d, kind=kind, **kw,
+                                        **THRESHOLD[impl]), ROUNDS * levels)
+                if grown != want or want.get(names[impl]) != ROUNDS * levels:
                     raise SystemExit(
                         f"FAIL {kind.value} {impl} {topo_name}: launches "
                         f"{grown}, predicted {want}")
@@ -1082,9 +1096,10 @@ def threshold_path(level, data) -> dict:
     launches = {name: getattr(level, name + "_cuda").launches
                 for name in names.values()}
     log(f"[threshold] τ-search launches over the threshold runs: "
-        f"{launches}; level kernels: "
+        f"{launches}; node-step kernels: "
         + str({f.__name__.replace("_cuda", ""): f.launches
-               for f in level.KERNELS[:3]}))
+               for f in level.KERNELS if f.launches
+               and f.__name__.replace("_cuda", "") not in names.values()}))
     for name in names.values():
         if launches[name] <= 0:
             raise SystemExit(f"FAIL {name} was never launched on the "
@@ -1265,19 +1280,40 @@ def check_cohort_kernels(level, ref, sp, report: dict):
 # phase 2 (continued): the resident forms (one block per lane)
 # ---------------------------------------------------------------------------
 
-RESIDENT_KERNELS = ("cl_fuse_select_level", "tau_search_fused_level")
+RESIDENT_KERNELS = ("cl_fuse_select_level", "tau_search_fused_level",
+                    "ia_fuse_select_level")
 # the paper's largest resident level last: it is the kernels line's shape
 RESIDENT_SHAPES = [(1, 7850), (28, 7850)]
 RESIDENT_GM = ((None, 0), ("shared", 0), ("lanes", 0), ("cohort", 4))
+# the IA step's TC-SIA also on a mask of values other than 0 and 1
+IA_GM = RESIDENT_GM + (("odd", 0),)
+# SIA last: the kernels line's kind
+IA_KINDS = ("tc_sia", "re_sia", "sia")
 RESIDENT_Q, RESIDENT_ROUNDS = 78, THRESHOLD["scan"]["hist_rounds"]
 
 
-def resident_cases(name: str, d: int) -> list:
-    """(q, rounds) of each check: q ≤ 0, the paper's q, q = d and q > d
-    (the search also at one round)."""
+def resident_cases(name: str, d: int, form) -> list:
+    """The keyword arguments of each check: q ≤ 0, the paper's q, q = d
+    and q > d; the search also at one round; the IA step for each kind
+    (TC-SIA alone where a global mask is given) and with a given τ
+    (``tau=True``: ``ref.resident_taus`` of the lanes)."""
     if name == "cl_fuse_select_level":
-        return [(q, RESIDENT_ROUNDS) for q in (0, RESIDENT_Q, d, d + 3)]
-    return [(0, 3), (RESIDENT_Q, 3), (RESIDENT_Q, 1), (d + 3, 3)]
+        return [dict(q=q) for q in (0, RESIDENT_Q, d, d + 3)]
+    if name == "tau_search_fused_level":
+        return [dict(q=q, rounds=r) for q, r in (
+            (0, 3), (RESIDENT_Q, 3), (RESIDENT_Q, 1), (d + 3, 3))]
+    kinds = IA_KINDS if form is None else ("tc_sia",)
+    return [dict(kind=k, q=q) for k in kinds
+            for q in (0, RESIDENT_Q, d, d + 3)] + [
+        dict(kind=k, tau=True) for k in kinds]
+
+
+def resident_top_cases(name: str, d: int, form) -> list:
+    """The checks at the largest resident d: the paper's q (and for the
+    IA step a given τ) alone."""
+    return [kw for kw in resident_cases(name, d, form)
+            if kw.get("q") == RESIDENT_Q and kw.get("rounds", 3) == 3
+            or kw.get("tau")]
 
 
 def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1291,25 +1327,50 @@ def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
         torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
 
 
-def call_resident(fns, name: str, t: dict, cohorts: int, q: int,
+def call_resident(fns, name: str, t: dict, cohorts: int, q: int = None,
                   rounds: int = RESIDENT_ROUNDS, gamma: bool = True,
-                  with_err: bool = False):
+                  with_err: bool = False, kind: str = "sia",
+                  tau: bool = False):
     """A resident kernel ``name`` (CUDA wrapper or plain version) on the
-    lanes ``t`` (``ref.resident_edge_lanes`` and ``gm``)."""
+    lanes ``t`` (``ref.resident_edge_lanes``, ``gm`` and, for a given τ,
+    ``tau``)."""
     operand = (t["g"], t["e"], t["gin"], t["w"], t["p"])
     if name == "cl_fuse_select_level":
         return fns[name](*operand, t["valid"], t["gm"], q=q,
+                         gmask_cohorts=cohorts, with_err=with_err)
+    if name == "ia_fuse_select_level":
+        return fns[name](*operand, t["valid"],
+                         t["gm"] if kind == "tc_sia" else None, kind=kind,
+                         q=None if tau else q, tau=t["tau"] if tau else None,
                          gmask_cohorts=cohorts, with_err=with_err)
     return fns[name](*operand, t["gm"], q=q, branch=BRANCH, rounds=rounds,
                      include_gamma=gamma, gmask_cohorts=cohorts)
 
 
-def old_chain(level, ref, sp, name: str, t: dict, cohorts: int):
+def old_chain(level, ref, sp, name: str, t: dict, cohorts: int,
+              kind: str = "sia"):
     """What the resident kernel replaces, as a longer lane runs it on the
     card: the exact support by the operand's sort, then ``cl_fuse_level``;
-    or ``threshold_for_topq`` counting with ``count_ge_fused_level`` a
-    round."""
+    ``threshold_for_topq`` counting with ``count_ge_fused_level`` a
+    round; or the exact SIA-family level as the port ran it before its
+    resident form (the Top-Q mask and unions, ``sparsify_ef_level``,
+    ``chain_accum_level``: ``algorithms._ia_level`` with the dispatch rule
+    saying no)."""
     operand = (t["g"], t["e"], t["gin"], t["w"], t["p"])
+    if name == "ia_fuse_select_level":
+        from repro_torch.core import algorithms as alg
+        from repro_torch.kernels import ops
+        cfg = alg.AggConfig(kind=kind, q=RESIDENT_Q, q_global=1,
+                            q_local=RESIDENT_Q)
+        rule = ops.resident_level
+        ops.resident_level = lambda d, branch=1: False
+        try:
+            return alg._ia_level(
+                cfg, t["g"], t["gin"], t["e"], t["w"], t["p"],
+                t["gm"] if kind == "tc_sia" else None, None, t["valid"],
+                cohorts, RESIDENT_Q)
+        finally:
+            ops.resident_level = rule
 
     def x():
         return ref.fused_operand(*operand, t["gm"], include_gamma=True,
@@ -1341,6 +1402,13 @@ def resident_cost(name: str, w: int, d: int, mask_rows: int) -> tuple:
     if name == "cl_fuse_select_level":
         nbytes = (5 * w * d + m) * 4 + 3 * w * 4 + 2 * w * 4
         return nbytes, w * d * (6 + 1 + 4 * 4 + 1 + 6)
+    # the IA step (exact) the same bytes; per element g~ (1 fma; with a
+    # mask 1 − m and ·), the key, 4 radix digits, the tie test, the mask
+    # (TC-SIA: support, −, clamp, 2 adds, > 0), the keep test, a select,
+    # e′, γ_out and 2 counts
+    if name == "ia_fuse_select_level":
+        nbytes = (5 * w * d + m) * 4 + 3 * w * 4 + 2 * w * 4
+        return nbytes, w * d * (1 + 1 + 4 * 4 + 1 + (6 if m else 1) + 7)
     search = math.ceil(math.log2(BRANCH + 1))
     nbytes = ((3 * w * d + m + 2 * w) * 4
               + (w + RESIDENT_ROUNDS * w * BRANCH) * 4)
@@ -1376,11 +1444,14 @@ def check_resident_kernels(level, ref, sp) -> dict:
     top = level.RESIDENT_MAX_D
     # (W, d, mask form, cohorts, kernel, with_err or γ_in)
     checks = [(w, d, form, b, name, flag)
-              for w, d in RESIDENT_SHAPES for form, b in RESIDENT_GM
-              if not b or w % b == 0
-              for name in RESIDENT_KERNELS for flag in (False, True)]
-    checks += [(28, top, form, b, name, True) for form, b in
-               ((None, 0), ("lanes", 0)) for name in RESIDENT_KERNELS]
+              for w, d in RESIDENT_SHAPES
+              for name in RESIDENT_KERNELS
+              for form, b in (IA_GM if name == "ia_fuse_select_level"
+                              else RESIDENT_GM)
+              if not b or w % b == 0 for flag in (False, True)]
+    checks += [(28, top, form, b, name, True) for name in RESIDENT_KERNELS
+               for form, b in (IA_GM if name == "ia_fuse_select_level"
+                               else ((None, 0), ("lanes", 0)))]
     t0 = time.perf_counter()
     inputs = {}
     for w, d, form, b, name, flag in checks:
@@ -1389,13 +1460,15 @@ def check_resident_kernels(level, ref, sp) -> dict:
             inputs.clear()
             cpu = ref.resident_edge_lanes(w, d, SEED + w + d)
             cpu["gm"] = ref.resident_gmask(form, w, d, SEED + d, b)
+            cpu["tau"] = ref.resident_taus(cpu, cpu["gm"], b, RESIDENT_Q)
             inputs[key] = (cpu, {k: None if v is None else v.to(dev)
                                  for k, v in cpu.items()})
         cpu, gpu = inputs[key]
-        cases = resident_cases(name, d)
-        for q, rounds in cases[1:2] if d == top else cases:
-            kw = (dict(q=q, with_err=flag) if name == "cl_fuse_select_level"
-                  else dict(q=q, rounds=rounds, gamma=flag))
+        for case in (resident_top_cases if d == top else resident_cases)(
+                name, d, form):
+            kw = dict(case, **({"gamma": flag}
+                               if name == "tau_search_fused_level"
+                               else {"with_err": flag}))
             got = call_resident(cuda_fns, name, gpu, b, **kw)
             torch.cuda.synchronize()
             want = call_resident(plain_fns, name, cpu, b, **kw)
@@ -1422,18 +1495,21 @@ def check_resident_kernels(level, ref, sp) -> dict:
     torch.cuda.empty_cache()
     log(f"[kernels] resident kernels at {RESIDENT_SHAPES} and W=28 d={top}: "
         f"every operand form and edge lane equal to the plain CPU versions "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - t0:.1f} s; "
+        + ", ".join(f"{n} {r['checked']} variants"
+                    for n, r in report.items()) + ")")
 
     # the dispatch rule's boundary: d + 1 takes the multi-block chain
     for d in (top, top + 1):
         cpu = ref.resident_edge_lanes(3, d, SEED)
+        cpu["gm"] = ref.resident_gmask("shared", 3, d, SEED)
         gpu = {k: v.to(dev) for k, v in cpu.items()}
-        for impl in ("exact", "threshold"):
-            cfg = AggConfig(kind="cl_sia", q=RESIDENT_Q, topq_impl=impl,
+        for kind, impl in [(k, i) for k in ("cl_sia",) + IA_KINDS
+                           for i in ("exact", "threshold")]:
+            cfg = AggConfig(kind=kind, q=RESIDENT_Q, topq_impl=impl,
                             hist_branch=BRANCH, err_sq_mode="kernel")
             args = lambda t: (t["g"], t["gin"], t["e"], t["w"], t["p"],  # noqa
-                              torch.zeros((d,), device=t["g"].device), None,
-                              t["valid"])
+                              t["gm"], None, t["valid"])
             before = {f.__name__: f.launches for f in level.KERNELS}
             got = level_step(cfg)(*args(gpu))
             torch.cuda.synchronize()
@@ -1442,15 +1518,15 @@ def check_resident_kernels(level, ref, sp) -> dict:
                      if f.launches - before[n]}
             resident = bool(set(grown) & set(RESIDENT_KERNELS))
             if grown != level_launches(cfg, d) or resident != (d <= top):
-                raise SystemExit(f"FAIL the dispatch at d={d} ({impl}): "
-                                 f"launches {grown}")
+                raise SystemExit(f"FAIL the dispatch at d={d} ({kind} "
+                                 f"{impl}): launches {grown}")
             want = level_step(cfg)(*args(cpu))
             if not all(same_nan(u, v) for u, v in zip(
                     want[:2] + tuple(want[2]), got[:2] + tuple(got[2]))):
-                raise SystemExit(f"FAIL the CL-SIA level at d={d} ({impl}) "
+                raise SystemExit(f"FAIL the {kind} level at d={d} ({impl}) "
                                  f"differs from the CPU")
-        log(f"[kernels] dispatch at d={d}: {sorted(grown)} ({impl}); the "
-            f"level equals the CPU's")
+            log(f"[kernels] dispatch at d={d}: {sorted(grown)} ({kind} "
+                f"{impl}); the level equals the CPU's")
         del cpu, gpu
 
     # timing: the paper's level (edge lanes live), the old chain beside it
@@ -1458,27 +1534,32 @@ def check_resident_kernels(level, ref, sp) -> dict:
         cpu = ref.resident_edge_lanes(w, d, SEED + 7)
         cpu["gm"] = None
         gpu = {k: None if v is None else v.to(dev) for k, v in cpu.items()}
-        for name in RESIDENT_KERNELS:
-            kw = dict(q=RESIDENT_Q)
-            ms = cuda_time_ms(lambda: call_resident(cuda_fns, name, gpu, 0,
+        # the IA step of TC-SIA reads a lane-shared mask (its main path's)
+        gpu["gm"] = ref.resident_gmask("shared", w, d, SEED).to(dev)
+        for name, kind in [(n, k) for n in RESIDENT_KERNELS for k in (
+                IA_KINDS if n == "ia_fuse_select_level" else (None,))]:
+            kw = dict(q=RESIDENT_Q, **({"kind": kind} if kind else {}))
+            gm = gpu["gm"] if kind == "tc_sia" else None
+            t = dict(gpu, gm=gm)
+            ms = cuda_time_ms(lambda: call_resident(cuda_fns, name, t, 0,
                                                     **kw), 200)
             plain_ms = cuda_time_ms(lambda: call_resident(
-                plain_fns, name, gpu, 0, **kw), 50)
-            chain_ms = cuda_time_ms(lambda: old_chain(level, ref, sp, name,
-                                                      gpu, 0), 50)
-            nbytes, ops_n = resident_cost(name, w, d, 0)
+                plain_fns, name, t, 0, **kw), 50)
+            chain_ms = cuda_time_ms(lambda: old_chain(
+                level, ref, sp, name, t, 0, kind), 50)
+            nbytes, ops_n = resident_cost(name, w, d, int(gm is not None))
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops_n / F32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             report[name]["shapes"].append(dict(
-                W=w, d=d, ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
-                bound_ms=bound_ms,
+                W=w, d=d, **({"kind": kind} if kind else {}), ms=ms,
+                plain_ms=plain_ms, chain_ms=chain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bound_share=bound_ms / ms))
-            log(f"[time] {name} W={w} d={d}: kernel {ms:.4f} ms, the chain "
-                f"it replaces {chain_ms:.4f} ms, plain on card "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-                f"({100 * bound_ms / ms:.2f}% of bound)")
+            log(f"[time] {name}{' ' + kind if kind else ''} W={w} d={d}: "
+                f"kernel {ms:.4f} ms, the chain it replaces {chain_ms:.4f} "
+                f"ms, plain on card {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.6f} ms ({100 * bound_ms / ms:.2f}% of bound)")
         del cpu, gpu
     return report
 
@@ -5903,6 +5984,7 @@ def main() -> int:
               "count_ge_level": "tau_search.cu",
               "cl_fuse_select_level": "resident.cu",
               "tau_search_fused_level": "resident.cu",
+              "ia_fuse_select_level": "resident.cu",
               "chain_accum": "chain_accum.cu", "cl_fuse": "chain_accum.cu",
               "sparsify_ef": "sparsify_ef.cu",
               "count_ge": "topq_threshold.cu",
@@ -5915,6 +5997,8 @@ def main() -> int:
                 "count_ge_level": "src/repro/kernels/level.py:481",
                 "cl_fuse_select_level": "src/repro/kernels/level.py:395",
                 "tau_search_fused_level": "src/repro/kernels/level.py:561",
+                "ia_fuse_select_level":
+                    "src/repro/kernels/level.py:197 and :282",
                 "chain_accum": "src/repro/kernels/chain_accum.py:74",
                 "cl_fuse": "src/repro/kernels/chain_accum.py:102",
                 "sparsify_ef": "src/repro/kernels/sparsify_ef.py:70",

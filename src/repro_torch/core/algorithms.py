@@ -14,9 +14,11 @@ batched :func:`level_step` (all W slots of a padded schedule level — the
 plan executor). When the fused path is on (:func:`fused_node_steps`) a
 level runs through the level kernels of :mod:`repro_torch.kernels.ops`:
 ``cl_fuse_level`` for CL-SIA and CL-TC-SIA (``cl_fuse_select_level``, the
-exact Top-Q support and the fuse in one launch, on resident lanes),
-``sparsify_ef_level`` then ``chain_accum_level`` for SIA, RE-SIA and
-TC-SIA.
+exact Top-Q support and the fuse in one launch, on resident lanes);
+for SIA, RE-SIA and TC-SIA ``ia_fuse_select_level`` on resident lanes
+(the keep mask — exact Top-Q support or a given τ — EF, sparsify and the
+IA combine in one launch), else, and under a per-lane ``q_budget``,
+``sparsify_ef_level`` then ``chain_accum_level``.
 
 Every ``a*b + c`` that XLA contracts to a fused multiply-add in the jitted
 reference is a :func:`torch.addcmul` here, so both packages round alike.
@@ -317,6 +319,65 @@ def _resident_exact(cfg: AggConfig, d: int, budgets: bool) -> bool:
             and kops.resident_level(d))
 
 
+def _ia_level(cfg, g, gam, e, w, p, gm, qb, valid, cohorts, q):
+    """An SIA, RE-SIA or TC-SIA level (``gm`` None but for TC-SIA) →
+    ``(γ_out, e′, nnz, nnz_off)`` (+ the pinned ‖e′‖² under
+    ``err_sq_mode="kernel"``).
+
+    On resident lanes with a static q, one ``ia_fuse_select_level``: the
+    exact Top-Q support of q, or τ from the level's search (threshold
+    Top-Q). Otherwise the keep mask and τ of
+    :func:`_lane_sparsifier_state` (RE-SIA and TC-SIA add their unions),
+    then ``sparsify_ef_level`` and ``chain_accum_level``.
+    """
+    we = cfg.err_sq_mode == "kernel"
+    mode = cfg.kernel_mode
+    op = _tau_operand(cfg, g, e, None, w, p, gm, cohorts)
+    if qb is None and kops.resident_level(g.shape[-1]):
+        tau = None
+        if cfg.topq_impl == "threshold":
+            tau = sp.threshold_for_topq(
+                None, q, branch=cfg.hist_branch, rounds=cfg.hist_rounds,
+                operand_fn=op, tau_impl=cfg.tau_impl)
+        return kops.ia_fuse_select_level(
+            g, e, gam, w, p, valid, gm, kind=cfg.kind,
+            q=q if tau is None else None, tau=tau, gmask_cohorts=cohorts,
+            with_err=we, mode=mode)
+    if cfg.kind == AggKind.SIA:
+        mask, tau = _lane_sparsifier_state(cfg, op, q, p, qb)
+    elif cfg.kind == AggKind.RE_SIA:
+        m_in = sp.support(gam)
+        if qb is None and cfg.topq_impl == "threshold":
+            _, tau = _lane_sparsifier_state(cfg, op, q, p, qb)
+            mask = m_in * _col(p)
+        else:
+            m_l, tau = _lane_sparsifier_state(cfg, op, q,
+                                              torch.ones_like(p), qb)
+            mask = sp.mask_union(m_l, m_in) * _col(p)
+    else:
+        # the mask algebra takes a cohort-shared mask per lane, the
+        # kernels take it compact
+        gme = kref.expand_gmask(gm, g.shape[0], cohorts)
+        m_k, tau = _lane_sparsifier_state(cfg, op, q, torch.ones_like(p),
+                                          qb)
+        m_in = torch.clamp(sp.support(gam) - gme, 0, 1)
+        if m_k is None:
+            # threshold Top-Q: materialize the local mask to union it with
+            # the global and incoming masks, as the unfused topq_mask_fn
+            # does
+            x = op.materialize()
+            m_k = (x.abs() >= _col(tau)).to(x.dtype)
+            tau = _lane_inf(g.shape[0], g.device)
+        mask = sp.mask_union(torch.broadcast_to(gme, m_k.shape), m_k,
+                             m_in) * _col(p)
+    out = kops.sparsify_ef_level(g, e, mask, w, tau, valid, with_err=we,
+                                 mode=mode)
+    gout, nnz, nnz_off = kops.chain_accum_level(gam, out[0], valid, gm,
+                                                gmask_cohorts=cohorts,
+                                                mode=mode)
+    return (gout, out[1], nnz, nnz_off) + out[3:]
+
+
 def _stats_no_gmask(cfg, d, nnz, e_new, err=None) -> HopStats:
     zeros = torch.zeros_like(nnz)
     return HopStats(nnz_out=nnz, nnz_global=zeros, nnz_local=nnz,
@@ -337,63 +398,20 @@ def _stats_gmask(cfg, d, gm, nnz, nnz_off, e_new, cohorts=0,
 
 
 def _fused_level_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
-    op = _tau_operand(cfg, g, e, None, w, p)
-    mask, tau = _lane_sparsifier_state(cfg, op, cfg.q, p, qb)
+    # SIA and RE-SIA: no global mask (``_ia_level`` reads the kind)
+    out = _ia_level(cfg, g, gam, e, w, p, None, qb, valid, 0, cfg.q)
     we = cfg.err_sq_mode == "kernel"
-    out = kops.sparsify_ef_level(g, e, mask, w, tau, valid, with_err=we,
-                                 mode=cfg.kernel_mode)
-    gbar, e_new = out[0], out[1]
-    gout, nnz, _ = kops.chain_accum_level(gam, gbar, valid,
-                                          mode=cfg.kernel_mode)
-    return gout, e_new, _stats_no_gmask(cfg, g.shape[-1], nnz, e_new,
-                                        out[3] if we else None)
-
-
-def _fused_level_re_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
-    op = _tau_operand(cfg, g, e, None, w, p)
-    m_in = sp.support(gam)
-    if qb is None and cfg.topq_impl == "threshold":
-        _, tau = _lane_sparsifier_state(cfg, op, cfg.q, p, qb)
-        mask = m_in * _col(p)
-    else:
-        m_l, tau = _lane_sparsifier_state(cfg, op, cfg.q,
-                                          torch.ones_like(p), qb)
-        mask = sp.mask_union(m_l, m_in) * _col(p)
-    we = cfg.err_sq_mode == "kernel"
-    out = kops.sparsify_ef_level(g, e, mask, w, tau, valid, with_err=we,
-                                 mode=cfg.kernel_mode)
-    gbar, e_new = out[0], out[1]
-    gout, nnz, _ = kops.chain_accum_level(gam, gbar, valid,
-                                          mode=cfg.kernel_mode)
-    return gout, e_new, _stats_no_gmask(cfg, g.shape[-1], nnz, e_new,
-                                        out[3] if we else None)
+    return out[0], out[1], _stats_no_gmask(cfg, g.shape[-1], out[2], out[1],
+                                           out[4] if we else None)
 
 
 def _fused_level_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
-    # the mask algebra takes a cohort-shared mask per lane, the kernels
-    # take it compact
-    gme = kref.expand_gmask(gm, g.shape[0], cohorts)
-    op = _tau_operand(cfg, g, e, None, w, p, gm, cohorts)
-    m_k, tau = _lane_sparsifier_state(cfg, op, cfg.q_local,
-                                      torch.ones_like(p), qb)
-    m_in = torch.clamp(sp.support(gam) - gme, 0, 1)
-    if m_k is None:
-        # threshold Top-Q: materialize the local mask to union it with the
-        # global and incoming masks, as the unfused topq_mask_fn does
-        x = op.materialize()
-        m_k = (x.abs() >= _col(tau)).to(x.dtype)
-        tau = _lane_inf(g.shape[0], g.device)
-    mask = sp.mask_union(torch.broadcast_to(gme, m_k.shape), m_k,
-                         m_in) * _col(p)
+    out = _ia_level(cfg, g, gam, e, w, p, gm, qb, valid, cohorts,
+                    cfg.q_local)
     we = cfg.err_sq_mode == "kernel"
-    out = kops.sparsify_ef_level(g, e, mask, w, tau, valid, with_err=we,
-                                 mode=cfg.kernel_mode)
-    gbar, e_new = out[0], out[1]
-    gout, nnz, nnz_off = kops.chain_accum_level(gam, gbar, valid, gm,
-                                                gmask_cohorts=cohorts,
-                                                mode=cfg.kernel_mode)
-    return gout, e_new, _stats_gmask(cfg, g.shape[-1], gm, nnz, nnz_off,
-                                     e_new, cohorts, out[3] if we else None)
+    return out[0], out[1], _stats_gmask(cfg, g.shape[-1], gm, out[2],
+                                        out[3], out[1], cohorts,
+                                        out[4] if we else None)
 
 
 def _fused_level_cl_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
@@ -433,7 +451,7 @@ def _fused_level_cl_tc_sia(cfg, g, gam, e, w, p, gm, qb, valid, cohorts=0):
 
 _FUSED_LEVEL = {
     AggKind.SIA: _fused_level_sia,
-    AggKind.RE_SIA: _fused_level_re_sia,
+    AggKind.RE_SIA: _fused_level_sia,
     AggKind.CL_SIA: _fused_level_cl_sia,
     AggKind.TC_SIA: _fused_level_tc_sia,
     AggKind.CL_TC_SIA: _fused_level_cl_tc_sia,

@@ -10,6 +10,10 @@
 //   cl_fuse_select_level   <- cl_fuse_level_pallas (:395/:444), with the
 //                             exact Top-Q support (lax.top_k over the
 //                             materialized operand) in front of it
+//   ia_fuse_select_level   <- sparsify_ef_level_pallas (:197/:230) then
+//                             chain_accum_level_pallas (:282/:308), with the
+//                             SIA / RE-SIA / TC-SIA keep mask (the exact
+//                             Top-Q support and the mask unions) in front
 //
 // Bound: at the paper's d = 7850 neither the bytes (a lane reads 3-4 rows
 // of 31.4 KB) nor the operations are the limit; the launches and the host
@@ -17,7 +21,10 @@
 // cl_fuse_level) take 3 device ops a search round and 1 a fuse, and around
 // them the level runs ~10 torch ops a search round (the bracket), or the
 // materialized operand, its abs, a stable descending sort, a scatter and a
-// cast (exact Top-Q). The design folds all of that into one launch: a
+// cast (exact Top-Q); an SIA-family level adds the mask's product with p,
+// the τ fill, RE-SIA's and TC-SIA's support and union ops, and two kernels
+// with three memsets, the first writing ḡ to device memory for the second
+// to read back. The design folds all of that into one launch: a
 // block of 1024 threads per lane keeps the lane's |operand| in shared
 // memory (4 bytes an element, so d <= 49152 with room for the rest), and
 // the steps that need the whole lane (the max, each round's counts and
@@ -48,6 +55,21 @@
 // nnz_off and, with ERR, the pinned ||e'||^2 folded tile by tile in the
 // same shared memory (tile.cuh's pinned_tile_err, tiles left to right).
 // A lane with p = 0 forwards (γ_in, g~) and selects nothing; a lane with
+// valid = 0 writes zeros.
+//
+// ia_fuse_select_level, per lane: g~ = fma(w, g, e) and the local support
+// m_k of x = g~ (TC-SIA: (1 - m) * g~), either the exact Top-q support by
+// the same radix select and tie pass (q = cfg.q, TC-SIA q_local) or
+// |x| >= τ for a given τ; then the present chain's keep rule term for
+// term, keep = |g~| >= τ' or mask > 0, with mask and τ' formed by the f32
+// operations core/algorithms.py uses (SIA: m_k · p, τ' = +inf, or no mask
+// and τ' = p > 0 ? τ : +inf; RE-SIA: the union of m_k and supp(γ_in), or
+// supp(γ_in) alone, times p; TC-SIA: (m + m_k + clamp(supp(γ_in) - m, 0,
+// 1) > 0) · p, τ' = +inf); ḡ = keep ? g~ : +0, e' = g~ - ḡ and
+// γ_out = γ_in + ḡ on every element (a γ_in of -0.0 comes out +0.0, as
+// the chain's add gives), nnz, nnz_off and, with ERR, the pinned ||e'||^2.
+// ḡ never leaves the registers. A lane with p = 0 selects nothing (its
+// mask is 0; |g~| = +inf is still kept by the τ' = +inf test); a lane with
 // valid = 0 writes zeros.
 //
 // Rounding: the operand is s = fma(w, g, e); s = fma(p, s, γ_in) with γ;
@@ -338,6 +360,58 @@ __device__ __forceinline__ void radix_select(const unsigned* s_key,
   }
 }
 
+// The exact Top-q support of the lane's operand (0 < q < d; all the
+// block's threads call it): its keys into s_key[0..d), the radix select of
+// the q-th largest key K, then s_key[i] = 1 for every key above K and for
+// the keys equal to K lowest index first until q (each thread owns a
+// contiguous run of indices, an exclusive block scan of their tie counts
+// gives each run its place), 0 elsewhere.
+template <bool GM, bool GAMMA>
+__device__ __forceinline__ void topq_support(const LaneOperand& op,
+                                             long long row, long long gm_row,
+                                             float wt, float pw, int q,
+                                             long long d, unsigned* s_key,
+                                             int* s_hist, int* s_red,
+                                             unsigned* s_prefix, int* s_k) {
+  const int tid = threadIdx.x;
+  for (long long i = tid; i < d; i += blockDim.x) {
+    s_key[i] = mag_key(operand_at<GM, GAMMA>(op, row, gm_row, i, wt, pw));
+  }
+  __syncthreads();
+  radix_select(s_key, d, q, s_hist, s_prefix, s_k);
+  const unsigned K = *s_prefix;
+  const int need = *s_k;
+  // ties: the keys equal to K, lowest index first
+  const long long chunk = (d + blockDim.x - 1) / blockDim.x;
+  const long long i0 = tid * chunk;
+  const long long i1 = i0 + chunk < d ? i0 + chunk : d;
+  int eq = 0;
+  for (long long i = i0; i < i1; ++i) eq += s_key[i] == K;
+  int before = block_exclusive_scan(eq, s_red);
+  for (long long i = i0; i < i1; ++i) {
+    const unsigned key = s_key[i];
+    bool sel = key > K;
+    if (key == K) sel = before++ < need;
+    s_key[i] = sel;
+  }
+  __syncthreads();
+}
+
+// The pinned ||e'||^2 of a lane whose e' sits in smem[0..d): zeros up to
+// whole tiles, then tile.cuh's fold tile by tile, left to right.
+__device__ __forceinline__ float lane_err(float* smem, long long d) {
+  const long long tiles = d > 0 ? (d + kTile - 1) / kTile : 1;
+  for (long long i = d + threadIdx.x; i < tiles * kTile; i += blockDim.x) {
+    smem[i] = 0.f;
+  }
+  float acc = 0.f;
+  for (long long j = 0; j < tiles; ++j) {
+    const float te = pinned_tile_err(smem + j * kTile);
+    acc = j == 0 ? te : __fadd_rn(acc, te);
+  }
+  return acc;
+}
+
 template <bool GM, bool ERR>
 __global__ void __launch_bounds__(kResThreads)
 cl_fuse_select_kernel(LaneOperand op, const float* __restrict__ valid, int q,
@@ -371,27 +445,8 @@ cl_fuse_select_kernel(LaneOperand op, const float* __restrict__ valid, int q,
   const bool select = alive && q > 0 && (long long)q < d;
   const bool keep_all = (long long)q >= d;
   if (select) {
-    for (long long i = tid; i < d; i += blockDim.x) {
-      s_key[i] = mag_key(operand_at<GM, true>(op, row, gm_row, i, wt, pw));
-    }
-    __syncthreads();
-    radix_select(s_key, d, q, s_hist, &s_prefix, &s_k);
-    const unsigned K = s_prefix;
-    const int need = s_k;
-    // ties: the keys equal to K, lowest index first
-    const long long chunk = (d + blockDim.x - 1) / blockDim.x;
-    const long long i0 = tid * chunk;
-    const long long i1 = i0 + chunk < d ? i0 + chunk : d;
-    int eq = 0;
-    for (long long i = i0; i < i1; ++i) eq += s_key[i] == K;
-    int before = block_exclusive_scan(eq, s_red);
-    for (long long i = i0; i < i1; ++i) {
-      const unsigned key = s_key[i];
-      bool sel = key > K;
-      if (key == K) sel = before++ < need;
-      s_key[i] = sel;
-    }
-    __syncthreads();
+    topq_support<GM, true>(op, row, gm_row, wt, pw, q, d, s_key, s_hist,
+                           s_red, &s_prefix, &s_k);
   }
   int my_nnz = 0, my_off = 0;
   for (long long i = tid; i < d; i += blockDim.x) {
@@ -425,15 +480,104 @@ cl_fuse_select_kernel(LaneOperand op, const float* __restrict__ valid, int q,
     nnz_off[w] = my_off;
   }
   if (ERR) {
-    const long long tiles = d > 0 ? (d + kTile - 1) / kTile : 1;
-    for (long long i = d + tid; i < tiles * kTile; i += blockDim.x) {
-      smem[i] = 0.f;
+    const float acc = lane_err(smem, d);
+    if (tid == 0) err[w] = acc;
+  }
+}
+
+// --------------------------------------------------------------------------
+// ia_fuse_select_level
+// --------------------------------------------------------------------------
+
+enum IaKind { kSia = 0, kReSia = 1, kTcSia = 2 };
+
+// torch.clamp(x, 0, 1): NaN stays NaN.
+__device__ __forceinline__ float clamp01(float x) {
+  return isnan(x) ? x : fminf(fmaxf(x, 0.f), 1.f);
+}
+
+template <int KIND, bool GM, bool EXACT, bool ERR>
+__global__ void __launch_bounds__(kResThreads)
+ia_fuse_select_kernel(LaneOperand op, const float* __restrict__ valid, int q,
+                      const float* __restrict__ tau,
+                      float* __restrict__ gout, float* __restrict__ enew,
+                      int* __restrict__ nnz, int* __restrict__ nnz_off,
+                      float* __restrict__ err, long long d) {
+  extern __shared__ float smem[];
+  unsigned* s_key = reinterpret_cast<unsigned*>(smem);   // [d], then e'
+  __shared__ int s_hist[256];
+  __shared__ int s_red[kWarps];
+  __shared__ unsigned s_prefix;
+  __shared__ int s_k;
+  const int w = blockIdx.x, tid = threadIdx.x;
+  const long long row = (long long)w * d;
+  if (!(valid[w] > 0.f)) {
+    for (long long i = tid; i < d; i += blockDim.x) {
+      gout[row + i] = 0.f;
+      enew[row + i] = 0.f;
     }
-    float acc = 0.f;
-    for (long long j = 0; j < tiles; ++j) {
-      const float te = pinned_tile_err(smem + j * kTile);
-      acc = j == 0 ? te : __fadd_rn(acc, te);
+    if (tid == 0) {
+      nnz[w] = 0;
+      nnz_off[w] = 0;
+      if (ERR) err[w] = 0.f;
     }
+    return;
+  }
+  const long long gm_row = GM ? gmask_row(w, op.gm_lpc, d) : 0;
+  const float wt = op.w[w], pw = op.p[w];
+  const bool alive = pw > 0.f;
+  // the mask is m · p: the support only matters on a live lane
+  const bool select = EXACT && alive && q > 0 && (long long)q < d;
+  const bool keep_all = (long long)q >= d;
+  const float tw = EXACT ? 0.f : tau[w];
+  // τ' of the keep test: the given τ on a live SIA / RE-SIA lane
+  const float tk = !EXACT && KIND != kTcSia && alive ? tw : INFINITY;
+  if (select) {
+    topq_support<GM, false>(op, row, gm_row, wt, pw, q, d, s_key, s_hist,
+                            s_red, &s_prefix, &s_k);
+  }
+  int my_nnz = 0, my_off = 0;
+  for (long long i = tid; i < d; i += blockDim.x) {
+    const float vg = __ldg(op.g + row + i), ve = __ldg(op.e + row + i);
+    const float vi = __ldg(op.gin + row + i);
+    const float vm = GM ? __ldg(op.gm + gm_row + i) : 0.f;
+    const float gt = __fmaf_rn(wt, vg, ve);
+    bool mk;   // the local support m_k
+    if (EXACT) {
+      mk = select ? s_key[i] != 0u : keep_all;
+    } else {
+      const float x = GM ? __fmul_rn(__fsub_rn(1.0f, vm), gt) : gt;
+      mk = fabsf(x) >= tw;
+    }
+    bool m;    // mask > 0 before the product with p
+    if (KIND == kSia) {
+      m = EXACT && mk;
+    } else if (KIND == kReSia) {
+      m = (EXACT && mk) || vi != 0.f;
+    } else {
+      const float m_in = clamp01(__fsub_rn(vi != 0.f ? 1.f : 0.f, vm));
+      m = __fadd_rn(__fadd_rn(vm, mk ? 1.f : 0.f), m_in) > 0.f;
+    }
+    const bool keep = fabsf(gt) >= tk || (alive && m);
+    const float gb = keep ? gt : 0.0f;
+    const float en = __fsub_rn(gt, gb);
+    const float ga = __fadd_rn(vi, gb);
+    gout[row + i] = ga;
+    enew[row + i] = en;
+    if (ga != 0.f) {
+      ++my_nnz;
+      if (!GM || vm <= 0.f) ++my_off;
+    }
+    if (ERR) smem[i] = en;
+  }
+  my_nnz = block_sum(my_nnz, s_red);
+  my_off = block_sum(my_off, s_red);
+  if (tid == 0) {
+    nnz[w] = my_nnz;
+    nnz_off[w] = my_off;
+  }
+  if (ERR) {
+    const float acc = lane_err(smem, d);
     if (tid == 0) err[w] = acc;
   }
 }
@@ -482,6 +626,40 @@ int select_launch(const LaneOperand& op, const float* valid, int q,
   kernel<<<w_lanes, kResThreads, smem, stream>>>(op, valid, q, gout, enew,
                                                  nnz, nnz_off, err, d);
   return (int)cudaGetLastError();
+}
+
+template <int KIND, bool GM, bool EXACT, bool ERR>
+int ia_launch(const LaneOperand& op, const float* valid, int q,
+              const float* tau, float* gout, float* enew, int* nnz,
+              int* nnz_off, float* err, int w_lanes, long long d,
+              cudaStream_t stream) {
+  auto kernel = ia_fuse_select_kernel<KIND, GM, EXACT, ERR>;
+  // the keys only for the exact support; e' only with ERR
+  const size_t smem = EXACT || ERR ? select_smem(d, ERR) : 4;
+  const int rc = allow_smem<ia_fuse_select_kernel<KIND, GM, EXACT, ERR>>(
+      smem);
+  if (rc) return rc;
+  kernel<<<w_lanes, kResThreads, smem, stream>>>(op, valid, q, tau, gout,
+                                                 enew, nnz, nnz_off, err, d);
+  return (int)cudaGetLastError();
+}
+
+// The exact (tau null) or τ-given form, with or without the error.
+template <int KIND, bool GM>
+int ia_forms(const LaneOperand& op, const float* valid, int q,
+             const float* tau, float* gout, float* enew, int* nnz,
+             int* nnz_off, float* err, int w_lanes, long long d,
+             cudaStream_t s) {
+#define IA(EX, ER) \
+  return ia_launch<KIND, GM, EX, ER>(op, valid, q, tau, gout, enew, nnz, \
+                                     nnz_off, err, w_lanes, d, s)
+  if (tau == nullptr) {
+    if (err != nullptr) IA(true, true);
+    IA(true, false);
+  }
+  if (err != nullptr) IA(false, true);
+  IA(false, false);
+#undef IA
 }
 
 }  // namespace
@@ -545,6 +723,33 @@ int cl_fuse_select_level_launch(const float* g, const float* e,
   if (err != nullptr) SEL(false, true);
   SEL(false, false);
 #undef SEL
+}
+
+// kind: 0 SIA, 1 RE-SIA, 2 TC-SIA (the only kind that reads a global
+// mask); tau null for the exact Top-q support of q, else τ [W].
+int ia_fuse_select_level_launch(const float* g, const float* e,
+                                const float* gin, const float* weight,
+                                const float* part, const float* valid,
+                                const float* gm, int gm_lpc, int kind, int q,
+                                const float* tau, float* gout, float* enew,
+                                int* nnz, int* nnz_off, float* err,
+                                int w_lanes, long long d, void* stream_ptr) {
+  if (d < 1 || d > kResidentMaxD) return (int)cudaErrorInvalidValue;
+  if (kind != kTcSia && gm != nullptr) return (int)cudaErrorInvalidValue;
+  const LaneOperand op{g, e, gin, gm, weight, part, gm_lpc};
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+#define FORMS(K, GMK) \
+  return ia_forms<K, GMK>(op, valid, q, tau, gout, enew, nnz, nnz_off, err, \
+                          w_lanes, d, s)
+  switch (kind) {
+    case kSia: FORMS(kSia, false);
+    case kReSia: FORMS(kReSia, false);
+    case kTcSia:
+      if (gm != nullptr) FORMS(kTcSia, true);
+      FORMS(kTcSia, false);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FORMS
 }
 
 }  // extern "C"

@@ -17,7 +17,10 @@ memory; levels of d ≤ :data:`RESIDENT_MAX_D`, the rule of
 * :func:`cl_fuse_select_level_cuda` ← ``cl_fuse_level_pallas`` with the
   exact Top-Q support in front of it — the whole exact CL node step;
 * :func:`tau_search_fused_level_cuda` ← ``count_ge_fused_level_pallas``
-  once per round — the whole threshold τ search of a level.
+  once per round — the whole threshold τ search of a level;
+* :func:`ia_fuse_select_level_cuda` ← ``sparsify_ef_level_pallas`` then
+  ``chain_accum_level_pallas``, with the SIA / RE-SIA / TC-SIA keep mask
+  in front of them — the whole node step of those kinds.
 
 ``csrc/tau_search.cu`` (the threshold Top-Q τ search):
 
@@ -161,6 +164,8 @@ def _load() -> ctypes.CDLL:
             [p] * 6 + [i] * 4 + [f] * 3 + [p, p, i, ll, p])
         lib.cl_fuse_select_level_launch.argtypes = (
             [p] * 7 + [i, i] + [p] * 5 + tail)
+        lib.ia_fuse_select_level_launch.argtypes = (
+            [p] * 7 + [i, i, i] + [p] * 6 + tail)
         lib.resident_max_d.argtypes = []
         lib.resident_max_d.restype = ll
         lib.resident_max_branch.argtypes = []
@@ -179,7 +184,8 @@ def _load() -> ctypes.CDLL:
                    lib.count_ge_fused_level_launch,
                    lib.hist_topq_level_launch, lib.hist_shared_max_branch,
                    lib.tau_search_fused_level_launch,
-                   lib.cl_fuse_select_level_launch, lib.resident_max_branch,
+                   lib.cl_fuse_select_level_launch,
+                   lib.ia_fuse_select_level_launch, lib.resident_max_branch,
                    lib.chain_accum_launch, lib.cl_fuse_launch,
                    lib.sparsify_ef_launch, lib.count_scratch_words,
                    lib.count_ge_launch, lib.count_ge_fused_launch):
@@ -572,6 +578,49 @@ def cl_fuse_select_level_cuda(g, e, gamma_in, weight, participate, valid,
     return out + (err,) if with_err else out
 
 
+def ia_fuse_select_level_cuda(g, e, gamma_in, weight, participate, valid,
+                              gmask=None, *, kind, q=None, tau=None,
+                              gmask_cohorts: int = 0, with_err: bool = False):
+    """CUDA :func:`repro_torch.kernels.ref.ref_ia_fuse_select_level`: the
+    SIA, RE-SIA or TC-SIA node step of a level in one launch — the local
+    support (the exact Top-Q of ``q``, or ``|x| ≥ τ`` for a given ``tau``),
+    error feedback, the sparsify and the IA combine, ḡ kept in registers.
+
+    g, e, gamma_in: [W, d] with d ≤ :data:`RESIDENT_MAX_D`; weight,
+    participate, valid (and tau): [W]; gmask (TC-SIA only) as
+    :func:`cl_fuse_level_cuda`; all float32. → (γ_out, e′, nnz, nnz_off)
+    (+ pinned ‖e′‖² with ``with_err``).
+    """
+    w_lanes, d, dev = _lanes(g)
+    _resident(d)
+    kind = ref.ia_kind(kind, gmask, q, tau)
+    lib = _load()
+    rows, lane = (w_lanes, d), (w_lanes,)
+    ins = [_rows("g", g, rows, dev), _rows("e", e, rows, dev),
+           _rows("gamma_in", gamma_in, rows, dev),
+           _check("weight", weight, lane, dev),
+           _check("participate", participate, lane, dev),
+           _check("valid", valid, lane, dev)]
+    gm, lpc = _gmask(gmask, w_lanes, d, dev, gmask_cohorts)
+    tau = None if tau is None else _check("tau", tau, lane, dev)
+    gout = torch.empty(rows, dtype=torch.float32, device=dev)
+    enew = torch.empty(rows, dtype=torch.float32, device=dev)
+    nnz = torch.empty(lane, dtype=torch.int32, device=dev)
+    nnz_off = torch.empty(lane, dtype=torch.int32, device=dev)
+    err = (torch.empty(lane, dtype=torch.float32, device=dev) if with_err
+           else None)
+    with torch.cuda.device(dev):
+        rc = lib.ia_fuse_select_level_launch(
+            *map(_ptr, ins), _ptr(gm), lpc, ref.IA_KINDS.index(kind),
+            0 if q is None else _budget(q), _ptr(tau), _ptr(gout),
+            _ptr(enew), _ptr(nnz), _ptr(nnz_off), _ptr(err), w_lanes, d,
+            _stream(dev))
+    _raise_on(rc, "ia_fuse_select_level")
+    ia_fuse_select_level_cuda.launches += 1
+    out = (gout, enew, nnz, nnz_off)
+    return out + (err,) if with_err else out
+
+
 def resident_limits() -> tuple:
     """(d, branch) limits compiled into the resident kernels; they must be
     :data:`RESIDENT_MAX_D` and :data:`RESIDENT_MAX_BRANCH`."""
@@ -637,7 +686,8 @@ def counted(fn):
 KERNELS = tuple(map(counted, (
     cl_fuse_level_cuda, sparsify_ef_level_cuda, chain_accum_level_cuda,
     count_ge_fused_level_cuda, hist_topq_level_cuda, count_ge_level_cuda,
-    cl_fuse_select_level_cuda, tau_search_fused_level_cuda)))
+    cl_fuse_select_level_cuda, tau_search_fused_level_cuda,
+    ia_fuse_select_level_cuda)))
 
 
 def reset_launch_counts():

@@ -18,9 +18,12 @@ tensor under ``"auto"`` or ``"always"`` launches the kernel or raises.
 
 Which form a level takes is :func:`resident_level`, a rule on its shape
 alone (the same on every device and in every mode): a lane that fits one
-block's shared memory takes the resident forms (:func:`cl_fuse_select_level`,
-:func:`tau_search_fused_level`), one launch per level; a longer one the
-multi-block kernels and the torch ops around them.
+block's shared memory takes the resident forms (:func:`cl_fuse_select_level`
+for exact CL Top-Q, :func:`ia_fuse_select_level` for every SIA, RE-SIA and
+TC-SIA level with a static q, :func:`tau_search_fused_level` for the
+threshold scan), one launch per level or search; a longer one the
+multi-block kernels (``sparsify_ef_level`` then ``chain_accum_level`` for
+the SIA family) and the torch ops around them.
 """
 
 from __future__ import annotations
@@ -202,13 +205,16 @@ def resident_level(d: int, branch: int = 1) -> bool:
 
     A level whose lanes hold d ≤ :data:`RESIDENT_MAX_D` elements (the
     lane's keys fit one block's shared memory; the paper's d = 7850 among
-    them) and whose τ search has ``branch`` ≤ :data:`RESIDENT_MAX_BRANCH`
-    candidates takes the resident forms: exact CL Top-Q through
-    :func:`cl_fuse_select_level`, the threshold scan through
+    them) takes the resident node steps: exact CL Top-Q through
+    :func:`cl_fuse_select_level`, and SIA, RE-SIA and TC-SIA, exact or
+    given τ, through :func:`ia_fuse_select_level` (a per-lane ``q_budget``
+    keeps the sort and the multi-block kernels). Its τ search, where its
+    ``branch`` ≤ :data:`RESIDENT_MAX_BRANCH` candidates too, runs through
     :func:`tau_search_fused_level`. A longer lane takes the multi-block
-    kernels (``cl_fuse_level`` after a sort, ``count_ge_fused_level`` once
-    per round), which reach 64–77 % of their bound at large d. The rule
-    reads the shape only, so the CPU's plain versions take the same path.
+    kernels (``cl_fuse_level`` after a sort; ``sparsify_ef_level`` then
+    ``chain_accum_level``; ``count_ge_fused_level`` once per round), which
+    reach 64–81 % of their bound at large d. The rule reads the shape
+    only, so the CPU's plain versions take the same path.
     """
     return 1 <= d <= RESIDENT_MAX_D and 1 <= branch <= RESIDENT_MAX_BRANCH
 
@@ -244,3 +250,21 @@ def cl_fuse_select_level(g, e, gamma_in, weight, participate, valid,
     return ref.ref_cl_fuse_select_level(
         g, e, gamma_in, weight, participate, valid, gmask, q=q,
         gmask_cohorts=gmask_cohorts, with_err=with_err)
+
+
+def ia_fuse_select_level(g, e, gamma_in, weight, participate, valid,
+                         gmask=None, *, kind, q=None, tau=None,
+                         gmask_cohorts: int = 0, with_err: bool = False,
+                         mode: Mode = "auto"):
+    """The SIA, RE-SIA or TC-SIA node step of a level (``kind``): the
+    local support (exact Top-Q of ``q``, or ``|x| ≥ τ`` for a given
+    ``tau``), EF + sparsify and the IA combine → (γ_out, e′, nnz, nnz_off)
+    (+ pinned ‖e′‖²); ``gmask`` for TC-SIA only; d within
+    :func:`resident_level`."""
+    if _kernel(mode, g):
+        return level.ia_fuse_select_level_cuda(
+            g, e, gamma_in, weight, participate, valid, gmask, kind=kind,
+            q=q, tau=tau, gmask_cohorts=gmask_cohorts, with_err=with_err)
+    return ref.ref_ia_fuse_select_level(
+        g, e, gamma_in, weight, participate, valid, gmask, kind=kind, q=q,
+        tau=tau, gmask_cohorts=gmask_cohorts, with_err=with_err)

@@ -103,6 +103,14 @@ def ref_err_sq_level(e_new: Tensor) -> Tensor:
 
 def ref_sparsify_ef_level(g, e, mask_in, weight, tau, valid, *,
                           with_err: bool = False):
+    """Fused error feedback + sparsify over a level's W lanes: see
+    :func:`_sparsify_ef_level`."""
+    return _sparsify_ef_level(g, e, mask_in, weight, tau, valid,
+                              with_err=with_err)
+
+
+def _sparsify_ef_level(g, e, mask_in, weight, tau, valid, *,
+                       with_err: bool = False):
     """Fused error feedback + sparsify over a level's W lanes.
 
     g̃ = w·g + e; keep = |g̃| ≥ τ ∨ mask_in; ḡ = keep ? g̃ : 0;
@@ -131,6 +139,14 @@ def _off_mask_count(nz: Tensor, gmask: Optional[Tensor], nnz: Tensor):
 
 def ref_chain_accum_level(gamma_in, gbar, valid, gmask=None, *,
                           gmask_cohorts: int = 0):
+    """γ_out = γ_in + ḡ with the total and off-global-mask support counts:
+    see :func:`_chain_accum_level`."""
+    return _chain_accum_level(gamma_in, gbar, valid, gmask,
+                              gmask_cohorts=gmask_cohorts)
+
+
+def _chain_accum_level(gamma_in, gbar, valid, gmask=None, *,
+                       gmask_cohorts: int = 0):
     """γ_out = γ_in + ḡ with the total and off-global-mask support counts.
 
     ``gmask`` is lane-shared ``[d]``, per-lane ``[W, d]`` or, with
@@ -234,6 +250,88 @@ def ref_cl_fuse_select_level(g, e, gamma_in, weight, participate, valid,
     return _cl_fuse_level(g, e, gamma_in, weight, tau, participate, valid,
                           gmask, mask, gmask_cohorts=gmask_cohorts,
                           with_err=with_err)
+
+
+#: The node-step kinds of :func:`ref_ia_fuse_select_level`, in the order of
+#: their codes in the kernel's C interface.
+IA_KINDS = ("sia", "re_sia", "tc_sia")
+
+
+def ia_kind(kind, gmask, q, tau) -> str:
+    """The kind of an ``ia_fuse_select_level`` call as its name (an
+    ``AggKind`` or its value), after the checks the kernel and its plain
+    version share: a kind of :data:`IA_KINDS`, a global mask for TC-SIA
+    alone, and exactly one of ``q`` (exact Top-Q) and ``tau`` (a given
+    τ). ``ValueError`` otherwise."""
+    kind = getattr(kind, "value", kind)
+    if kind not in IA_KINDS:
+        raise ValueError(f"ia_fuse_select_level takes the kinds {IA_KINDS}, "
+                         f"got {kind!r}")
+    if gmask is not None and kind != "tc_sia":
+        raise ValueError(f"{kind} reads no global mask")
+    if (q is None) == (tau is None):
+        raise ValueError("give q (exact Top-Q) or tau (a given τ), one of "
+                         "them")
+    return kind
+
+
+def ref_ia_fuse_select_level(g, e, gamma_in, weight, participate, valid,
+                             gmask=None, *, kind, q=None, tau=None,
+                             gmask_cohorts: int = 0, with_err: bool = False):
+    """The SIA, RE-SIA or TC-SIA node step of a level: the chain the
+    resident kernel replaces, bit for bit — the keep mask of
+    ``core/algorithms.py``, then :func:`ref_sparsify_ef_level`, then
+    :func:`ref_chain_accum_level` (their bodies, so a count of the plain
+    versions' calls sees one call).
+
+    The local support m_k is the Top-Q support of the operand
+    (:func:`fused_operand` without γ: ``w·g + e``, TC-SIA ``(1−m)·(w·g +
+    e)``; :func:`repro_torch.core.sparsify.topq_mask`) for ``q``, or
+    ``|x| ≥ τ`` for a given ``tau`` [W]. The mask and τ′ of the keep test
+    ``|g̃| ≥ τ′ ∨ mask > 0``:
+
+    * SIA: ``m_k · p`` and τ′ = +inf; given τ, no mask and τ′ = τ where
+      p > 0, else +inf;
+    * RE-SIA: ``1(m_k + supp(γ_in)) · p`` and τ′ = +inf; given τ,
+      ``supp(γ_in) · p`` and τ′ as SIA's;
+    * TC-SIA: ``1(m + m_k + clamp(supp(γ_in) − m, 0, 1)) · p``, τ′ = +inf.
+
+    ``gmask`` (TC-SIA only) takes the forms of
+    :func:`ref_chain_accum_level`. → (γ_out, e′, nnz [W] i32, nnz_off [W]
+    i32), plus the pinned ‖e′‖² with ``with_err``.
+    """
+    kind = ia_kind(kind, gmask, q, tau)
+    w_lanes = g.shape[0]
+    p = participate[:, None].to(torch.float32)
+    inf = torch.full((w_lanes,), math.inf, dtype=torch.float32,
+                     device=g.device)
+    x = fused_operand(g, e, None, weight, participate, gmask,
+                      gmask_cohorts=gmask_cohorts)
+    if tau is None:
+        m_k = sp.topq_mask(x, q)
+    elif kind == "tc_sia":
+        m_k = (x.abs() >= tau[:, None].to(torch.float32)).to(x.dtype)
+    else:
+        m_k = None
+    tau_keep = inf
+    if m_k is None:
+        tau_keep = torch.where(participate > 0, tau.to(torch.float32), inf)
+    support = sp.support(gamma_in.to(torch.float32))
+    if kind == "sia":
+        mask = None if m_k is None else m_k * p
+    elif kind == "re_sia":
+        mask = (support if m_k is None else sp.mask_union(m_k, support)) * p
+    else:
+        gme = expand_gmask(gmask, w_lanes, gmask_cohorts)
+        gme = torch.zeros_like(x) if gme is None else gme
+        m_in = torch.clamp(support - gme, 0, 1)
+        mask = sp.mask_union(torch.broadcast_to(gme, m_k.shape), m_k,
+                             m_in) * p
+    out = _sparsify_ef_level(g, e, mask, weight, tau_keep, valid,
+                             with_err=with_err)
+    gout, nnz, nnz_off = _chain_accum_level(gamma_in, out[0], valid, gmask,
+                                            gmask_cohorts=gmask_cohorts)
+    return (gout, out[1], nnz, nnz_off) + out[3:]
 
 
 # ---------------------------------------------------------------------------
@@ -413,9 +511,9 @@ def resident_edge_lanes(w: int, d: int, seed: int = 0, q: int = 11) -> dict:
     """Float32 inputs of a ``[W, d]`` level (CPU tensors ``g, e, gin, w, p,
     valid``) for the resident kernels; with W ≥ 7 the first lanes are the
     edge rows: 0 ties straddling the q-th magnitude, 1 p = 0, 2 a few NaN
-    and ±inf, 3 all zeros, 4 valid = 0, 5 more ±inf and NaN than q, 6
-    fewer nonzeros than q (ties at zero straddling the q-th place, −0.0
-    among them)."""
+    and ±inf, 3 all zeros (γ_in −0.0), 4 valid = 0, 5 more ±inf and NaN
+    than q, 6 fewer nonzeros than q (ties at zero straddling the q-th
+    place, −0.0 among them)."""
     rng = np.random.default_rng(seed)
     f = lambda: rng.standard_normal((w, d)).astype(np.float32)  # noqa
     x = dict(g=f(), e=(0.3 * f()).astype(np.float32),
@@ -432,6 +530,7 @@ def resident_edge_lanes(w: int, d: int, seed: int = 0, q: int = 11) -> dict:
         pos = rng.choice(d, 6, replace=False)
         x["g"][2, pos] = [np.nan, np.inf, -np.inf, np.nan, np.inf, -np.inf]
         x["g"][3] = 0.0
+        x["gin"][3] = -0.0
         x["valid"][4] = 0.0
         pos = rng.choice(d, q + 5, replace=False)
         x["g"][5, pos[:q + 2]] = np.where(rng.random(q + 2) < 0.5,
@@ -446,12 +545,37 @@ def resident_edge_lanes(w: int, d: int, seed: int = 0, q: int = 11) -> dict:
 def resident_gmask(form: Optional[str], w: int, d: int, seed: int = 0,
                    cohorts: int = 0) -> Optional[Tensor]:
     """A 0/1 float32 global mask of a resident test level: None,
-    ``"shared"`` [d], ``"lanes"`` [W, d] or ``"cohort"`` [cohorts, d]."""
+    ``"shared"`` [d], ``"lanes"`` [W, d] or ``"cohort"`` [cohorts, d]; or
+    ``"odd"``, a [W, d] mask that also holds values other than 0 and 1
+    (0.5, −0.25, 2, −0.0, NaN)."""
     if form is None:
         return None
     rng = np.random.default_rng(seed + 100)
+    if form == "odd":
+        vals = np.float32([0, 0, 0, 1, 0.5, -0.25, 2, np.nan, -0.0])
+        return torch.from_numpy(vals[rng.integers(0, vals.size, (w, d))])
     shape = {"shared": (d,), "lanes": (w, d), "cohort": (cohorts, d)}[form]
     return torch.from_numpy((rng.random(shape) < 0.1).astype(np.float32))
+
+
+def resident_taus(x: dict, gmask: Optional[Tensor] = None,
+                  cohorts: int = 0, q: int = 11) -> Tensor:
+    """[W] float32 given τ for the lanes ``x`` of
+    :func:`resident_edge_lanes`: each lane's q-th largest magnitude of its
+    SIA-family operand (:func:`fused_operand` without γ; NaN magnitudes
+    last), then, where W allows, a NaN τ on lane 2 (the lane of NaN and
+    ±inf with W ≥ 7), τ = 0 on lane 7 and +inf on lane 8."""
+    op = fused_operand(x["g"], x["e"], None, x["w"], x["p"], gmask,
+                       gmask_cohorts=cohorts).abs()
+    op = torch.where(torch.isnan(op), -1.0, op)
+    srt = torch.sort(op, dim=-1, descending=True).values
+    tau = srt[:, min(max(q, 1), op.shape[-1]) - 1].clone()
+    w = tau.shape[0]
+    if w >= 3:
+        tau[2] = math.nan
+    if w >= 9:
+        tau[7], tau[8] = 0.0, math.inf
+    return tau
 
 
 def count_level_edge_taus(n: int, seed: int = 0) -> Tensor:

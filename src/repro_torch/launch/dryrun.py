@@ -395,7 +395,7 @@ KERNELS = ("ref_cl_fuse_level", "ref_sparsify_ef_level",
            "ref_hist_topq_level", "ref_count_ge_level", "ref_chain_accum",
            "ref_cl_fuse", "ref_sparsify_ef", "ref_count_ge",
            "ref_count_ge_fused", "ref_cl_fuse_select_level",
-           "ref_tau_search_fused_level")
+           "ref_tau_search_fused_level", "ref_ia_fuse_select_level")
 
 
 @contextlib.contextmanager

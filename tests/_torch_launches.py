@@ -4,10 +4,11 @@ stated on their own: the launch gates of the card tests and of
 ask the port's dispatch code, so a wrong dispatch condition shows as a
 count that differs.
 
-The resident forms (``cl_fuse_select_level``, ``tau_search_fused_level``)
-take lanes of at most :data:`RESIDENT_D` elements and a τ scan of at most
-:data:`RESIDENT_BRANCH` candidates, the limits ``kernels/ops.py``
-documents; a longer lane takes the multi-block kernels.
+The resident forms (``cl_fuse_select_level``, ``ia_fuse_select_level``,
+``tau_search_fused_level``) take lanes of at most :data:`RESIDENT_D`
+elements and a τ scan of at most :data:`RESIDENT_BRANCH` candidates, the
+limits ``kernels/ops.py`` documents; a longer lane takes the multi-block
+kernels.
 """
 
 RESIDENT_D = 49_152
@@ -25,10 +26,13 @@ def level_launches(cfg, d: int, levels: int = 1, *,
     Once a level: the CL fuse, or ``sparsify_ef_level`` and
     ``chain_accum_level``; under threshold Top-Q also the τ search, once a
     round where it counts through ``count_ge_fused_level``. On resident
-    lanes exact CL Top-Q with a static q is ``cl_fuse_select_level`` alone
-    (``budgets``, per-node ``q_budget``, keeps the sort and the fuse) and
-    the scan ``tau_search_fused_level``. Empty where ``cfg`` takes no
-    fused step."""
+    lanes with a static q (``budgets``, per-node ``q_budget``, keeps the
+    sort and the multi-block kernels) exact CL Top-Q is
+    ``cl_fuse_select_level`` alone, SIA, RE-SIA and TC-SIA
+    ``ia_fuse_select_level`` alone, exact or after the search, and the
+    scan ``tau_search_fused_level``. A budgeted level selects by its sort
+    under either ``topq_impl`` and searches no τ. Empty where ``cfg``
+    takes no fused step."""
     kind = getattr(cfg.kind, "value", cfg.kind)
     if kind not in _FUSED or cfg.kernel_mode == "never" or levels <= 0:
         return {}
@@ -36,9 +40,11 @@ def level_launches(cfg, d: int, levels: int = 1, *,
     if kind in _CL:
         select = resident and cfg.topq_impl == "exact" and not budgets
         out = {"cl_fuse_select_level" if select else "cl_fuse_level": levels}
+    elif resident and not budgets:
+        out = {"ia_fuse_select_level": levels}
     else:
         out = {"sparsify_ef_level": levels, "chain_accum_level": levels}
-    if cfg.topq_impl == "threshold":
+    if cfg.topq_impl == "threshold" and not budgets:
         if cfg.tau_impl == "hist":
             out["hist_topq_level"] = levels
         elif resident and cfg.hist_branch <= RESIDENT_BRANCH:

@@ -181,10 +181,11 @@ def test_default_global_mask_takes_the_cohort_form(kind, monkeypatch):
     [d] mask."""
     from repro_torch.kernels import ops
     seen = []
-    # exact CL-TC-SIA: the CL fuse the dispatch rule picks at d = D
-    orig = (ops.chain_accum_level if kind == "tc_sia" else
-            ops.cl_fuse_select_level if ops.resident_level(D) else
-            ops.cl_fuse_level)
+    # the node step the dispatch rule picks at d = D
+    resident = ops.resident_level(D)
+    orig = ((ops.ia_fuse_select_level if resident else
+             ops.chain_accum_level) if kind == "tc_sia" else
+            ops.cl_fuse_select_level if resident else ops.cl_fuse_level)
     name = orig.__name__
 
     def spy(*a, **kw):

@@ -351,7 +351,7 @@ def test_tau_search_ops_launch_on_cuda(cuda):
         ops.count_ge_level(args[0], tables[0], mode=mode)
     ops.hist_topq_level(*args, tables, mode="ref")
     grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
-    assert grown == [0, 0, 0, 2, 2, 2, 0, 0]
+    assert grown == [0, 0, 0, 2, 2, 2, 0, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +422,72 @@ def test_cl_fuse_select_level_kernel(cuda, d, form, cohorts, with_err):
             _same_nan(a, b)
 
 
+IA_FORMS = ([("sia", None, 0), ("re_sia", None, 0)]
+            + [("tc_sia", f, b) for f, b in RESIDENT_GM + [("odd", 0)]])
+
+
+def _ia_forms(cpu, gpu, form, cohorts, d):
+    """The exact (q ≤ 0 … q > d) and τ-given forms of an
+    ``ia_fuse_select_level`` call on the CPU and on the card."""
+    tau = ref.resident_taus(cpu, cpu["gm"], cohorts, 11)
+    out = [(dict(q=q), dict(q=q)) for q in (0, 1, 11, 78, d - 1, d, d + 3)]
+    return out + [(dict(tau=tau), dict(tau=tau.to(gpu["g"].device)))]
+
+
+@pytest.mark.parametrize("d", RESIDENT_D)
+@pytest.mark.parametrize("kind,form,cohorts", IA_FORMS)
+@pytest.mark.parametrize("with_err", [False, True])
+def test_ia_fuse_select_level_kernel(cuda, d, kind, form, cohorts, with_err):
+    """γ_out, e′, nnz, nnz_off (and the pinned ‖e′‖²) of the resident SIA,
+    RE-SIA and TC-SIA step = its plain version on the CPU, on the edge
+    lanes (γ_in = −0.0 on lane 3, a NaN τ on lane 2), for q ≤ 0 … q > d
+    and a given τ, over the global-mask forms of TC-SIA."""
+    cpu, gpu = _resident(28, d, form, cohorts, cuda, seed=d + 2)
+    pick = lambda t: (t["g"], t["e"], t["gin"], t["w"], t["p"],  # noqa
+                      t["valid"], t["gm"])
+    for on_cpu, on_card in _ia_forms(cpu, gpu, form, cohorts, d):
+        kw = dict(kind=kind, gmask_cohorts=cohorts, with_err=with_err)
+        want = ref.ref_ia_fuse_select_level(*pick(cpu), **kw, **on_cpu)
+        got = level.ia_fuse_select_level_cuda(*pick(gpu), **kw, **on_card)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == 4 + with_err
+        for a, b in zip(want, got):
+            _same_nan(a, b)
+
+
+@pytest.mark.parametrize("kind", ["sia", "re_sia", "tc_sia"])
+@pytest.mark.parametrize("impl", ["exact", "threshold"])
+def test_ia_dispatch_on_the_card(cuda, kind, impl):
+    """An SIA, RE-SIA or TC-SIA level step on the card at the largest
+    resident d launches ``ia_fuse_select_level`` once (and the resident τ
+    search); at d + 1 ``sparsify_ef_level`` and ``chain_accum_level``
+    (and ``count_ge_fused_level`` once a round). Both equal the step on
+    the CPU."""
+    from repro_torch.core.algorithms import AggConfig, level_step
+    cfg = AggConfig(kind=kind, q=78, topq_impl=impl, hist_branch=64,
+                    err_sq_mode="kernel")
+    for d in (level.RESIDENT_MAX_D, level.RESIDENT_MAX_D + 1):
+        cpu, gpu = _resident(3, d, "shared", 0, cuda, seed=d)
+        pick = lambda t: (t["g"], t["gin"], t["e"], t["w"], t["p"],  # noqa
+                          t["gm"], None, t["valid"])
+        before = {fn.__name__: fn.launches for fn in level.KERNELS}
+        got = level_step(cfg)(*pick(gpu))
+        torch.cuda.synchronize()
+        grown = {n.replace("_cuda", ""): fn.launches - before[n]
+                 for n, fn in ((f.__name__, f) for f in level.KERNELS)
+                 if fn.launches - before[n]}
+        search = {} if impl == "exact" else (
+            {"tau_search_fused_level": 1} if d <= level.RESIDENT_MAX_D
+            else {"count_ge_fused_level": 3})
+        want = ({"ia_fuse_select_level": 1} if d <= level.RESIDENT_MAX_D
+                else {"sparsify_ef_level": 1, "chain_accum_level": 1})
+        assert grown == {**want, **search} == level_launches(cfg, d), (
+            d, grown)
+        want = level_step(cfg)(*pick(cpu))
+        for a, b in zip(want[:2] + tuple(want[2]), got[:2] + tuple(got[2])):
+            _same_nan(a, b)
+
+
 @pytest.mark.parametrize("w", [1, 3])
 def test_resident_kernels_on_few_lanes(cuda, w):
     """W = 1 and 3 lanes at the paper's d, a lane-shared mask."""
@@ -443,6 +509,16 @@ def test_resident_kernels_on_few_lanes(cuda, w):
                                                 include_gamma=True)
         _same_nan(want[0], got[0])
         _same(want[1], got[1])
+        for kind in ("sia", "re_sia", "tc_sia"):
+            gm = (cpu["gm"], gpu["gm"]) if kind == "tc_sia" else (None,) * 2
+            want = ref.ref_ia_fuse_select_level(*op(cpu), cpu["valid"],
+                                                gm[0], kind=kind, q=q,
+                                                with_err=True)
+            got = level.ia_fuse_select_level_cuda(*op(gpu), gpu["valid"],
+                                                  gm[1], kind=kind, q=q,
+                                                  with_err=True)
+            for a, b in zip(want, got):
+                _same_nan(a, b)
 
 
 @pytest.mark.parametrize("impl", ["exact", "threshold"])
@@ -499,6 +575,15 @@ def test_resident_kernels_on_two_cards(cuda):
             for a, b in zip(want, got):
                 assert b.device == torch.device(dev)
                 _same_nan(a, b)
+            want = ref.ref_ia_fuse_select_level(*op(cpu), cpu["valid"],
+                                                cpu["gm"], kind="tc_sia",
+                                                q=78, with_err=with_err)
+            got = level.ia_fuse_select_level_cuda(*op(gpu), gpu["valid"],
+                                                  gpu["gm"], kind="tc_sia",
+                                                  q=78, with_err=with_err)
+            for a, b in zip(want, got):
+                assert b.device == torch.device(dev)
+                _same_nan(a, b)
         want = ref.ref_tau_search_fused_level(*op(cpu), cpu["gm"], q=78,
                                               branch=64, rounds=3,
                                               include_gamma=True)
@@ -523,8 +608,10 @@ def test_resident_ops_launch_on_cuda(cuda):
                                  mode=mode)
         ops.tau_search_fused_level(*op, gpu["gm"], q=10, branch=64,
                                    rounds=3, mode=mode)
+        ops.ia_fuse_select_level(*op, gpu["valid"], gpu["gm"],
+                                 kind="tc_sia", q=10, mode=mode)
     grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
-    assert grown == [0, 0, 0, 0, 0, 0, 2, 2]
+    assert grown == [0, 0, 0, 0, 0, 0, 2, 2, 2]
     big = torch.zeros((1, level.RESIDENT_MAX_D + 1), device=cuda)
     one = torch.ones((1,), device=cuda)
     with pytest.raises(ValueError):
@@ -532,6 +619,9 @@ def test_resident_ops_launch_on_cuda(cuda):
     with pytest.raises(ValueError):
         level.tau_search_fused_level_cuda(big, big, big, one, one, q=3,
                                           branch=64, rounds=3)
+    with pytest.raises(ValueError):
+        level.ia_fuse_select_level_cuda(big, big, big, one, one, one,
+                                        kind="sia", q=3)
 
 
 # ---------------------------------------------------------------------------
@@ -663,7 +753,7 @@ def test_ops_cohort_gmask_launch_on_cuda(cuda):
         ops.hist_topq_level(*args, tables, c["gmc"][1], gmask_cohorts=2,
                             mode=mode)
     grown = [a - b for a, b in zip((k.launches for k in level.KERNELS), n0)]
-    assert grown == [2, 0, 2, 2, 2, 0, 0, 0]
+    assert grown == [2, 0, 2, 2, 2, 0, 0, 0, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,13 @@ the launches. ``measure`` splits that time, on one tree of the port:
   ``PERF.md``'s kernel table, and the resident forms where the tree has
   them; with ``--all`` rows 5-6 too and the scalar kernels (rows 7-11)
   on one row of d = 7850;
-* one whole level of CL-SIA on the chain (W = 1) through
-  ``algorithms.level_step``, under exact Top-Q and under threshold Top-Q
-  (scan, 3 rounds of 64 candidates): device ops, device µs and host µs;
-* whole simulator rounds of CL-SIA on the chain (exact and threshold):
-  ms per round (host clock after a synchronize), and device ops and busy
-  ms per round from the profiler.
+* one whole level of CL-SIA, SIA, RE-SIA and TC-SIA on the chain (W = 1)
+  through ``algorithms.level_step``, under exact Top-Q and under
+  threshold Top-Q (scan, 3 rounds of 64 candidates): device ops, device
+  µs and host µs (TC-SIA with a lane-shared mask of Q_G ones);
+* whole simulator rounds of the same kinds on the chain (K = 28, exact
+  and threshold): ms per round (host clock after a synchronize), and
+  device ops and busy ms per round from the profiler.
 
 ``split`` divides the resident kernels' device time (W = 1): the
 select's with and without its radix passes (q = 78 against q = 0 and q =
@@ -57,6 +58,7 @@ BRANCH, ROUNDS = 64, 3
 CALLS = 200                 # back-to-back calls per host timing
 PROFILED = 50               # calls under the profiler
 SIM_ROUNDS = 10
+KINDS = ("cl_sia", "sia", "re_sia", "tc_sia")
 ALL = False
 
 
@@ -115,6 +117,8 @@ def level_inputs(w: int, d: int, seed: int) -> dict:
                  < 0.01).float()
     x["taus"] = torch.sort(torch.rand((w, BRANCH), generator=gen,
                                       device="cuda") * 3, dim=-1).values
+    x["gm"] = torch.zeros((d,), device="cuda")
+    x["gm"][:70] = 1.0
     return x
 
 
@@ -151,6 +155,21 @@ def kernel_calls(level, x: dict) -> dict:
             level.tau_search_fused_level_cuda(
                 x["g"], x["e"], x["gin"], x["weight"], x["part"], q=78,
                 branch=BRANCH, rounds=ROUNDS, include_gamma=True))
+    if hasattr(level, "ia_fuse_select_level_cuda"):
+        # exact SIA; TC-SIA with a lane-shared mask and its q_local; SIA
+        # given τ
+        calls["ia_fuse_select_level"] = lambda: (
+            level.ia_fuse_select_level_cuda(
+                x["g"], x["e"], x["gin"], x["weight"], x["part"],
+                x["valid"], kind="sia", q=78))
+        calls["ia_fuse_select_level/tc_sia"] = lambda: (
+            level.ia_fuse_select_level_cuda(
+                x["g"], x["e"], x["gin"], x["weight"], x["part"],
+                x["valid"], x["gm"], kind="tc_sia", q=8))
+        calls["ia_fuse_select_level/tau"] = lambda: (
+            level.ia_fuse_select_level_cuda(
+                x["g"], x["e"], x["gin"], x["weight"], x["part"],
+                x["valid"], kind="sia", tau=x["tau"]))
     return calls
 
 
@@ -192,7 +211,8 @@ def measure(args) -> list:
     level.build()
     dev = card()
     emit(rows, what="tree", src=str(args.src), card=dev,
-         resident=hasattr(level, "cl_fuse_select_level_cuda"))
+         resident=hasattr(level, "cl_fuse_select_level_cuda"),
+         resident_ia=hasattr(level, "ia_fuse_select_level_cuda"))
     for w in LANES:
         x = level_inputs(w, PAPER_D, seed=w)
         calls = kernel_calls(level, x)
@@ -213,33 +233,37 @@ def measure(args) -> list:
         topq_impl="threshold", tau_impl="scan", hist_rounds=ROUNDS,
         hist_branch=BRANCH)}
     x = level_inputs(1, pc.d, seed=7)
+    # the TCS mask of a round: Q_G ones (zeros for the other kinds)
     gm = torch.zeros((pc.d,), device="cuda")
-    for form, extra in forms.items():
-        cfg = alg.AggConfig(kind=alg.AggKind.CL_SIA, **kw, **extra)
-        step = alg.level_step(cfg)
-        fn = lambda: step(x["g"], x["gin"], x["e"], x["weight"],  # noqa
-                          x["part"], gm)
-        host_us, wall_us = host_times(fn, 50)
-        dev_us, ops = device_profile(fn, 20)
-        emit(rows, what="level", kind="cl_sia", form=form, W=1, d=pc.d,
-             host_us=host_us, wall_us=wall_us, device_us=dev_us,
-             device_ops=ops, card=dev)
-    for form, extra in forms.items():
-        sim = Simulator(pc, alg.AggConfig(kind=alg.AggKind.CL_SIA, **kw,
-                                          **extra), fed, device="cuda")
-        sim.run(2, seed=0)
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sim.run(SIM_ROUNDS, seed=0)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3 / SIM_ROUNDS)
-        dev_us, ops = device_profile(lambda: sim.run(1, seed=0), 3)
-        emit(rows, what="round", kind="cl_sia", form=form, topology="chain",
-             K=pc.num_clients, d=pc.d, ms_per_round=statistics.median(walls),
-             ms_range=[min(walls), max(walls)], device_ms=dev_us / 1e3,
-             device_ops=ops, card=dev)
+    gm[:pc.q_global] = 1.0
+    for kind in KINDS:
+        for form, extra in forms.items():
+            step = alg.level_step(alg.AggConfig(kind=kind, **kw, **extra))
+            fn = lambda: step(x["g"], x["gin"], x["e"],  # noqa: E731
+                              x["weight"], x["part"], gm)
+            host_us, wall_us = host_times(fn, 50)
+            dev_us, ops = device_profile(fn, 20)
+            emit(rows, what="level", kind=kind, form=form, W=1, d=pc.d,
+                 host_us=host_us, wall_us=wall_us, device_us=dev_us,
+                 device_ops=ops, card=dev)
+    for kind in KINDS:
+        for form, extra in forms.items():
+            sim = Simulator(pc, alg.AggConfig(kind=kind, **kw, **extra), fed,
+                            device="cuda")
+            sim.run(2, seed=0)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim.run(SIM_ROUNDS, seed=0)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3 / SIM_ROUNDS)
+            dev_us, ops = device_profile(lambda: sim.run(1, seed=0), 3)
+            emit(rows, what="round", kind=kind, form=form,
+                 topology="chain", K=pc.num_clients, d=pc.d,
+                 ms_per_round=statistics.median(walls),
+                 ms_range=[min(walls), max(walls)], device_ms=dev_us / 1e3,
+                 device_ops=ops, card=dev)
     return rows
 
 
