@@ -282,7 +282,16 @@ Phases (any failure exits non-zero and prints no result):
    and the mamba2 SMOKE model (batch over model), f32, SGD, 3 CL-SIA steps
    each from the all-card step's state: the change within 1e-6 of the
    all-card step's scale, the loss to 1e-5, the card's level kernels once
-   per level for each column's card;
+   per level for each column's card; (c) (a)'s phi4 cell on 2 × 16 ranks
+   of ``cuda:0`` (``TP_SEQ_MESH``): 16 divides neither its 24 q heads nor
+   its 8 kv heads, so each client's attention splits by query sequence
+   (the reference's ``_constrain_scores`` rule, ``attention.
+   query_blocks``): one CL-SIA step, its attention calls counted by the
+   rank whose query block they take (all 16 alike, none whole), its
+   launches as predicted, the peak of the init and the step within ±1 % of
+   ``dry_run_cell``'s prediction for the mesh, the fullest rank's peak on
+   one fake device a rank beside the parent's form's (the sub-layer whole
+   on rank (k, 0)), and the TP columns and the step fed them as (a)'s;
 16. serving split over ranks of the card (``models/serve_split.py``: the
    params placed by ``param_pspecs``, the cache by ``cache_pspecs``) —
    SMOKE mixtral (its 32-slot SWA ring, heads over ``model`` on 2 × 2 with
@@ -5257,6 +5266,8 @@ TP_LOSS_TOL = 1e-2                 # (a) bf16: the TP loss, relative
 TP_STEP_TOL = 5e-2                 # (a) bf16: the change fed TP columns
                                    # vs fed whole-model columns, relative
                                    # L2 off the support swaps
+TP_SEQ_MESH = (2, 16)              # (c) 16 divides neither phi4's 24 q
+                                   # heads nor its 8 kv heads; 512 % 16 = 0
 TP_MIXED_DEVICES = ("cuda:0", "cpu", "cuda:0", "cpu")   # data 2 x model 2
 TP_MIXED_MODELS = (("phi4-mini-3.8b",
                     dict(tie_embeddings=True, vocab_size=500)),
@@ -5312,6 +5323,64 @@ def flat_step_error(old, a: dict, b: dict, slack: float) -> tuple:
             worst = max(worst, float((err[over] / (db.abs()[over] + top)
                                       .clamp(min=1e-300)).max()))
     return math.sqrt(num / max(den, 1e-300)), worst
+
+
+def tp_against_whole(step, state, batch: dict, what: str, level,
+                     topq_threshold) -> dict:
+    """Each client's TP columns against its whole-model autograd gradient
+    through ``local_flatten(·, m)`` (bf16 norm check, ``TP_GRAD_TOL``; the
+    loss ``TP_LOSS_TOL``), and the step fed the TP columns against the same
+    step fed the whole-model ones (``flat_step_error``: the change's
+    relative L2 off the support swaps, ``TP_STEP_TOL``; ``assert_step_
+    close``'s max rule logged). The comparisons' launches are taken back
+    out."""
+    counts = [fn.launches for fn in level.KERNELS]
+    c_ge = topq_threshold.count_ge_cuda.launches
+    plain, w, p = step.round_inputs(batch)
+    tp_cols, whole_cols, tp_loss, whole_loss = [], [], [], []
+    grad_err, loss_err = 0.0, 0.0
+    for k in range(step.k_dp):
+        c, loss_k = step.client_cols(state.params, plain, k)
+        g, want_k = step.client_grad(state.params, plain, k)
+        ref_k = [step.layout.local_flatten(g, m_, step.agg_dt)
+                 for m_ in range(step.m)]
+        del g
+        for a_, b_ in zip(c, ref_k):
+            grad_err = max(grad_err, float(
+                (a_.float() - b_.float()).norm() / b_.float().norm()))
+        loss_err = max(loss_err, abs(float(loss_k) / float(want_k) - 1))
+        tp_cols.append(c)
+        whole_cols.append(ref_k)
+        tp_loss.append(loss_k)
+        whole_loss.append(want_k)
+    if grad_err > TP_GRAD_TOL or loss_err > TP_LOSS_TOL:
+        raise SystemExit(f"FAIL [tp] {what}: TP columns {grad_err:.3e} "
+                         f"(limit {TP_GRAD_TOL}), loss {loss_err:.3e} "
+                         f"(limit {TP_LOSS_TOL}) from the whole-model "
+                         f"client")
+    parts = []
+    for cols, losses in ((whole_cols, whole_loss), (tp_cols, tp_loss)):
+        new, mt = step.finish(state, cols, step._mean_loss(losses), w, p)
+        parts.append(flat_parts(step, state, new))
+        del new
+    del tp_cols, whole_cols
+    step_err, step_max = flat_step_error(
+        state, parts[1], parts[0], 3 * step.tc.opt.lr * float(
+            mt["lr_scale"]))
+    loose = int((parts[0]["ef0"] != parts[1]["ef0"]).any(dim=0).sum())
+    del parts
+    torch.cuda.synchronize()
+    for fn, c in zip(level.KERNELS, counts):
+        fn.launches = c
+    topq_threshold.count_ge_cuda.launches = c_ge
+    if step_err > TP_STEP_TOL:
+        raise SystemExit(f"FAIL [tp] {what}: the step fed the TP columns is "
+                         f"{step_err:.3e} (relative L2 of the change) from "
+                         f"the step fed the whole-model columns (limit "
+                         f"{TP_STEP_TOL})")
+    return dict(grad_rel_l2=grad_err, loss_rel=loss_err,
+                step_rel_l2=step_err, step_max_rule=step_max,
+                support_differs=loose)
 
 
 def tp_full(level, topq_threshold, card: str) -> tuple:
@@ -5417,56 +5486,12 @@ def tp_full(level, topq_threshold, card: str) -> tuple:
         state = holder[0]
         row.update(profiled_ms=prof[0], device_busy_ms=prof[1],
                    device_ops=prof[2], top_kernels=prof[3])
-        # the TP columns against the whole-model ones, and the step fed
-        # each (comparisons: their launches are taken back out)
-        counts = [fn.launches for fn in level.KERNELS]
-        c_ge = topq_threshold.count_ge_cuda.launches
-        plain, w, p = step.round_inputs(batch())
-        tp_cols, whole_cols, tp_loss, whole_loss = [], [], [], []
-        grad_err, loss_err = 0.0, 0.0
-        for k in range(step.k_dp):
-            c, loss_k = step.client_cols(state.params, plain, k)
-            g, want_k = step.client_grad(state.params, plain, k)
-            ref_k = [step.layout.local_flatten(g, m_, step.agg_dt)
-                     for m_ in range(step.m)]
-            del g
-            for a_, b_ in zip(c, ref_k):
-                grad_err = max(grad_err, float(
-                    (a_.float() - b_.float()).norm() / b_.float().norm()))
-            loss_err = max(loss_err, abs(float(loss_k) / float(want_k) - 1))
-            tp_cols.append(c)
-            whole_cols.append(ref_k)
-            tp_loss.append(loss_k)
-            whole_loss.append(want_k)
-        if grad_err > TP_GRAD_TOL or loss_err > TP_LOSS_TOL:
-            raise SystemExit(f"FAIL [tp] {what}: TP columns {grad_err:.3e} "
-                             f"(limit {TP_GRAD_TOL}), loss {loss_err:.3e} "
-                             f"(limit {TP_LOSS_TOL}) from the whole-model "
-                             f"client")
-        parts = []
-        for cols, losses in ((whole_cols, whole_loss), (tp_cols, tp_loss)):
-            new, mt = step.finish(state, cols, step._mean_loss(losses), w, p)
-            parts.append(flat_parts(step, state, new))
-            del new
-        del tp_cols, whole_cols
-        step_err, step_max = flat_step_error(
-            state, parts[1], parts[0], 3 * tc_k.opt.lr * float(
-                mt["lr_scale"]))
-        loose = int((parts[0]["ef0"] != parts[1]["ef0"]).any(dim=0).sum())
-        del parts
-        torch.cuda.synchronize()
-        for fn, c in zip(level.KERNELS, counts):
-            fn.launches = c
-        topq_threshold.count_ge_cuda.launches = c_ge
-        row.update(grad_rel_l2=grad_err, loss_rel=loss_err,
-                   step_rel_l2=step_err, step_max_rule=step_max,
-                   support_differs=loose)
+        row.update(tp_against_whole(step, state, batch(), what, level,
+                                    topq_threshold))
         log("[tp] " + json.dumps(row))
-        if step_err > TP_STEP_TOL:
-            raise SystemExit(f"FAIL [tp] {what}: the step fed the TP "
-                             f"columns is {step_err:.3e} (relative L2 of the "
-                             f"change) from the step fed the whole-model "
-                             f"columns (limit {TP_STEP_TOL})")
+        grad_err, loss_err = row["grad_rel_l2"], row["loss_rel"]
+        step_err, step_max = row["step_rel_l2"], row["step_max_rule"]
+        loose = row["support_differs"]
         log(f"[tp] (a) {what} ({cfg.num_layers} of 32 layers; reduced: "
             f"{TRAIN_FULL_WHY}) on {step.k_dp}x{step.m} ranks of cuda:0, "
             f"every leaf split over M = {step.m}, bf16, batch {TRAIN_BATCH} "
@@ -5488,6 +5513,134 @@ def tp_full(level, topq_threshold, card: str) -> tuple:
     del state
     torch.cuda.empty_cache()
     return rows, total
+
+
+def tp_seq(level, topq_threshold, card: str) -> tuple:
+    """(c) phi4-mini at full widths on ``TP_SEQ_MESH`` ranks of ``cuda:0``:
+    16 divides neither its 24 q heads nor its 8 kv heads, so each client's
+    attention splits by query sequence (``attention.query_blocks``; rank m
+    takes query rows ``[32m, 32m + 32)`` of 512). One CL-SIA step, its
+    attention calls counted by the rank whose query block they take (all
+    M ranks, equally; none whole); the card's peak over the init and the
+    step held to ``dry_run_cell``'s prediction for the same mesh (±1 %);
+    the fullest rank's peak estimate on one fake device a rank beside the
+    same for the parent's form (``query_blocks`` → 1: the sub-layer whole
+    on rank (k, 0)); the TP columns and the step fed them against the
+    whole-model ones (``tp_against_whole``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.algorithms import AggConfig, AggKind
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention
+    from repro_torch.train import TrainConfig, build_train_step, init_state
+
+    cfg = dataclasses.replace(get_config(TRAIN_FULL_ARCH),
+                              num_layers=TRAIN_FULL_LAYERS)
+    mesh = make_mesh(TP_SEQ_MESH, ("data", "model"),
+                     ["cuda:0"] * math.prod(TP_SEQ_MESH))
+    tc = TrainConfig(agg=AggConfig(kind=AggKind.CL_SIA, q=1))
+    step = build_train_step(cfg, tc, mesh)
+    m = step.m
+    what = f"{cfg.name} cl_sia on {step.k_dp}x{m}"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+
+    def batch():
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                             generator=gen, device="cuda")
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    if step.phase1_form(batch()) != "tensor_parallel":
+        raise SystemExit(f"FAIL [tp] (c) {what}: phase 1 form "
+                         f"{step.phase1_form(batch())}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_state(cfg, tc, mesh,
+                       torch.Generator(device="cuda").manual_seed(SEED))
+    want = train_launches(step)
+    rows = TRAIN_SEQ // m
+    by_rank: dict = {}
+    real = attention.plain_attention
+
+    def counted(q, k, v, **kw):
+        r = (kw.get("q_offset", 0) // rows if q.shape[1] == rows
+             else "whole")
+        by_rank[r] = by_rank.get(r, 0) + 1
+        return real(q, k, v, **kw)
+
+    attention.plain_attention = counted
+    try:
+        before = launch_counts(level, topq_threshold)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, mt = step(state, batch())
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        attention.plain_attention = real
+    got = grown(before, launch_counts(level, topq_threshold))
+    if got != want:
+        raise SystemExit(f"FAIL [tp] (c) {what}: launches {got}, predicted "
+                         f"{want}")
+    if not math.isfinite(float(mt["loss"])):
+        raise SystemExit(f"FAIL [tp] (c) {what}: loss {mt['loss']}")
+    if set(by_rank) != set(range(m)) or len(set(by_rank.values())) != 1:
+        raise SystemExit(f"FAIL [tp] (c) {what}: attention calls by query "
+                         f"block {by_rank}, want each of the {m} ranks' "
+                         f"blocks alike and none whole")
+    measured = torch.cuda.max_memory_allocated() - base
+    shape = ShapeSpec("phase15-seq", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t = time.perf_counter()
+    pred = dryrun.dry_run_cell(cfg, shape, mesh, tc)
+    peak_err = held_peak("phase 15's phi4 sequence-split cell",
+                         pred["device_peak_bytes"], measured)
+    per = dryrun.dry_run_cell(cfg, shape, dryrun.rank_mesh(mesh), tc)
+    real_blocks = attention.query_blocks
+    attention.query_blocks = lambda *a: 1
+    try:
+        parent = dryrun.dry_run_cell(cfg, shape, dryrun.rank_mesh(mesh), tc)
+    finally:
+        attention.query_blocks = real_blocks
+    dry_s = time.perf_counter() - t
+    row = dict(arch=cfg.name, layers=cfg.num_layers,
+               reduced="num_layers 32 -> 2, as (a)", mesh=list(TP_SEQ_MESH), kind="cl_sia", batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, form="tensor_parallel, attention by query "
+               "sequence", step_ms=step_ms, launches_per_step=want,
+               attention_calls_by_rank={str(k): v for k, v in
+                                        by_rank.items()},
+               peak_bytes=measured, predicted=pred["device_peak_bytes"],
+               peak_err=peak_err, dry_run_s=dry_s,
+               rank_peak_bytes=per["rank_peak_bytes"],
+               rank_peak_device=per["rank_peak_device"],
+               rank_estimate=per["memory_analysis"]["peak_bytes_estimate"],
+               parent_rank_peak_bytes=parent["rank_peak_bytes"],
+               parent_rank_peak_device=parent["rank_peak_device"],
+               parent_rank_estimate=parent["memory_analysis"][
+                   "peak_bytes_estimate"])
+    log(f"[tp] (c) {what}: the fullest rank ({per['rank_peak_device']}) "
+        f"peaks at {per['rank_peak_bytes'] / 1e9:.4f} GB on one fake device "
+        f"a rank (estimate {row['rank_estimate'] / 1e9:.4f} GB); the "
+        f"parent's form (attention whole on rank (k, 0)): "
+        f"{parent['rank_peak_bytes'] / 1e9:.4f} GB on "
+        f"{parent['rank_peak_device']} (estimate "
+        f"{row['parent_rank_estimate'] / 1e9:.4f} GB); dry runs "
+        f"{dry_s:.1f} s")
+    row.update(tp_against_whole(step, state, batch(), f"(c) {what}", level,
+                                topq_threshold))
+    log("[tp] " + json.dumps(row))
+    log(f"[tp] (c) {what} ({cfg.num_layers} of 32 layers, as (a)) on "
+        f"ranks of cuda:0, bf16, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: attention calls by rank's query block {by_rank}; "
+        f"one step {step_ms:.2f} ms; card peak {measured / 1e9:.4f} GB, dry "
+        f"run {row['predicted'] / 1e9:.4f} GB ({100 * peak_err:+.2f} %); "
+        f"TP columns = whole-model columns to {row['grad_rel_l2']:.3e} rel "
+        f"L2 (limit {TP_GRAD_TOL}), loss {row['loss_rel']:.3e}; the step "
+        f"fed either set: change {row['step_rel_l2']:.3e} rel L2 apart "
+        f"(limit {TP_STEP_TOL}); launches/step {want}; {card}")
+    del state, step
+    torch.cuda.empty_cache()
+    return [row], got
 
 
 def tp_mixed(level, topq_threshold, card: str) -> tuple:
@@ -5572,15 +5725,18 @@ def tp_mixed(level, topq_threshold, card: str) -> tuple:
 
 def tp_path(level, topq_threshold) -> dict:
     """Phase 15: tensor-parallel client compute. Every launch count is set
-    to 0 before each of the phase's two drives and read after it."""
+    to 0 before each of the phase's three drives and read after it."""
     t_phase = time.perf_counter()
     card = nvidia_smi()
     level.reset_launch_counts()
     full, total = tp_full(level, topq_threshold, card)
     level.reset_launch_counts()
+    seq, more = tp_seq(level, topq_threshold, card)
+    total = add_counts(total, more)
+    level.reset_launch_counts()
     mixed, more = tp_mixed(level, topq_threshold, card)
     total = add_counts(total, more)
-    log("[tp] " + json.dumps(dict(full=full, mixed=mixed)))
+    log("[tp] " + json.dumps(dict(full=full, seq=seq, mixed=mixed)))
     log(f"[tp] phase 15 launches: {total}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return total

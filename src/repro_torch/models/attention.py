@@ -9,11 +9,11 @@ mesh and are the identity on one process, so they have no counterpart.
 
 Caches are updated in place: a K/V cache passed to :func:`run_attention`
 is consumed (its slot or prefix is overwritten) and returned.
-:func:`run_attention_tp` is the training sub-layer split by heads over a
-client's ranks (:mod:`repro_torch.models.tp`), and with a cache site the
-serving one; :func:`decode_partial` and
-:func:`combine_partials` are decode split over blocks of cache slots
-(split-K, :mod:`repro_torch.models.serve_split`).
+:func:`run_attention_tp` is the training sub-layer split over a client's
+ranks (:mod:`repro_torch.models.tp`) by heads, or by query sequence where
+the heads do not divide them, and with a cache site the serving one;
+:func:`decode_partial` and :func:`combine_partials` are decode split over
+blocks of cache slots (split-K, :mod:`repro_torch.models.serve_split`).
 """
 
 from __future__ import annotations
@@ -276,21 +276,45 @@ def _kv_heads(m: int, hq_local: int, group: int, device) -> torch.Tensor:
     return torch.arange(lo, lo + hq_local, device=device) // group
 
 
+def query_blocks(m: int, cfg_heads: int, s: int,
+                 blocked_threshold: int) -> int:
+    """How many query-sequence blocks :func:`run_attention_tp` splits a
+    sub-layer of ``s`` tokens into over a client's ``m`` ranks: ``m`` where
+    the q heads do not divide it (so neither the kv heads nor the group
+    does), it divides ``s`` and the scores are materialized (``s <
+    blocked_threshold``) — the reference's ``_constrain_scores`` rule,
+    which pins the scores' query dim to ``model`` there — else 1 (heads
+    split, or the whole form)."""
+    if m > 1 and cfg_heads % m and not s % m and s < blocked_threshold:
+        return m
+    return 1
+
+
 def run_attention_tp(ps: list, x: torch.Tensor, tp, *, cfg_heads: int,
                      cfg_kv: int, head_dim: int, rope_theta: float,
                      window: int, blocked_threshold: int = 8192,
                      q_chunk: int = 1024, k_chunk: int = 1024,
                      cache=None) -> torch.Tensor:
-    """The sub-layer split by heads over ``tp``'s ranks: ``ps[m]`` is rank
-    m's attention tree, ``x`` the replicated input on rank 0's device →
-    the output there.
+    """The sub-layer split over ``tp``'s ranks: ``ps[m]`` is rank m's
+    attention tree, ``x`` the replicated input on rank 0's device → the
+    output there.
 
-    Column-parallel ``wq/wk/wv`` (and biases) by heads, the attention of
-    each rank's heads on its device, row-parallel ``wo`` summed over the
-    ranks. Where the kv heads do not divide the ranks (``param_pspecs``
-    replicates ``wk/wv``), k and v are projected once on rank 0's device
-    and each rank takes the kv heads its q heads use; where the q heads do
-    not divide, the sub-layer runs whole there.
+    Where the q heads divide the ranks: column-parallel ``wq/wk/wv`` (and
+    biases) by heads, the attention of each rank's heads on its device,
+    row-parallel ``wo`` summed over the ranks. Where the kv heads do not
+    divide (``param_pspecs`` replicates ``wk/wv``), k and v are projected
+    once on rank 0's device and each rank takes the kv heads its q heads
+    use.
+
+    Where the q heads do not divide, :func:`query_blocks` decides. Split
+    by query sequence, rank m takes query rows ``[m·s/M, (m+1)·s/M)``: it
+    projects them with the whole (replicated) ``wq``, attends to the whole
+    k/v — projected once on rank 0's device and copied to every rank — and
+    applies the whole ``wo``; the blocks' outputs are concatenated on rank
+    0's device. The weights reach the ranks through :meth:`TP.scatter`, so
+    their gradient is the ranks' partials summed on rank 0 in float32.
+    Otherwise (``s`` not a multiple of M, the blocked path, a decode) the
+    sub-layer runs whole on rank 0's device.
 
     Without ``cache`` it is the training form (causal, no cache). With one
     (a serving split's cache site, :mod:`repro_torch.models.serve_split`)
@@ -301,6 +325,12 @@ def run_attention_tp(ps: list, x: torch.Tensor, tp, *, cfg_heads: int,
     blocks; a prefill attends to the fresh k/v as training does."""
     from repro_torch.models.tp import check_shape
     q_ok, hq = tp.split(cfg_heads)
+    b, s, d = x.shape
+    if query_blocks(tp.m, cfg_heads, s, blocked_threshold) > 1:
+        return _by_query_blocks(ps[0], x, tp, cfg_heads=cfg_heads,
+                                cfg_kv=cfg_kv, head_dim=head_dim,
+                                rope_theta=rope_theta, window=window,
+                                cache=cache)
     if not q_ok and cache is None:
         return run_attention(ps[0], x, cfg_heads=cfg_heads, cfg_kv=cfg_kv,
                              head_dim=head_dim, rope_theta=rope_theta,
@@ -308,7 +338,6 @@ def run_attention_tp(ps: list, x: torch.Tensor, tp, *, cfg_heads: int,
                              blocked_threshold=blocked_threshold,
                              q_chunk=q_chunk, k_chunk=k_chunk)[0]
     kv_ok, hkv = tp.split(cfg_kv)
-    b, s, d = x.shape
     pos = None if cache is None else cache.pos
 
     def positions(dev):
@@ -358,3 +387,35 @@ def run_attention_tp(ps: list, x: torch.Tensor, tp, *, cfg_heads: int,
                                             window=window))
     parts = [attn_out(p, o) for (p, _), o in zip(ranks, outs)]
     return tp.reduce(parts) if len(parts) > 1 else parts[0]
+
+
+def _by_query_blocks(p: dict, x: torch.Tensor, tp, *, cfg_heads: int,
+                     cfg_kv: int, head_dim: int, rope_theta: float,
+                     window: int, cache=None) -> torch.Tensor:
+    """:func:`run_attention_tp` split by query sequence, block m on rank m
+    (``p`` rank 0's tree, its weights whole)."""
+    from repro_torch.device import to_device
+    from repro_torch.models.tp import check_shape
+    b, s, d = x.shape
+    rows = s // tp.m
+    check_shape(p["wq"], (d, cfg_heads * head_dim), "wq")
+    check_shape(p["wo"], (cfg_heads * head_dim, d), "wo")
+    k = _project(x, p["wk"], p.get("bk"), cfg_kv, head_dim,
+                 torch.arange(s, device=x.device)[None, :], rope_theta)
+    v = _project(x, p["wv"], p.get("bv"), cfg_kv, head_dim, None, rope_theta)
+    if cache is not None:
+        cache.write([(k, v)], s)
+    ks, vs = tp.scatter(k), tp.scatter(v)
+    wqs, wos = tp.scatter(p["wq"]), tp.scatter(p["wo"])
+    bqs = tp.scatter(p["bq"]) if "bq" in p else [None] * tp.m
+    outs = []
+    for m, dev in enumerate(tp.devices):
+        lo = m * rows
+        xm = to_device(x[:, lo:lo + rows], dev)
+        q = _project(xm, wqs[m], bqs[m], cfg_heads, head_dim,
+                     torch.arange(lo, lo + rows, device=dev)[None, :],
+                     rope_theta)
+        o = plain_attention(q, ks[m], vs[m], causal=True, window=window,
+                            q_offset=lo)
+        outs.append(to_device(attn_out({"wo": wos[m]}, o), tp.home))
+    return torch.cat(outs, dim=1)

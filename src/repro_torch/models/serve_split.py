@@ -27,10 +27,13 @@ cache length:
   rank (k, 0), each rank taking the kv heads its q heads use), ``wo``
   row-parallel summed by ``TP.reduce`` (f32, ``pair_sum``'s order), the
   MLP and the MoE experts by ``d_ff``, the embedding and the logits by
-  vocabulary. The replicated work — norms, residuals, the router, mamba
-  blocks, attention whose q heads do not divide M — runs once, on rank
-  (k, 0); an SSM block's new conv window and state are copied to the
-  ranks that replicate them;
+  vocabulary; a prefill whose q heads do not divide M splits its queries
+  by sequence block where ``attention.query_blocks`` says so (its k/v go
+  to the cache as one all-heads entry from rank (k, 0)). The replicated
+  work — norms, residuals, the router, mamba blocks, a decode's attention
+  whose q heads do not divide M — runs once, on rank (k, 0); an SSM
+  block's new conv window and state are copied to the ranks that
+  replicate them;
 * **the cache writes**: prefill writes the prompt's k/v into each block's
   slots (an SWA ring keeps the last ``smax`` positions, with the
   ``s % smax == 0`` rule of the whole form); decode writes the new k/v

@@ -29,11 +29,17 @@ by ``d_ff`` with ``w_down`` row-parallel, the MoE experts' ``d_ff``, the
 vocab-parallel ``embed`` lookup (masked to the rank's vocab range, summed)
 and logits (the ``-1e30`` pad mask on the shard that owns the pad slots),
 and the vocab-parallel cross-entropy (max, Σ exp and the label's logit each
-reduced over the ranks). The replicated work — norms, residual adds, RoPE
-of replicated kv heads, the MoE router and its dispatch, mamba blocks, any
-block whose leaf is replicated because its heads, ``d_ff`` or vocabulary do
-not divide M, the frontends' ``torch.where`` and add — runs **once**, on
-rank 0's device, with the output copied by :meth:`TP.scatter`. The
+reduced over the ranks). Attention whose q heads do not divide M splits by
+query sequence where the reference's ``_constrain_scores`` pins the scores'
+query dim to ``model`` (:func:`~repro_torch.models.attention.query_blocks`):
+rank m attends with query rows ``[m·S/M, (m+1)·S/M)`` and the whole
+weights, and the blocks are concatenated on rank 0's device. The replicated
+work — norms, residual adds, RoPE of replicated kv heads, the MoE router
+and its dispatch, mamba blocks, any block whose leaf is replicated because
+its ``d_ff`` or vocabulary do not divide M (or its heads, where
+``query_blocks`` leaves the attention whole), the frontends' ``torch.where``
+and add — runs **once**, on rank 0's device, with the output copied by
+:meth:`TP.scatter`. The
 reference runs it on every rank; the port's ranks may share one card (the
 one-card mesh), where M copies would cost M times the work for the same
 numbers, and running it once keeps the routing of an MoE identical on every

@@ -13,7 +13,11 @@ SMOKE configs in f32 on ``["cpu"] * n`` meshes, one per cache layout of
 * (4, 1) and (2, 2), batch 1 — the batch does not divide the DP ranks:
   split-K decode over ``data`` (with heads over ``model`` on (2, 2));
 * ``["cpu", "cpu:0"] * 2`` on (2, 2) — two mesh devices, so the ranks'
-  blocks and sums cross devices.
+  blocks and sums cross devices;
+* (1, 4), batch 2 — phi4's 6 q heads and 2 kv heads do not divide 4, so a
+  prompt whose length 4 divides splits its queries by sequence block over
+  ``model`` (``attention.query_blocks``) and one whose length it does not
+  runs the attention whole on rank 0.
 
 For dense GQA (phi4), MoE with an SWA ring (mixtral, whose prompt fills
 the 32-slot ring and whose decode runs 17 steps past it), SSM (mamba2)
@@ -30,6 +34,7 @@ request, and granite's one kv head puts the cache's sequence over
 rescale of its pieces fails the comparison.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -248,6 +253,48 @@ def test_dropping_the_rescale_of_the_pieces_fails(monkeypatch, layout):
     err = max(float((a - b).abs().max()) for a, b in zip(got[1:], want[1:]))
     assert err > 100 * TOL["atol"], err
     assert math.isfinite(err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [12, 13])
+def test_a_split_prefill_splits_its_queries_where_heads_do_not_divide(
+        monkeypatch, s, dtype):
+    """phi4 SMOKE on (1, 4): 4 divides neither its 6 q heads nor its 2 kv
+    heads. A 12-token prompt's attention runs on the 4 ranks' query blocks
+    (offsets 0, 3, 6, 9), a 13-token one whole on rank 0; both equal the
+    whole form, teacher-forced (f32 to ``TOL``; bf16 to a relative L2 of
+    5e-2 per step)."""
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True),
+                              param_dtype=dtype)
+    mesh = make_mesh((1, 4), ("data", "model"), ["cpu"] * 4)
+    gen = 5
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = _tokens(cfg, 2, s + gen)
+    want, cache = _whole(cfg, params, toks, s, gen)
+    calls = []
+    real = attention.plain_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((kw.get("q_offset", 0), q.shape[1], k.shape[1]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(attention, "plain_attention", spy)
+    got, placed_cache, sp, _ = _split(cfg, params, toks, s, gen, mesh)
+    prefill = [c for c in calls if c[2] == s]
+    blocks = ([(m * s // 4, s // 4, s) for m in range(4)] if s % 4 == 0
+              else [(0, s, s)])
+    assert prefill == blocks * cfg.num_layers, prefill
+    for step, (a, b) in enumerate(zip(got, want)):
+        if dtype == "float32":
+            torch.testing.assert_close(a, b, **TOL,
+                                       msg=f"s={s} step {step}")
+        else:
+            err = float((a.float() - b.float()).norm() / b.float().norm())
+            assert err <= 5e-2, (s, step, err)
+    if dtype == "float32":
+        for a, b in zip(_leaves(sp.gather_cache(placed_cache, "cpu")),
+                        _leaves(cache)):
+            torch.testing.assert_close(a, b, **TOL)
 
 
 def test_generate_over_a_mesh_gives_the_whole_forms_tokens():

@@ -14,7 +14,8 @@
   routing groups and the aux comes from the client-wide fractions; one
   step each, the others two); on
   (2, 4) phi4 (6 heads, which 4 does not
-  divide, so its attention runs whole; ``d_ff`` and the vocabulary
+  divide, so its attention splits by query sequence, as the reference's
+  ``_constrain_scores`` pins its scores; ``d_ff`` and the vocabulary
   split). F32: the port's own run keeps the loss to rtol
   1e-5; each step from the reference's state has the loss to rtol 1e-5,
   the support equal but for swaps at a tie and the change of master and
